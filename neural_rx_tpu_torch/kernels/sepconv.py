@@ -1,0 +1,138 @@
+"""Fused separable-conv stack: wrapper of the CUDA kernel and its plain version.
+
+Counterpart of `neural_rx_tpu/kernels/sepconv_pallas.py` (`fused_conv_stack`
+and `fused_conv_stack_blocked`, one Hopper kernel for both:
+`csrc/sepconv_stack.cu`).
+
+A stack `p` is {"hidden": [layer, ...], "out": layer} with each layer
+{"dw": [3, 3, 1, C], "pw": [C, O], "b": [O]} (the JAX layout). Activations
+are channels-last [N, H, W, C] in float32 or bfloat16; ReLU follows every
+hidden layer, the output layer is linear.
+
+Dispatch: a CPU tensor goes to the plain PyTorch version, a CUDA tensor
+launches the kernel or raises. The plain version is the kernel's oracle.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+MAX_LAYERS = 4
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# Kernel launches since the last reset; the wrapper adds one per launch.
+launches = 0
+
+
+def _layers(p):
+    return list(p["hidden"]) + [p["out"]]
+
+
+def _valid_range(sc_valid, w: int) -> tuple[int, int]:
+    """The valid column range [lo, hi): None (full width), a count of
+    leading valid columns, or an explicit (lo, hi) pair."""
+    if sc_valid is None:
+        return 0, w
+    if isinstance(sc_valid, (tuple, list)):
+        if len(sc_valid) != 2:
+            raise ValueError(f"sc_valid pair expected, got {sc_valid!r}")
+        return int(sc_valid[0]), int(sc_valid[1])
+    return 0, int(sc_valid)
+
+
+def sepconv_stack_reference(p, x: torch.Tensor, sc_valid=None
+                            ) -> torch.Tensor:
+    """Plain PyTorch version of the stack, with the kernel's rounding points:
+    depthwise taps accumulated in float32 in the reference's order and
+    rounded to x.dtype, pointwise product in float32 plus the bias, ReLU on
+    hidden layers, rounded to x.dtype. Weights are rounded to x.dtype first.
+    Columns outside [lo, hi) are zeroed before every layer and after the
+    last."""
+    dtype = x.dtype
+    n, h, w, _ = x.shape
+    lo, hi = _valid_range(sc_valid, w)
+    col = torch.arange(w, device=x.device)
+    valid = ((col >= lo) & (col < hi))[None, None, :, None]
+    zero = torch.zeros((), dtype=dtype, device=x.device)
+    x = torch.where(valid, x, zero)
+    layers = _layers(p)
+    for li, lp in enumerate(layers):
+        dw = lp["dw"][:, :, 0, :].to(dtype).float()
+        pw = lp["pw"].to(dtype).float()
+        b = lp["b"].to(dtype).float()
+        xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+        acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        for dy in range(3):
+            for dx in range(3):
+                acc = acc + xp[:, dy:dy + h, dx:dx + w, :] * dw[dy, dx]
+        y = torch.matmul(acc.to(dtype).float(), pw) + b
+        if li < len(layers) - 1:
+            y = torch.relu(y)
+        x = torch.where(valid, y.to(dtype), zero)
+    return x
+
+
+def pack_stack(p, dtype: torch.dtype) -> torch.Tensor:
+    """The stack's weights as one contiguous buffer of `dtype` on the
+    weights' device: per layer dw [9][C], pw [C][O], b [O] (the layout of
+    `nrx_sepconv_stack`). Built once and kept in p["packed"]; the weights
+    of a served model do not change."""
+    cache = p.setdefault("packed", {})
+    if dtype not in cache:
+        parts = []
+        for lp in _layers(p):
+            parts += [lp["dw"].reshape(-1), lp["pw"].reshape(-1),
+                      lp["b"].reshape(-1)]
+        cache[dtype] = torch.cat(parts).to(dtype).contiguous()
+    return cache[dtype]
+
+
+def fused_conv_stack(p, x: torch.Tensor, sc_valid=None) -> torch.Tensor:
+    """The stack applied to x [N, H, W, C_in] -> [N, H, W, C_out].
+
+    sc_valid: None, a leading-valid column count or a (lo, hi) pair;
+    columns outside the valid range are re-zeroed before every layer and
+    after the last. CPU tensors take the plain version; CUDA tensors launch
+    the kernel."""
+    if x.device.type == "cpu":
+        return sepconv_stack_reference(p, x, sc_valid)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return _launch(p, x, sc_valid)
+
+
+def _launch(p, x: torch.Tensor, sc_valid) -> torch.Tensor:
+    global launches
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"sepconv_stack takes float32 or bfloat16, not "
+                        f"{x.dtype}")
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous [N, H, W, C] tensor")
+    layers = _layers(p)
+    widths = [x.shape[-1]] + [int(lp["pw"].shape[1]) for lp in layers]
+    if len(layers) > MAX_LAYERS:
+        raise ValueError(f"at most {MAX_LAYERS} layers, got {len(layers)}")
+    if any(int(lp["pw"].shape[0]) != c for lp, c in zip(layers, widths)):
+        raise ValueError(f"channel widths do not chain: {widths}")
+    w = pack_stack(p, x.dtype)
+    if w.device != x.device:
+        raise ValueError(f"weights on {w.device}, activations on {x.device}")
+    n, h, wc, _ = x.shape
+    lo, hi = _valid_range(sc_valid, wc)
+    out = torch.empty((n, h, wc, widths[-1]), dtype=x.dtype, device=x.device)
+    c_widths = (ctypes.c_int * len(widths))(*widths)
+    lib = _build.load()
+    rc = lib.nrx_sepconv_stack(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), _DTYPE_CODES[x.dtype],
+        n, h, wc, len(layers), ctypes.cast(c_widths, ctypes.c_void_p),
+        lo, hi, torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("sepconv_stack launch failed: "
+                           + lib.nrx_cuda_error_string(rc).decode())
+    launches += 1
+    return out

@@ -1,0 +1,191 @@
+"""CGNN neural-receiver core (serving path) in PyTorch.
+
+Counterpart of `neural_rx_tpu/rx/cgnn.py`. Parameters are the JAX package's
+tree with torch tensors as leaves: {"s_init": [stack], "iterations":
+[{"agg": mlp, "update": stack}], "readout_llrs": [mlp], "readout_chest":
+mlp}; a stack is {"hidden": [...], "out": {"dw", "pw", "b"}}, an MLP
+{"hidden": [...], "out": {"w", "b"}}. Layout is channels-last
+[batch*num_tx, sym, sc, ch] as in the JAX package.
+
+Computation dtype follows the `dtype` argument (float32 or bfloat16 with
+float32 parameters cast at each use), with the JAX package's rounding
+points. With `CGNNConfig.fused_convs` the separable-conv stacks run in the
+CUDA kernel of `kernels/sepconv.py`; otherwise in its plain version.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..kernels.sepconv import fused_conv_stack, sepconv_stack_reference
+
+
+@dataclasses.dataclass(frozen=True)
+class CGNNConfig:
+    """Static hyper-parameters (reference [neural_receiver] cfg section)."""
+    num_bits_per_symbol: tuple  # one entry per MCS
+    num_rx_ant: int
+    num_it: int
+    d_s: int
+    num_units_init: tuple
+    num_units_agg: tuple    # per iteration: tuple of hidden sizes
+    num_units_state: tuple  # per iteration: tuple of hidden sizes
+    num_units_readout: tuple
+    layer_type_conv: str = "sepconv"
+    var_mcs_masking: bool = False
+    fused_convs: bool = False   # conv stacks in the CUDA kernel
+
+    @property
+    def num_mcs(self):
+        return len(self.num_bits_per_symbol)
+
+
+def count_params(params) -> int:
+    """Number of parameter values in a CGNN tree (packed kernel buffers,
+    which repeat the stack weights, are not counted)."""
+    if isinstance(params, torch.Tensor):
+        return params.numel()
+    if isinstance(params, dict):
+        return sum(count_params(v) for k, v in params.items()
+                   if k != "packed")
+    return sum(count_params(v) for v in params)
+
+
+def _apply_conv_stack(p, x, layer_type: str, fused: bool = False,
+                      sc_valid=None):
+    """Separable-conv stack, ReLU after each hidden layer. sc_valid
+    (optional): columns outside the valid range are re-zeroed per layer
+    (exact pad-to-bucket dispatch)."""
+    if layer_type != "sepconv":
+        raise NotImplementedError(f"layer type {layer_type!r} is not ported")
+    if fused:
+        return fused_conv_stack(p, x, sc_valid=sc_valid)
+    return sepconv_stack_reference(p, x, sc_valid=sc_valid)
+
+
+def _apply_mlp(p, x):
+    for lp in p["hidden"]:
+        x = torch.relu(x @ lp["w"].to(x.dtype) + lp["b"].to(x.dtype))
+    return x @ p["out"]["w"].to(x.dtype) + p["out"]["b"].to(x.dtype)
+
+
+def _aggregate_user_states(p, s, active_tx, dtype):
+    """GNN message passing. s: [b, T, sym, sc, d_s]; active_tx: [b, T].
+    a_n = (sum_{n' active} sp_{n'} - sp_n) / max(num_active - 1, 1)."""
+    sp = _apply_mlp(p, s)
+    mask = active_tx.to(dtype)[:, :, None, None, None]
+    sp = sp * mask
+    a = sp.sum(dim=1, keepdim=True) - sp
+    p_cnt = torch.relu(mask.sum(dim=1, keepdim=True) - 1.0)
+    one = torch.ones((), dtype=dtype, device=s.device)
+    scale = torch.where(p_cnt == 0.0, one, 1.0 / torch.clamp(p_cnt, min=1.0))
+    return a * scale
+
+
+def _update_state(p, s, a, pe, layer_type, fused: bool = False,
+                  sc_valid=None):
+    """Conv state update with residual skip."""
+    b, t = s.shape[0], s.shape[1]
+    pe_b = pe[None].expand((b,) + pe.shape)
+    z = torch.cat([a, s, pe_b], dim=-1)
+    z = z.reshape((b * t,) + z.shape[2:])
+    z = _apply_conv_stack(p, z, layer_type, fused, sc_valid)
+    return z.reshape((b, t) + z.shape[1:]) + s
+
+
+def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
+               mcs_ue_mask, dtype=torch.float32, sc_valid=None):
+    """Inference forward for one MCS, final readout only.
+
+    y: [b, sym, sc, 2*rx_ant]; pe: [T, sym, sc, 2];
+    h_hat: [b, T, sym, sc, 2*rx_ant] (LS estimate); active_tx: [b, T];
+    mcs_ue_mask: [b, T, 1]. sc_valid (optional int): number of valid
+    leading subcarriers of a bucket-padded grid; the power norm then
+    averages over valid REs and every conv layer re-zeros the padding.
+
+    Returns (llrs, h_hats) shaped like the JAX package's: [[llr]] with llr
+    [b, T, sym, sc, num_bits] and [h_hat] [b, T, sym, sc, 2*rx_ant], float32.
+    """
+    if cfg.num_mcs != 1 or cfg.var_mcs_masking:
+        raise NotImplementedError("the serving path is single-MCS")
+    b = y.shape[0]
+    t = pe.shape[0]
+    n_sc = y.shape[2]
+
+    sc_mask = None
+    if sc_valid is not None:
+        sc_mask = (torch.arange(n_sc, device=y.device) < sc_valid).to(
+            torch.float32)[None, None, :, None]
+        y = y * sc_mask
+        pe = pe * sc_mask
+        h_hat = h_hat * sc_mask[None]
+
+    # Input power normalization: unit mean power per batch sample
+    mean_sq = (y.float() ** 2).mean(dim=(1, 2, 3), keepdim=True)
+    if sc_valid is not None:
+        mean_sq = mean_sq * (n_sc / float(sc_valid))
+    norm = torch.rsqrt(mean_sq + 1e-12)
+    y = (y * norm).to(dtype)
+    pe = pe.to(dtype)
+    h_hat = (h_hat * norm[:, None]).to(dtype)
+
+    # Stack per-user input: broadcast y to all users
+    y_b = y[:, None].expand((b, t) + y.shape[1:])
+    pe_b = pe[None].expand((b, t) + pe.shape[1:])
+    z0 = torch.cat([y_b, pe_b, h_hat], dim=-1)
+    z0_flat = z0.reshape((b * t,) + z0.shape[2:])
+
+    s = _apply_conv_stack(params["s_init"][0], z0_flat, cfg.layer_type_conv,
+                          cfg.fused_convs, sc_valid)
+    s = s.reshape((b, t) + s.shape[1:])
+    s = s * mcs_ue_mask.to(dtype)[:, :, 0:1][..., None, None]
+
+    for i in range(cfg.num_it):
+        it_p = params["iterations"][i]
+        a = _aggregate_user_states(it_p["agg"], s, active_tx, dtype)
+        if sc_mask is not None:
+            # pad columns carry MLP(0); the update stack's first 3x3 conv
+            # would bleed it into the last valid column
+            a = a * sc_mask[None].to(a.dtype)
+        s = _update_state(it_p["update"], s, a, pe, cfg.layer_type_conv,
+                          cfg.fused_convs, sc_valid)
+    llr = _apply_mlp(params["readout_llrs"][0], s).float()
+    h_out = _apply_mlp(params["readout_chest"], s).float()
+    return [[llr]], [h_out]
+
+
+def pilot_positional_encoding(dmrs_grids: np.ndarray,
+                              pilot_mask: np.ndarray) -> np.ndarray:
+    """2-D positional encoding: z-scored distance to the nearest own pilot.
+
+    dmrs_grids: [num_tx, sym, sc] complex (one slot's DMRS bank entry).
+    pilot_mask: [sym, sc] bool (unused beyond the interface).
+    Returns [num_tx, sym, sc, 2] float32 (time-dist, freq-dist), z-scored:
+    time over the symbol axis per (tx, sc), freq over the subcarrier axis
+    per (tx, sym).
+    """
+    num_tx, n_sym, n_sc = dmrs_grids.shape
+    out = np.zeros((num_tx, n_sym, n_sc, 2), np.float32)
+    for tx in range(num_tx):
+        ip, jp = np.where(np.abs(dmrs_grids[tx]) > 1e-3)
+        dt = np.abs(np.arange(n_sym)[:, None, None] - ip[None, None, :])
+        df = np.abs(np.arange(n_sc)[None, :, None] - jp[None, None, :])
+        nearest_t = dt.min(-1).astype(np.float64)  # [sym, 1] broadcast
+        nearest_t = np.broadcast_to(nearest_t, (n_sym, n_sc)).astype(
+            np.float64).copy()
+        nearest_f = np.broadcast_to(df.min(-1), (n_sym, n_sc)).astype(
+            np.float64).copy()
+        nearest_t -= nearest_t.mean(axis=0, keepdims=True)
+        std = nearest_t.std(axis=0, keepdims=True)
+        nearest_t = np.where(std > 0, nearest_t / np.where(std > 0, std, 1),
+                             nearest_t)
+        nearest_f -= nearest_f.mean(axis=1, keepdims=True)
+        std = nearest_f.std(axis=1, keepdims=True)
+        nearest_f = np.where(std > 0, nearest_f / np.where(std > 0, std, 1),
+                             nearest_f)
+        out[tx, ..., 0] = nearest_t
+        out[tx, ..., 1] = nearest_f
+    return out

@@ -1,0 +1,77 @@
+"""CGNN weights: the bridge from the JAX package's parameter tree.
+
+The JAX package pickles its trees with a JAX `PyTreeDef`, which needs JAX
+to read. `scripts/torch_port_export_weights.py` converts such a file into
+an `.npz` of named float32 leaves ("s_init.0.hidden.1.pw", ...: the tree
+path, list indices as numbers), which this module reads with numpy alone.
+Leaves keep the JAX layout (depthwise kernels stay [3, 3, 1, C]).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from .rx.neural_rx import resolve_device
+
+WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "weights")
+NRX_RT_EMA = os.path.join(WEIGHTS_DIR, "nrx_rt_ema_weights.npz")
+
+
+def flatten(tree, prefix: str = "") -> dict:
+    """{dotted path: leaf} of a nested dict/list tree."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(flatten(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def unflatten(leaves: dict):
+    """Inverse of `flatten`: numeric path components become list indices."""
+    root: dict = {}
+    for name, leaf in leaves.items():
+        node = root
+        keys = name.split(".")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [listify(node[str(i)]) for i in range(len(node))]
+        return {k: listify(v) for k, v in node.items()}
+
+    return listify(root)
+
+
+def from_jax_numpy(tree, device="cpu"):
+    """The JAX CGNN parameter tree (numpy or array leaves) as the port's
+    tree of float32 torch tensors on `device`, same structure and layout."""
+    device = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v) for v in node]
+        return torch.tensor(np.asarray(node, np.float32), device=device)
+
+    return conv(tree)
+
+
+def load(path: str = NRX_RT_EMA, device="cuda"):
+    """A CGNN parameter tree from an `.npz` of named leaves."""
+    with np.load(path) as f:
+        leaves = {k: f[k] for k in f.files}
+    return from_jax_numpy(unflatten(leaves), device=device)

@@ -1,0 +1,75 @@
+"""Where the time of one nrx_rt slot goes in the PyTorch port, on the GPU.
+
+Runs `neural_rx_tpu_torch.entry.entry()` (132 PRB, bf16, committed
+weights) under `torch.profiler` for a few slots after a warm-up and prints
+one JSON line: device time per kernel name (summed over the window, per
+slot), the device-busy share of the window, and the host time per slot.
+With --trace, the Chrome trace is written to that path.
+
+    python3 scripts/torch_port_profile_slot.py [--batch 1] [--slots 10] \
+        [--trace slot_trace.json]
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--slots", type=int, default=10)
+    ap.add_argument("--trace", default=None)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from torch.profiler import ProfilerActivity, profile
+    from neural_rx_tpu_torch.entry import entry
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    fn, (params, y) = entry(device="cuda", batch=args.batch)
+    for _ in range(5):
+        fn(params, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.slots):
+            fn(params, y)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels.setdefault(ev.name, [0.0, 0])
+            kernels[ev.name][0] += ev.time_range.elapsed_us() / 1e3
+            kernels[ev.name][1] += 1
+    busy_ms = sum(v[0] for v in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+    print(json.dumps({
+        "card": card, "batch": args.batch, "slots": args.slots,
+        "window_ms_per_slot": window_ms / args.slots,
+        "device_busy_ms_per_slot": busy_ms / args.slots,
+        "device_busy_share": busy_ms / window_ms,
+        "kernels_per_slot": sum(v[1] for v in kernels.values()) / args.slots,
+        "top": [{"name": k[:90], "ms_per_slot": v[0] / args.slots,
+                 "calls_per_slot": v[1] / args.slots} for k, v in top[:25]],
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,53 @@
+"""The PyTorch port stands alone: `neural_rx_tpu_torch/` and `chip_smoke.py`
+import neither JAX nor the JAX package, and the kernel is built with plain
+nvcc from a source without PyTorch headers, not replaced by a library call."""
+
+import ast
+import glob
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "neural_rx_tpu_torch")
+PY_FILES = sorted(glob.glob(os.path.join(PORT, "**", "*.py"),
+                            recursive=True)) + [
+    os.path.join(ROOT, "chip_smoke.py")]
+FORBIDDEN = ("jax", "jaxlib", "neural_rx_tpu", "flax", "optax")
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PY_FILES,
+                         ids=[os.path.relpath(p, ROOT) for p in PY_FILES])
+def test_no_jax_imports(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path} imports {mod}"
+
+
+def test_no_library_kernel_in_place_of_ours():
+    for path in PY_FILES:
+        src = open(path).read()
+        for bad in ("cpp_extension", "torch.compile", "conv2d", "conv1d",
+                    "scaled_dot_product_attention"):
+            assert bad not in src, f"{path} uses {bad}"
+    for path in glob.glob(os.path.join(PORT, "csrc", "*")):
+        assert "torch/extension.h" not in open(path).read()
+
+
+def test_build_flags_target_sm90a():
+    from neural_rx_tpu_torch.kernels import _build
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "-shared" in flags and "-fPIC" in flags
+    assert _build.BUILD_DIR.startswith(PORT)
+    assert os.path.basename(_build.library_path()).startswith(
+        "libnrx_kernels_")
