@@ -9,15 +9,21 @@ toolkit:
 Phases, each printing one JSON line with its seconds:
   1. card: the `nvidia-smi` name and power limit;
   2. build: the CUDA kernels with plain nvcc (`kernels/_build.py`);
-  3. kernel_check: the sepconv-stack kernel against its plain PyTorch
-     version at the three nrx_rt stacks (N=2, 14x1584), float32 and
-     bfloat16, with and without sc_valid;
-  4. main_path: `entry()` at 132 PRB, batch 1, committed weights: shapes,
-     finite values, exactly 3 kernel launches per slot, and the result
-     against the plain-version path on the same card (bfloat16 as served,
-     and the same receiver in float32);
-  5. times: CUDA-event device time per stack launch (kernel and plain) and
-     per slot at batch 1 and 16.
+  3. kernel_check: each kernel against its plain PyTorch version at the
+     nrx_rt widths (N = b*T = 2, 14x1584), float32 and bfloat16, sc_valid
+     None and (5, 1500): the sepconv stack at its three stacks; the CGNN
+     iteration in state and readout modes and the whole-CGNN kernel, with
+     users active (1, 1) and (1, 0);
+  4. main_path: `entry()` at 132 PRB on its routes, each run with the
+     launch counts set to 0 just before and read just after: batch 1 (3
+     sepconv launches, nothing else), batch 16 (1 sepconv, 2 iteration
+     launches) and mega at batch 1 and 16 (1 whole-CGNN launch, nothing
+     else); shapes, finite values, and each route against the same route
+     through the plain versions on this card (bfloat16 as served, and
+     float32);
+  5. times: CUDA-event device time per kernel launch (kernel and plain) at
+     the shapes the main path gives it, with its bound, and per call and
+     slot on each route.
 Then the `kernels` line, and last `{"ok": true, "device": {...}}`. Any
 failure raises and the script exits non-zero. Without a CUDA device it exits
 non-zero before printing anything.
@@ -31,13 +37,15 @@ import time
 
 import numpy as np
 
-# Tolerances: max |kernel - plain| / max |plain|. float32: the pointwise
-# sums run in another order (sequential FMA vs cuBLAS). bfloat16: those
-# order differences flip the last bit of a rounded activation now and then.
+# Tolerances: max |kernel - plain| / max |plain|. float32: the sums run in
+# another order (sequential FMA vs cuBLAS). bfloat16: those order
+# differences flip the last bit of a rounded activation now and then.
 TOL_F32 = 1e-4
 TOL_BF16 = 2e-2
 SC_VALID_CASES = (None, (5, 1500))
+ACTIVE_CASES = ((1.0, 1.0), (1.0, 0.0))
 ROOT = os.path.dirname(os.path.abspath(__file__))
+N_SYM, N_SC, N_TX = 14, 1584, 2
 
 
 def emit(obj):
@@ -57,15 +65,95 @@ def card_peaks(name: str) -> dict:
             "bf16_flops": 989e12, "f32_flops": 67e12}
 
 
+def stack_flops(widths) -> int:
+    """FLOPs of the stack per position: 9 depthwise MACs per input channel,
+    c_in*c_out pointwise MACs and the bias, per layer."""
+    return sum(2 * 9 * ci + 2 * ci * co + co
+               for ci, co in zip(widths[:-1], widths[1:]))
+
+
+def stack_params(widths) -> int:
+    return sum(9 * ci + ci * co + co
+               for ci, co in zip(widths[:-1], widths[1:]))
+
+
 def stack_work(widths, n, h, w, itemsize):
     """(bytes, flops) the stack must move and do: input read once, output
-    written once, weights read once; per position and layer 9 depthwise
-    MACs per input channel, c_in*c_out pointwise MACs and the bias."""
-    flops = sum(2 * 9 * ci + 2 * ci * co + co
-                for ci, co in zip(widths[:-1], widths[1:])) * n * h * w
-    n_w = sum(9 * ci + ci * co + co for ci, co in zip(widths[:-1], widths[1:]))
-    nbytes = (n * h * w * (widths[0] + widths[-1]) + n_w) * itemsize
+    written once, weights read once."""
+    nbytes = (n * h * w * (widths[0] + widths[-1]) + stack_params(widths)) \
+        * itemsize
+    return nbytes, stack_flops(widths) * n * h * w
+
+
+def mlp_dims(p):
+    return (p["hidden"][0]["w"].shape[0], p["hidden"][0]["w"].shape[1],
+            p["out"]["w"].shape[1])
+
+
+def mlp_flops(dims) -> int:
+    i, h, o = dims
+    return 2 * i * h + h + 2 * h * o + o
+
+
+def mlp_params(dims) -> int:
+    i, h, o = dims
+    return i * h + h + h * o + o
+
+
+def widths_of(p):
+    return [p["hidden"][0]["pw"].shape[0]] + [
+        lp["pw"].shape[1] for lp in p["hidden"]] + [p["out"]["pw"].shape[1]]
+
+
+def iteration_work(it_p, b, d_pe, itemsize, readouts=()):
+    """(bytes, flops) of one CGNN iteration at 14x1584 with b*T images:
+    state and pe read once, the state (or the readouts) written once,
+    weights read once; per position the aggregation MLP, the user sum,
+    difference and scale (3 ops a channel), the update stack and the
+    residual, plus the readout MLPs."""
+    agg = mlp_dims(it_p["agg"])
+    widths = widths_of(it_p["update"])
+    d_s = agg[0]
+    n_pos = b * N_TX * N_SYM * N_SC
+    out_ch = sum(mlp_dims(r)[2] for r in readouts) if readouts else d_s
+    flops = n_pos * (mlp_flops(agg) + 3 * d_s + stack_flops(widths) + d_s
+                     + sum(mlp_flops(mlp_dims(r)) for r in readouts))
+    n_w = mlp_params(agg) + stack_params(widths) + sum(
+        mlp_params(mlp_dims(r)) for r in readouts)
+    nbytes = (n_pos * (d_s + out_ch) + N_TX * N_SYM * N_SC * d_pe + n_w) \
+        * itemsize + b * N_TX * 4
     return nbytes, flops
+
+
+def full_work(cgnn, b, d_pe, itemsize):
+    """(bytes, flops) of the whole CGNN: z0 and pe read once, llr and h_hat
+    written once, weights read once; the init stack, every iteration and
+    both readouts per position."""
+    init_w = widths_of(cgnn["s_init"][0])
+    its = cgnn["iterations"]
+    readouts = (cgnn["readout_llrs"][0], cgnn["readout_chest"])
+    n_pos = b * N_TX * N_SYM * N_SC
+    flops = n_pos * stack_flops(init_w)
+    n_w = stack_params(init_w)
+    for i, it_p in enumerate(its):
+        _, f = iteration_work(it_p, b, d_pe, itemsize,
+                              readouts if i == len(its) - 1 else ())
+        flops += f
+        n_w += mlp_params(mlp_dims(it_p["agg"])) + stack_params(
+            widths_of(it_p["update"]))
+    n_w += sum(mlp_params(mlp_dims(r)) for r in readouts)
+    out_ch = sum(mlp_dims(r)[2] for r in readouts)
+    nbytes = (n_pos * (init_w[0] + out_ch) + N_TX * N_SYM * N_SC * d_pe
+              + n_w) * itemsize + b * N_TX * 4
+    return nbytes, flops
+
+
+def bound(nbytes, flops, peaks):
+    t_bytes = nbytes / peaks["bytes_per_s"] * 1e3
+    t_ops = flops / peaks["bf16_flops"] * 1e3
+    return {"bytes": nbytes, "flops": flops, "bytes_ms": t_bytes,
+            "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def rel_err(got, ref):
@@ -90,6 +178,18 @@ def cuda_ms(fn, reps, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def compare(got, ref, dtype, tol):
+    """Error record of kernel outputs against plain outputs (tuples)."""
+    import torch
+    errs = [rel_err(g, r) for g, r in zip(got, ref)]
+    ok = all(g.shape == r.shape and g.dtype == dtype
+             and bool(torch.isfinite(g).all()) for g, r in zip(got, ref))
+    return {"dtype": str(dtype),
+            "max_abs_err": max(float((g.float() - r.float()).abs().max())
+                               for g, r in zip(got, ref)),
+            "rel_err": max(errs), "tol": tol, "ok": ok and max(errs) <= tol}
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -98,13 +198,24 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from neural_rx_tpu_torch.entry import entry, load_params, make_receiver
-    from neural_rx_tpu_torch.kernels import _build, sepconv
+    from neural_rx_tpu_torch.kernels import _build, cgnn_iter, sepconv
     from neural_rx_tpu_torch.rx.cgnn import count_params
 
     # the plain version is the oracle: full float32 products, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    dtypes = ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16))
+
+    def counts():
+        return {"sepconv_stack": sepconv.launches,
+                "cgnn_iter": cgnn_iter.iter_launches,
+                "cgnn_full": cgnn_iter.full_launches}
+
+    def reset():
+        sepconv.launches = 0
+        cgnn_iter.iter_launches = 0
+        cgnn_iter.full_launches = 0
 
     # 1. card
     t0 = time.perf_counter()
@@ -124,11 +235,11 @@ def main() -> int:
     info = _build.build()
     _build.load()
     ptxas = [ln.strip() for ln in info.log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit({"phase": "build", "nvcc_seconds": info.seconds, "ptxas": ptxas,
           "seconds": time.perf_counter() - t0})
 
-    # 3. kernel against plain version at the nrx_rt stack shapes
+    # 3. each kernel against its plain version at the nrx_rt widths
     t0 = time.perf_counter()
     params = load_params(device=dev)
     cgnn = params["cgnn"]
@@ -136,118 +247,243 @@ def main() -> int:
     stacks = {"init": cgnn["s_init"][0],
               "update0": cgnn["iterations"][0]["update"],
               "update1": cgnn["iterations"][1]["update"]}
-    n, h, w = 2, 14, 1584
+    n, h, w = 2, N_SYM, N_SC
     gen = torch.Generator(device=dev).manual_seed(0)
     checks = []
     for sname, p in stacks.items():
         c_in = p["hidden"][0]["pw"].shape[0]
         x32 = torch.randn((n, h, w, c_in), generator=gen, device=dev)
-        for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        for dtype, tol in dtypes:
             x = x32.to(dtype)
             for scv in SC_VALID_CASES:
                 got = sepconv.fused_conv_stack(p, x, sc_valid=scv)
                 ref = sepconv.sepconv_stack_reference(p, x, sc_valid=scv)
                 torch.cuda.synchronize()
-                err = rel_err(got, ref)
-                max_abs = float((got.float() - ref.float()).abs().max())
-                ok = (got.shape == ref.shape and got.dtype == dtype
-                      and bool(torch.isfinite(got).all()) and err <= tol)
+                rec = compare((got,), (ref,), dtype, tol)
                 if scv is not None:
                     lo, hi = scv
-                    ok = ok and not got[:, :, :lo].any() \
+                    rec["ok"] = rec["ok"] and not got[:, :, :lo].any() \
                         and not got[:, :, hi:].any()
-                checks.append({"stack": sname, "dtype": str(dtype),
-                               "sc_valid": scv, "max_abs_err": max_abs,
-                               "rel_err": err, "tol": tol, "ok": ok})
-                assert ok, checks[-1]
+                checks.append({"kernel": "sepconv_stack", "stack": sname,
+                               "sc_valid": scv, **rec})
+                assert rec["ok"], checks[-1]
+
+    rx = make_receiver(device=dev)
+    pe32 = rx.pe
+    d_s = cgnn["iterations"][0]["agg"]["hidden"][0]["w"].shape[0]
+    s32 = 4.0 * torch.randn((1, N_TX, h, w, d_s), generator=gen, device=dev)
+    z32 = torch.randn((1, N_TX, h, w, 18), generator=gen, device=dev)
+    readouts = (cgnn["readout_llrs"][0], cgnn["readout_chest"])
+    for dtype, tol in dtypes:
+        s, z0, pe = s32.to(dtype), z32.to(dtype), pe32.to(dtype)
+        for scv in SC_VALID_CASES:
+            for active in ACTIVE_CASES:
+                act = torch.tensor([active], device=dev)
+                for mode, it_p, ro in (("state", cgnn["iterations"][0], ()),
+                                       ("readout", cgnn["iterations"][1],
+                                        readouts)):
+                    got = cgnn_iter.fused_iteration(it_p, s, pe, act, scv,
+                                                    *ro)
+                    ref = cgnn_iter.fused_iteration_reference(
+                        it_p, s, pe, act, scv, *ro)
+                    torch.cuda.synchronize()
+                    got = got if ro else (got,)
+                    ref = ref if ro else (ref,)
+                    rec = compare(got, ref, dtype, tol)
+                    if scv is not None and not ro:
+                        lo, hi = scv  # the stack adds nothing there
+                        rec["ok"] = rec["ok"] and bool(
+                            torch.equal(got[0][:, :, :, hi:], s[:, :, :, hi:])
+                            and torch.equal(got[0][:, :, :, :lo],
+                                            s[:, :, :, :lo]))
+                    checks.append({"kernel": "cgnn_iter", "mode": mode,
+                                   "sc_valid": scv, "active": active, **rec})
+                    assert rec["ok"], checks[-1]
+                got = cgnn_iter.fused_cgnn_full(cgnn, z0, pe, act, scv)
+                ref = cgnn_iter.fused_cgnn_full_reference(cgnn, z0, pe, act,
+                                                          scv)
+                torch.cuda.synchronize()
+                rec = compare(got, ref, dtype, tol)
+                checks.append({"kernel": "cgnn_full", "sc_valid": scv,
+                               "active": active, **rec})
+                assert rec["ok"], checks[-1]
     emit({"phase": "kernel_check", "checks": checks,
           "seconds": time.perf_counter() - t0})
 
-    # 4. main path: entry() at 132 PRB, batch 1
+    # 4. main path: entry() at 132 PRB on each of its routes
     t0 = time.perf_counter()
+    expected = {"b1": {"sepconv_stack": 3, "cgnn_iter": 0, "cgnn_full": 0},
+                "b16": {"sepconv_stack": 1, "cgnn_iter": 2, "cgnn_full": 0},
+                "mega_b1": {"sepconv_stack": 0, "cgnn_iter": 0,
+                            "cgnn_full": 1},
+                "mega_b16": {"sepconv_stack": 0, "cgnn_iter": 0,
+                             "cgnn_full": 1}}
     fn, (params, y) = entry(device="cuda")
-    sepconv.launches = 0
-    llr, h_hat = fn(params, y)
-    torch.cuda.synchronize()
-    launches = sepconv.launches
-    assert launches == 3, launches
-    assert llr.shape == (1, 2, 14, 1584, 4), llr.shape
-    assert h_hat.shape == (1, 2, 14, 1584, 8), h_hat.shape
-    assert bool(torch.isfinite(llr).all() and torch.isfinite(h_hat).all())
-    rx_plain = make_receiver(fused_convs=False, device=dev)
-    llr_p, h_p = rx_plain.serve(params, y)
-    e2e = {"bf16": {"llr": rel_err(llr, llr_p), "h_hat": rel_err(h_hat, h_p)}}
+    fn_mega, _ = entry(device="cuda", mega=True)
+    y16 = torch.as_tensor(np.random.default_rng(1).normal(
+        size=(16,) + tuple(y.shape[1:])), dtype=torch.float32, device=dev)
+    routes = {"b1": (fn, y, False), "b16": (fn, y16, False),
+              "mega_b1": (fn_mega, y, True),
+              "mega_b16": (fn_mega, y16, True)}
+    launches, outs = {}, {}
+    for route, (f, yy, _) in routes.items():
+        reset()
+        outs[route] = f(params, yy)
+        torch.cuda.synchronize()
+        launches[route] = counts()
+        assert launches[route] == expected[route], (route, launches[route])
+    reset()
+    e2e = {}
     params32 = load_params(dtype=torch.float32, device=dev)
-    rx32 = make_receiver(nrx_dtype=torch.float32, device=dev)
-    rx32_plain = make_receiver(nrx_dtype=torch.float32, fused_convs=False,
-                               device=dev)
-    l32, h32 = rx32.serve(params32, y)
-    l32p, h32p = rx32_plain.serve(params32, y)
-    torch.cuda.synchronize()
-    e2e["f32"] = {"llr": rel_err(l32, l32p), "h_hat": rel_err(h32, h32p)}
-    emit({"phase": "main_path", "launches_per_slot": launches,
-          "llr_shape": list(llr.shape), "h_hat_shape": list(h_hat.shape),
-          "rel_err_vs_plain": e2e, "tol": {"bf16": TOL_BF16, "f32": TOL_F32},
+    for route, (f, yy, mega) in routes.items():
+        llr, h_hat = outs[route]
+        b = yy.shape[0]
+        assert llr.shape == (b, N_TX, N_SYM, N_SC, 4), llr.shape
+        assert h_hat.shape == (b, N_TX, N_SYM, N_SC, 8), h_hat.shape
+        assert bool(torch.isfinite(llr).all() and torch.isfinite(h_hat).all())
+        plain = make_receiver(fused_full=mega, kernels=False, device=dev)
+        llr_p, h_p = plain.serve(params, yy)
+        rx32 = make_receiver(nrx_dtype=torch.float32, fused_full=mega,
+                             device=dev)
+        rx32p = make_receiver(nrx_dtype=torch.float32, fused_full=mega,
+                              kernels=False, device=dev)
+        l32, h32 = rx32.serve(params32, yy)
+        l32p, h32p = rx32p.serve(params32, yy)
+        torch.cuda.synchronize()
+        e2e[route] = {
+            "bf16": {"llr": rel_err(llr, llr_p), "h_hat": rel_err(h_hat, h_p)},
+            "f32": {"llr": rel_err(l32, l32p), "h_hat": rel_err(h32, h32p)}}
+        if route != "b1":
+            # this route against the stack-kernel-only route, same input
+            l1, h1 = rx.serve(params, yy, fused_iteration=False)
+            e2e[route]["bf16_vs_stack_route"] = {
+                "llr": rel_err(llr, l1), "h_hat": rel_err(h_hat, h1)}
+    reset()
+    emit({"phase": "main_path", "launches": launches,
+          "expected": expected, "rel_err_vs_plain": e2e,
+          "tol": {"bf16": TOL_BF16, "f32": TOL_F32},
           "seconds": time.perf_counter() - t0})
-    assert e2e["f32"]["llr"] <= TOL_F32 and e2e["f32"]["h_hat"] <= TOL_F32
-    assert e2e["bf16"]["llr"] <= TOL_BF16 and e2e["bf16"]["h_hat"] <= TOL_BF16
+    for route, errs in e2e.items():
+        for key, tol in (("bf16", TOL_BF16), ("f32", TOL_F32)):
+            assert max(errs[key].values()) <= tol, (route, key, errs[key])
+    del outs, params32
 
-    # 5. times (bf16, as served)
+    # 5. times (bf16, as served), at the shapes the main path gives each
+    # kernel: stacks at N = 2 (batch 1), the iteration at batch 16, the
+    # whole CGNN at batch 1
     t0 = time.perf_counter()
+    bf = torch.bfloat16
     per_stack = []
     for sname, p in stacks.items():
         c_in = p["hidden"][0]["pw"].shape[0]
-        x = torch.randn((n, h, w, c_in), generator=gen,
-                        device=dev).to(torch.bfloat16)
-        widths = [c_in] + [lp["pw"].shape[1] for lp in p["hidden"]] \
-            + [p["out"]["pw"].shape[1]]
-        nbytes, flops = stack_work(widths, n, h, w, 2)
-        t_bytes = nbytes / peaks["bytes_per_s"] * 1e3
-        t_ops = flops / peaks["bf16_flops"] * 1e3
-        kernel_ms = cuda_ms(lambda: sepconv.fused_conv_stack(p, x), reps=50)
-        plain_ms = cuda_ms(
-            lambda: sepconv.sepconv_stack_reference(p, x), reps=10)
-        per_stack.append({"stack": sname, "widths": widths, "shape":
-                          [n, h, w], "kernel_ms": kernel_ms,
-                          "plain_ms": plain_ms, "bytes": nbytes,
-                          "flops": flops, "bytes_ms": t_bytes,
-                          "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
-                          "bound_by": "bytes" if t_bytes >= t_ops
-                          else "operations"})
-    slot_ms = cuda_ms(lambda: fn(params, y), reps=20)
-    host_ms = []
-    for _ in range(20):
-        t1 = time.perf_counter()
-        fn(params, y)
-        torch.cuda.synchronize()
-        host_ms.append((time.perf_counter() - t1) * 1e3)
-    y16 = torch.as_tensor(np.random.default_rng(1).normal(
-        size=(16,) + tuple(y.shape[1:])), dtype=torch.float32, device=dev)
-    b16_ms = cuda_ms(lambda: fn(params, y16), reps=5)
+        x = torch.randn((n, h, w, c_in), generator=gen, device=dev).to(bf)
+        widths = widths_of(p)
+        per_stack.append({
+            "stack": sname, "widths": widths, "shape": [n, h, w],
+            "kernel_ms": cuda_ms(lambda: sepconv.fused_conv_stack(p, x), 50),
+            "plain_ms": cuda_ms(
+                lambda: sepconv.sepconv_stack_reference(p, x), 10),
+            **bound(*stack_work(widths, n, h, w, 2), peaks)})
+    s16 = (4.0 * torch.randn((16, N_TX, h, w, d_s), generator=gen,
+                             device=dev)).to(bf)
+    pe = pe32.to(bf)
+    act16 = torch.ones((16, N_TX), device=dev)
+    it0 = cgnn["iterations"][0]
+    iteration = {
+        "shape": list(s16.shape),
+        "kernel_ms": cuda_ms(
+            lambda: cgnn_iter.fused_iteration(it0, s16, pe, act16), 5),
+        "plain_ms": cuda_ms(lambda: cgnn_iter.fused_iteration_reference(
+            it0, s16, pe, act16), 3),
+        **bound(*iteration_work(it0, 16, pe.shape[-1], 2), peaks)}
+    del s16
+    z1 = z32.to(bf)
+    act1 = torch.ones((1, N_TX), device=dev)
+    full = {
+        "shape": list(z1.shape),
+        "kernel_ms": cuda_ms(
+            lambda: cgnn_iter.fused_cgnn_full(cgnn, z1, pe, act1), 20),
+        "plain_ms": cuda_ms(lambda: cgnn_iter.fused_cgnn_full_reference(
+            cgnn, z1, pe, act1), 5),
+        **bound(*full_work(cgnn, 1, pe.shape[-1], 2), peaks)}
+    paths = {}
+    for route, (f, yy, _) in routes.items():
+        b = yy.shape[0]
+        call_ms = cuda_ms(lambda: f(params, yy), 5 if b > 1 else 20)
+        host_ms = []
+        for _ in range(10):
+            t1 = time.perf_counter()
+            f(params, yy)
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t1) * 1e3)
+        paths[route] = {"batch": b, "call_ms": call_ms,
+                        "slot_ms": call_ms / b,
+                        "slots_per_s": b / (call_ms / 1e3),
+                        "call_host_ms_median": float(np.median(host_ms))}
+    # the same batch 16 on the stack-kernel-only route (batch <= 4's)
+    call_ms = cuda_ms(lambda: rx.serve(params, y16, fused_iteration=False), 5)
+    paths["b16_stack_route"] = {"batch": 16, "call_ms": call_ms,
+                                "slot_ms": call_ms / 16,
+                                "slots_per_s": 16 / (call_ms / 1e3)}
     emit({"phase": "times", "card": card, "per_stack": per_stack,
-          "slot_ms": slot_ms, "slot_host_ms_median": float(np.median(host_ms)),
-          "batch16_call_ms": b16_ms, "slots_per_s": 16 / (b16_ms / 1e3),
+          "cgnn_iter": iteration, "cgnn_full": full, "paths": paths,
           "seconds": time.perf_counter() - t0})
 
-    kernel_ms = sum(s["kernel_ms"] for s in per_stack)
-    plain_ms = sum(s["plain_ms"] for s in per_stack)
-    bound_ms = sum(s["bound_ms"] for s in per_stack)
-    bf16_checks = [c for c in checks if c["dtype"] == str(torch.bfloat16)]
-    emit({"kernels": [{
-        "name": "sepconv_stack", "route": "cuda",
-        "source": "neural_rx_tpu_torch/csrc/sepconv_stack.cu",
-        "replaces": "neural_rx_tpu/kernels/sepconv_pallas.py:362",
-        "replaces_k": "K1/K2 (fused_conv_stack :243, "
-                      "fused_conv_stack_blocked :362)",
-        "launches": launches, "launches_per_slot": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in bf16_checks),
-        "tol": TOL_BF16, "ms": kernel_ms, "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes" if sum(s["bytes_ms"] for s in per_stack)
-        >= sum(s["ops_ms"] for s in per_stack) else "operations",
-        "library_ms": None,
-        "note": "ms/plain_ms/bound_ms: sum over the 3 launches of one "
-                "slot (init, update0, update1), bf16, N=2, 14x1584"}]})
+    def max_abs(kernel):
+        return max(c["max_abs_err"] for c in checks
+                   if c["kernel"] == kernel and c["dtype"] == str(bf))
+
+    def total(kernel):
+        return sum(launches[r][kernel] for r in launches)
+
+    st_bytes = sum(s["bytes_ms"] for s in per_stack)
+    st_ops = sum(s["ops_ms"] for s in per_stack)
+    by_path = {k: {r: launches[r][k] for r in launches} for k in
+               ("sepconv_stack", "cgnn_iter", "cgnn_full")}
+    emit({"kernels": [
+        {"name": "sepconv_stack", "route": "cuda",
+         "source": "neural_rx_tpu_torch/csrc/sepconv_stack.cu",
+         "replaces": "neural_rx_tpu/kernels/sepconv_pallas.py:362",
+         "replaces_k": "K1/K2 (fused_conv_stack :243, "
+                       "fused_conv_stack_blocked :362)",
+         "launches": total("sepconv_stack"),
+         "launches_by_path": by_path["sepconv_stack"],
+         "max_abs_err": max_abs("sepconv_stack"), "tol": TOL_BF16,
+         "ms": sum(s["kernel_ms"] for s in per_stack),
+         "plain_ms": sum(s["plain_ms"] for s in per_stack),
+         "bound_ms": sum(s["bound_ms"] for s in per_stack),
+         "bound_by": "bytes" if st_bytes >= st_ops else "operations",
+         "library_ms": None,
+         "note": "ms/plain_ms/bound_ms: sum over the 3 launches of one "
+                 "batch-1 slot (init, update0, update1), bf16, N=2, "
+                 "14x1584; library: no PyTorch call computes a separable "
+                 "stack"},
+        {"name": "cgnn_iter", "route": "cuda",
+         "source": "neural_rx_tpu_torch/csrc/cgnn_iter.cu",
+         "replaces": "neural_rx_tpu/kernels/cgnn_iter_pallas.py:532",
+         "replaces_k": "K3 (fused_iteration :532, _iter_kernel :46)",
+         "launches": total("cgnn_iter"),
+         "launches_by_path": by_path["cgnn_iter"],
+         "max_abs_err": max_abs("cgnn_iter"), "tol": TOL_BF16,
+         "ms": iteration["kernel_ms"], "plain_ms": iteration["plain_ms"],
+         "bound_ms": iteration["bound_ms"],
+         "bound_by": iteration["bound_by"], "library_ms": None,
+         "note": "one launch in state mode at batch 16 (b=16, T=2, "
+                 "14x1584), bf16; library: no PyTorch call computes the "
+                 "aggregation MLP, user sum and separable stack"},
+        {"name": "cgnn_full", "route": "cuda",
+         "source": "neural_rx_tpu_torch/csrc/cgnn_iter.cu",
+         "replaces": "neural_rx_tpu/kernels/cgnn_iter_pallas.py:494",
+         "replaces_k": "K4 (fused_cgnn_full :494, _full_kernel :316)",
+         "launches": total("cgnn_full"),
+         "launches_by_path": by_path["cgnn_full"],
+         "max_abs_err": max_abs("cgnn_full"), "tol": TOL_BF16,
+         "ms": full["kernel_ms"], "plain_ms": full["plain_ms"],
+         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
+         "library_ms": None,
+         "note": "ms/plain_ms/bound_ms: one launch at batch 1 (b=1, T=2, "
+                 "14x1584), bf16; library: no PyTorch call computes the "
+                 "whole CGNN"}]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_all})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with plain nvcc and load them with ctypes.
 
-At first use, one `nvcc` call compiles every `csrc/*.cu` into a shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds) inside `_build/` next to this package, which `.gitignore` lists.
+At first use, one `nvcc` per `csrc/*.cu`, all started together, compiles
+the sources into objects, and one more links them into a shared library
+with a plain C interface (no PyTorch headers, so the build takes seconds)
+inside `_build/` next to this package, which `.gitignore` lists.
 The library's file name carries a hash of the sources and flags, so it is
 rebuilt only when a source changes. Nothing is built when this module is
 imported.
@@ -22,8 +23,11 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+# compile flags of each source; the grid-wide barrier of the whole-CGNN
+# kernel (cooperative_groups) needs no separate device linking
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> (restype, argtypes)
@@ -31,6 +35,16 @@ _SIGNATURES = {
     # x, w, out, dtype, n, h, w_cols, n_layers, widths, lo, hi, stream
     "nrx_sepconv_stack": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I,
                                _P]),
+    # s, pe, act, out, out2, agg_w, agg_dims, upd_w, n_layers, widths,
+    # ro_w, ro_dims, ch_w, ch_dims, dtype, b, t, h, w, d_s, d_pe, lo, hi,
+    # stream
+    "nrx_cgnn_iter": (_I, [_P] * 8 + [_I, _P, _P, _P, _P, _P]
+                      + [_I] * 9 + [_P]),
+    # z0, pe, act, state_a, state_b, llr, hh, init_w, n_init, init_widths,
+    # agg_w, agg_dims, upd_w, n_upd, upd_widths, ro_w, ro_dims, ch_w,
+    # ch_dims, num_it, dtype, b, t, h, w, d_s, d_pe, lo, hi, stream
+    "nrx_cgnn_full": (_I, [_P] * 8 + [_I, _P, _P, _P, _P, _I]
+                      + [_P] * 5 + [_I] * 10 + [_P]),
     "nrx_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -60,12 +74,25 @@ def _sources() -> list[str]:
 
 def library_path() -> str:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libnrx_kernels_{h.hexdigest()[:16]}.so")
+
+
+def _run(cmds: list[list[str]]) -> str:
+    """Runs the commands at once; their output, or raises on a failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for c, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {p.returncode}:\n"
+                               f"{' '.join(c)}\n{log}")
+    return "".join(logs)
 
 
 def build() -> BuildInfo:
@@ -74,17 +101,22 @@ def build() -> BuildInfo:
     if os.path.exists(path):
         return BuildInfo(path, 0.0, "")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    tag = f"{path}.{os.getpid()}"
+    nvcc = _nvcc()
+    srcs = [s for s in _sources() if s.endswith(".cu")]
+    objs = [f"{tag}.{os.path.basename(s)}.o" for s in srcs]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", s, "-o", o]
+                    for s, o in zip(srcs, objs)])
+        log += _run([[nvcc, *LINK_FLAGS, "-o", f"{tag}.tmp", *objs]])
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     seconds = time.perf_counter() - t0
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {r.returncode}:\n"
-                           f"{' '.join(cmd)}\n{r.stdout}{r.stderr}")
-    os.replace(tmp, path)
-    return BuildInfo(path, seconds, r.stdout + r.stderr)
+    os.replace(f"{tag}.tmp", path)
+    return BuildInfo(path, seconds, log)
 
 
 def load() -> ctypes.CDLL:

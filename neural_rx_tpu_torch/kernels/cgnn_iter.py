@@ -1,0 +1,323 @@
+"""Fused CGNN iteration (K3) and whole-CGNN kernel (K4): wrappers of the
+CUDA kernels and their plain versions.
+
+Counterpart of `neural_rx_tpu/kernels/cgnn_iter_pallas.py` (`fused_iteration`
+and `fused_cgnn_full`), kernels in `csrc/cgnn_iter.cu`. The signatures are the
+JAX package's without its TPU tiling and mode arguments (`w_blk`,
+`interpret`, `mxu`, `lp_stencil`): the CUDA kernels size their own tiles,
+and the folded-tap and low-precision stencil modes are not ported.
+
+Parameters follow the JAX tree: an iteration {"agg": mlp, "update": stack},
+an MLP {"hidden": [{"w", "b"}], "out": {"w", "b"}} with exactly one hidden
+layer, a stack as in `kernels/sepconv.py`. Activations are channels-last:
+s [b, T, H, W, d_s], pe [T, H, W, d_pe], active_tx [b, T].
+
+Dispatch: a CPU tensor goes to the plain PyTorch version, a CUDA tensor
+launches the kernel or raises. The plain versions keep the TPU kernel's
+rounding points (weights cast to the activation type first, every product
+summed in float32 with the bias added in float32 and then rounded,
+sps = round(y) * active, tot = round(sum_u sps_u), a = (tot - sps) * scale
+rounded after each op), which differ from `rx/cgnn.py:_apply_mlp`'s.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .sepconv import (_DTYPE_CODES, _layers, _valid_range, pack_stack,
+                      sepconv_stack_reference)
+
+MAX_ITERATIONS = 4
+MAX_USERS = 8
+
+# Kernel launches since the last reset; each wrapper adds one per launch.
+iter_launches = 0
+full_launches = 0
+
+
+def _dense(p, what: str):
+    """(w1, b1, w2, b2) of a one-hidden-layer MLP."""
+    if len(p["hidden"]) != 1:
+        raise ValueError(f"{what}: the fused kernels take an MLP with one "
+                         f"hidden layer, got {len(p['hidden'])}")
+    return p["hidden"][0]["w"], p["hidden"][0]["b"], p["out"]["w"], \
+        p["out"]["b"]
+
+
+def _mlp_dims(p, what: str) -> tuple[int, int, int]:
+    w1, _, w2, _ = _dense(p, what)
+    return int(w1.shape[0]), int(w1.shape[1]), int(w2.shape[1])
+
+
+def pack_mlp(p, dtype: torch.dtype) -> torch.Tensor:
+    """The MLP's weights as one contiguous buffer of `dtype`: w1 [in][hid],
+    b1 [hid], w2 [hid][out], b2 [out]. Built once and kept in p["packed"]."""
+    cache = p.setdefault("packed", {})
+    if dtype not in cache:
+        cache[dtype] = torch.cat([a.reshape(-1) for a in _dense(p, "mlp")]
+                                 ).to(dtype).contiguous()
+    return cache[dtype]
+
+
+def mlp_reference(p, x: torch.Tensor) -> torch.Tensor:
+    """One-hidden-layer MLP with the kernel's rounding points, in x.dtype."""
+    dtype = x.dtype
+    w1, b1, w2, b2 = (a.to(dtype).float() for a in _dense(p, "mlp"))
+    y = torch.relu(torch.matmul(x.float(), w1) + b1).to(dtype)
+    return (torch.matmul(y.float(), w2) + b2).to(dtype)
+
+
+def aggregate_reference(agg_p, s: torch.Tensor, active_tx: torch.Tensor
+                        ) -> torch.Tensor:
+    """a [b, T, H, W, d_s]: (sum over active users of the aggregation MLP's
+    output, minus the user's own) times 1 / max(n_active - 1, 1)."""
+    dtype = s.dtype
+    act = active_tx.float()
+    sps = mlp_reference(agg_p, s) * act.to(dtype)[:, :, None, None, None]
+    tot = sps.float().sum(dim=1, keepdim=True).to(dtype)
+    cnt = torch.clamp(act.sum(dim=1) - 1.0, min=0.0)
+    scale = torch.where(cnt == 0.0, torch.ones_like(cnt),
+                        1.0 / torch.clamp(cnt, min=1.0)).to(dtype)
+    return (tot - sps) * scale[:, None, None, None, None]
+
+
+def fused_iteration_reference(it_p, s: torch.Tensor, pe: torch.Tensor,
+                              active_tx: torch.Tensor, sc_valid=None,
+                              readout_p=None, chest_p=None):
+    """Plain PyTorch version of `fused_iteration` (same arguments, same
+    returns). Columns outside the valid range enter the update stack as
+    zeros; the residual adds the state as given."""
+    b, t = s.shape[:2]
+    a = aggregate_reference(it_p["agg"], s, active_tx)
+    pe_b = pe.to(s.dtype)[None].expand((b,) + pe.shape)
+    z = torch.cat([a, s, pe_b], dim=-1)
+    u = sepconv_stack_reference(it_p["update"],
+                                z.reshape((b * t,) + z.shape[2:]), sc_valid)
+    s_new = u.reshape((b, t) + u.shape[1:]) + s
+    if readout_p is None:
+        return s_new
+    llr = mlp_reference(readout_p, s_new)
+    if chest_p is None:
+        return llr
+    return llr, mlp_reference(chest_p, s_new)
+
+
+def fused_cgnn_full_reference(params, z0: torch.Tensor, pe: torch.Tensor,
+                              active_tx: torch.Tensor, sc_valid=None,
+                              num_it: int | None = None):
+    """Plain PyTorch version of `fused_cgnn_full`: the init stack's plain
+    version, then `fused_iteration_reference` per iteration, the last with
+    both readouts."""
+    b, t = z0.shape[:2]
+    its = params["iterations"][:num_it]
+    s = sepconv_stack_reference(params["s_init"][0],
+                                z0.reshape((b * t,) + z0.shape[2:]), sc_valid)
+    s = s.reshape((b, t) + s.shape[1:])
+    for it_p in its[:-1]:
+        s = fused_iteration_reference(it_p, s, pe, active_tx, sc_valid)
+    return fused_iteration_reference(
+        its[-1], s, pe, active_tx, sc_valid,
+        readout_p=params["readout_llrs"][0], chest_p=params["readout_chest"])
+
+
+def fused_iteration(it_params, s: torch.Tensor, pe: torch.Tensor,
+                    active_tx: torch.Tensor, sc_valid=None, readout_p=None,
+                    chest_p=None):
+    """One CGNN iteration: aggregation MLP, masked sum over the other users,
+    concat [a, s, pe], update stack, residual.
+
+    s: [b, T, H, W, d_s]; pe: [T, H, W, d_pe] (cast to s.dtype);
+    active_tx: [b, T]; sc_valid: None, a leading-valid column count or a
+    (lo, hi) pair. Returns the next state [b, T, H, W, d_s] in s.dtype; with
+    readout_p (final iteration) the LLRs [b, T, H, W, bits] instead, and
+    with chest_p as well (llr, h_hat [b, T, H, W, 2*rx_ant]). CPU tensors
+    take the plain version; CUDA tensors launch the kernel."""
+    if chest_p is not None and readout_p is None:
+        raise ValueError("chest_p requires readout_p")
+    if s.device.type == "cpu":
+        return fused_iteration_reference(it_params, s, pe, active_tx,
+                                         sc_valid, readout_p, chest_p)
+    if s.device.type != "cuda":
+        raise ValueError(f"unsupported device {s.device}")
+    return _launch_iteration(it_params, s, pe, active_tx, sc_valid,
+                             readout_p, chest_p)
+
+
+def fused_cgnn_full(params, z0: torch.Tensor, pe: torch.Tensor,
+                    active_tx: torch.Tensor, sc_valid=None,
+                    num_it: int | None = None):
+    """The whole deployed CGNN in one kernel: init stack, every iteration,
+    LLR and channel readouts. z0: [b, T, H, W, C_in] (normalised inputs, see
+    rx/cgnn.cgnn_apply); pe: [T, H, W, d_pe]; active_tx: [b, T]. Returns
+    (llr [b, T, H, W, bits], h_hat [b, T, H, W, 2*rx_ant]) in z0.dtype. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    if num_it is None:
+        num_it = len(params["iterations"])
+    if z0.device.type == "cpu":
+        return fused_cgnn_full_reference(params, z0, pe, active_tx, sc_valid,
+                                         num_it)
+    if z0.device.type != "cuda":
+        raise ValueError(f"unsupported device {z0.device}")
+    return _launch_full(params, z0, pe, active_tx, sc_valid, num_it)
+
+
+def _ints(values) -> ctypes.Array:
+    return (ctypes.c_int * len(values))(*values)
+
+
+def _ptr(arr) -> ctypes.c_void_p:
+    return ctypes.cast(arr, ctypes.c_void_p)
+
+
+def _check(x: torch.Tensor, ndim: int, what: str):
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what} takes float32 or bfloat16, not {x.dtype}")
+    if x.dim() != ndim or not x.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous {ndim}-d tensor")
+
+
+def _stack_widths(p) -> list[int]:
+    layers = _layers(p)
+    widths = [int(layers[0]["pw"].shape[0])] + [int(lp["pw"].shape[1])
+                                                for lp in layers]
+    if any(int(lp["pw"].shape[0]) != c for lp, c in zip(layers, widths)):
+        raise ValueError(f"channel widths do not chain: {widths}")
+    return widths
+
+
+def _iter_shapes(it_p, shape, pe, active_tx):
+    """Checks one iteration's operands for a state of `shape` [b, T, H, W,
+    d_s]; returns (agg dims, stack widths)."""
+    b, t, h, w, d_s = shape
+    if pe.dim() != 4 or tuple(pe.shape[:3]) != (t, h, w):
+        raise ValueError(f"pe {tuple(pe.shape)} does not match the state "
+                         f"{tuple(shape)}")
+    if tuple(active_tx.shape) != (b, t):
+        raise ValueError(f"active_tx {tuple(active_tx.shape)} is not {(b, t)}")
+    if t > MAX_USERS:
+        raise ValueError(f"at most {MAX_USERS} users, got {t}")
+    agg = _mlp_dims(it_p["agg"], "agg")
+    widths = _stack_widths(it_p["update"])
+    if agg != (d_s, agg[1], d_s) or widths[0] != 2 * d_s + pe.shape[-1] \
+            or widths[-1] != d_s:
+        raise ValueError(f"iteration widths agg {agg}, update {widths} do "
+                         f"not fit d_s={d_s}, d_pe={pe.shape[-1]}")
+    return agg, widths
+
+
+def _readout_dims(p, d_s: int, what: str) -> tuple[int, int, int]:
+    dims = _mlp_dims(p, what)
+    if dims[0] != d_s:
+        raise ValueError(f"{what} takes {dims[0]} channels, the state has "
+                         f"{d_s}")
+    return dims
+
+
+def _on(x: torch.Tensor, dev: torch.device, what: str) -> torch.Tensor:
+    if x.device != dev:
+        raise ValueError(f"{what} on {x.device}, activations on {dev}")
+    return x
+
+
+def _launch_iteration(it_p, s, pe, active_tx, sc_valid, readout_p, chest_p):
+    global iter_launches
+    _check(s, 5, "fused_iteration")
+    b, t, h, w, d_s = s.shape
+    agg, widths = _iter_shapes(it_p, s.shape, pe, active_tx)
+    dev, dtype = s.device, s.dtype
+    pe = _on(pe, dev, "pe").to(dtype).contiguous()
+    act = _on(active_tx, dev, "active_tx").float().contiguous()
+    agg_w = _on(pack_mlp(it_p["agg"], dtype), dev, "weights")
+    upd_w = _on(pack_stack(it_p["update"], dtype), dev, "weights")
+    lo, hi = _valid_range(sc_valid, w)
+    ro_w = ch_w = None
+    ro_dims = ch_dims = None
+    if readout_p is None:
+        out = torch.empty_like(s)
+        out2 = None
+    else:
+        ro_dims = _ints(_readout_dims(readout_p, d_s, "readout"))
+        ro_w = _on(pack_mlp(readout_p, dtype), dev, "weights")
+        out = torch.empty((b, t, h, w, ro_dims[2]), dtype=dtype, device=dev)
+        out2 = None
+        if chest_p is not None:
+            ch_dims = _ints(_readout_dims(chest_p, d_s, "chest"))
+            ch_w = _on(pack_mlp(chest_p, dtype), dev, "weights")
+            out2 = torch.empty((b, t, h, w, ch_dims[2]), dtype=dtype,
+                               device=dev)
+    lib = _build.load()
+    rc = lib.nrx_cgnn_iter(
+        s.data_ptr(), pe.data_ptr(), act.data_ptr(), out.data_ptr(),
+        None if out2 is None else out2.data_ptr(), agg_w.data_ptr(),
+        _ptr(_ints(agg)), upd_w.data_ptr(), len(widths) - 1,
+        _ptr(_ints(widths)), None if ro_w is None else ro_w.data_ptr(),
+        None if ro_dims is None else _ptr(ro_dims),
+        None if ch_w is None else ch_w.data_ptr(),
+        None if ch_dims is None else _ptr(ch_dims), _DTYPE_CODES[dtype],
+        b, t, h, w, d_s, pe.shape[-1], lo, hi,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("cgnn_iter launch failed: "
+                           + lib.nrx_cuda_error_string(rc).decode())
+    iter_launches += 1
+    if readout_p is None:
+        return out
+    return out if chest_p is None else (out, out2)
+
+
+def _launch_full(params, z0, pe, active_tx, sc_valid, num_it):
+    global full_launches
+    _check(z0, 5, "fused_cgnn_full")
+    b, t, h, w, _ = z0.shape
+    dev, dtype = z0.device, z0.dtype
+    if not 1 <= num_it <= MAX_ITERATIONS:
+        raise ValueError(f"1 to {MAX_ITERATIONS} iterations, got {num_it}")
+    its = params["iterations"][:num_it]
+    init_p = params["s_init"][0]
+    init_widths = _stack_widths(init_p)
+    if init_widths[0] != z0.shape[-1]:
+        raise ValueError(f"init stack takes {init_widths[0]} channels, z0 "
+                         f"has {z0.shape[-1]}")
+    d_s = init_widths[-1]
+    shapes = [_iter_shapes(it_p, (b, t, h, w, d_s), pe, active_tx)
+              for it_p in its]
+    if len({len(widths) for _, widths in shapes}) != 1:
+        raise ValueError("every update stack needs the same depth")
+    aggs = [v for agg, _ in shapes for v in agg]
+    upd_widths = [v for _, widths in shapes for v in widths]
+    ro_p, ch_p = params["readout_llrs"][0], params["readout_chest"]
+    ro_dims = _readout_dims(ro_p, d_s, "readout")
+    ch_dims = _readout_dims(ch_p, d_s, "chest")
+    pe = _on(pe, dev, "pe").to(dtype).contiguous()
+    act = _on(active_tx, dev, "active_tx").float().contiguous()
+    init_w = _on(pack_stack(init_p, dtype), dev, "weights")
+    agg_ws = [_on(pack_mlp(it_p["agg"], dtype), dev, "weights")
+              for it_p in its]
+    upd_ws = [_on(pack_stack(it_p["update"], dtype), dev, "weights")
+              for it_p in its]
+    ro_w = _on(pack_mlp(ro_p, dtype), dev, "weights")
+    ch_w = _on(pack_mlp(ch_p, dtype), dev, "weights")
+    state = torch.empty((2, b, t, h, w, d_s), dtype=dtype, device=dev)
+    llr = torch.empty((b, t, h, w, ro_dims[2]), dtype=dtype, device=dev)
+    h_hat = torch.empty((b, t, h, w, ch_dims[2]), dtype=dtype, device=dev)
+    agg_ptrs = (ctypes.c_void_p * num_it)(*[a.data_ptr() for a in agg_ws])
+    upd_ptrs = (ctypes.c_void_p * num_it)(*[u.data_ptr() for u in upd_ws])
+    lib = _build.load()
+    rc = lib.nrx_cgnn_full(
+        z0.data_ptr(), pe.data_ptr(), act.data_ptr(), state[0].data_ptr(),
+        state[1].data_ptr(), llr.data_ptr(), h_hat.data_ptr(),
+        init_w.data_ptr(), len(init_widths) - 1, _ptr(_ints(init_widths)),
+        _ptr(agg_ptrs), _ptr(_ints(aggs)), _ptr(upd_ptrs),
+        len(shapes[0][1]) - 1, _ptr(_ints(upd_widths)),
+        ro_w.data_ptr(), _ptr(_ints(ro_dims)), ch_w.data_ptr(),
+        _ptr(_ints(ch_dims)), num_it, _DTYPE_CODES[dtype], b, t, h, w, d_s,
+        pe.shape[-1], *_valid_range(sc_valid, w),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("cgnn_full launch failed: "
+                           + lib.nrx_cuda_error_string(rc).decode())
+    full_launches += 1
+    return llr, h_hat

@@ -9,8 +9,12 @@ mlp}; a stack is {"hidden": [...], "out": {"dw", "pw", "b"}}, an MLP
 
 Computation dtype follows the `dtype` argument (float32 or bfloat16 with
 float32 parameters cast at each use), with the JAX package's rounding
-points. With `CGNNConfig.fused_convs` the separable-conv stacks run in the
-CUDA kernel of `kernels/sepconv.py`; otherwise in its plain version.
+points. The fused routes of `CGNNConfig` are the JAX package's: the
+separable-conv stacks (`fused_convs`, `kernels/sepconv.py`), each iteration
+(`fused_iteration`), the last one with both readouts (`fused_readout`), or
+the whole CGNN in one kernel (`fused_full`, both in
+`kernels/cgnn_iter.py`). A fused route runs its CUDA kernel, or its plain
+version when `CGNNConfig.kernels` is False.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..kernels import cgnn_iter
 from ..kernels.sepconv import fused_conv_stack, sepconv_stack_reference
 
 
@@ -36,7 +41,13 @@ class CGNNConfig:
     num_units_readout: tuple
     layer_type_conv: str = "sepconv"
     var_mcs_masking: bool = False
-    fused_convs: bool = False   # conv stacks in the CUDA kernel
+    fused_convs: bool = False   # conv stacks through the stack kernel
+    fused_iteration: bool = False  # each iteration in the iteration kernel
+    fused_readout: bool = False  # with fused_iteration: the last iteration
+    # runs both readouts in the kernel
+    fused_full: bool = False    # the whole CGNN in one kernel
+    kernels: bool = True        # False: fused routes take the kernels'
+    # plain versions (the kernels' oracle on the GPU)
 
     @property
     def num_mcs(self):
@@ -54,13 +65,11 @@ def count_params(params) -> int:
     return sum(count_params(v) for v in params)
 
 
-def _apply_conv_stack(p, x, layer_type: str, fused: bool = False,
-                      sc_valid=None):
-    """Separable-conv stack, ReLU after each hidden layer. sc_valid
-    (optional): columns outside the valid range are re-zeroed per layer
-    (exact pad-to-bucket dispatch)."""
-    if layer_type != "sepconv":
-        raise NotImplementedError(f"layer type {layer_type!r} is not ported")
+def _apply_conv_stack(p, x, fused: bool = False, sc_valid=None):
+    """Separable-conv stack, ReLU after each hidden layer, through the
+    kernel if `fused`, else its plain version. sc_valid (optional): columns
+    outside the valid range are re-zeroed per layer (exact pad-to-bucket
+    dispatch)."""
     if fused:
         return fused_conv_stack(p, x, sc_valid=sc_valid)
     return sepconv_stack_reference(p, x, sc_valid=sc_valid)
@@ -85,14 +94,13 @@ def _aggregate_user_states(p, s, active_tx, dtype):
     return a * scale
 
 
-def _update_state(p, s, a, pe, layer_type, fused: bool = False,
-                  sc_valid=None):
+def _update_state(p, s, a, pe, fused: bool = False, sc_valid=None):
     """Conv state update with residual skip."""
     b, t = s.shape[0], s.shape[1]
     pe_b = pe[None].expand((b,) + pe.shape)
     z = torch.cat([a, s, pe_b], dim=-1)
     z = z.reshape((b * t,) + z.shape[2:])
-    z = _apply_conv_stack(p, z, layer_type, fused, sc_valid)
+    z = _apply_conv_stack(p, z, fused, sc_valid)
     return z.reshape((b, t) + z.shape[1:]) + s
 
 
@@ -106,11 +114,20 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
     leading subcarriers of a bucket-padded grid; the power norm then
     averages over valid REs and every conv layer re-zeros the padding.
 
+    Routes as in the JAX package: `fused_full` runs the whole CGNN in one
+    kernel from the stacked inputs (without `mcs_ue_mask`, as there);
+    `fused_iteration` runs each iteration in the iteration kernel, and with
+    `fused_readout` the last one returns both readouts. A fused route takes
+    only one-hidden-layer aggregation and readout MLPs and raises otherwise.
+
     Returns (llrs, h_hats) shaped like the JAX package's: [[llr]] with llr
     [b, T, sym, sc, num_bits] and [h_hat] [b, T, sym, sc, 2*rx_ant], float32.
     """
     if cfg.num_mcs != 1 or cfg.var_mcs_masking:
         raise NotImplementedError("the serving path is single-MCS")
+    if cfg.layer_type_conv != "sepconv":
+        raise NotImplementedError(
+            f"layer type {cfg.layer_type_conv!r} is not ported")
     b = y.shape[0]
     t = pe.shape[0]
     n_sc = y.shape[2]
@@ -138,20 +155,36 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
     z0 = torch.cat([y_b, pe_b, h_hat], dim=-1)
     z0_flat = z0.reshape((b * t,) + z0.shape[2:])
 
-    s = _apply_conv_stack(params["s_init"][0], z0_flat, cfg.layer_type_conv,
-                          cfg.fused_convs, sc_valid)
+    if cfg.fused_full:
+        full = (cgnn_iter.fused_cgnn_full if cfg.kernels
+                else cgnn_iter.fused_cgnn_full_reference)
+        llr, h_out = full(params, z0, pe, active_tx, sc_valid, cfg.num_it)
+        return [[llr.float()]], [h_out.float()]
+
+    s = _apply_conv_stack(params["s_init"][0], z0_flat,
+                          cfg.fused_convs and cfg.kernels, sc_valid)
     s = s.reshape((b, t) + s.shape[1:])
     s = s * mcs_ue_mask.to(dtype)[:, :, 0:1][..., None, None]
 
+    iterate = (cgnn_iter.fused_iteration if cfg.kernels
+               else cgnn_iter.fused_iteration_reference)
     for i in range(cfg.num_it):
         it_p = params["iterations"][i]
+        if cfg.fused_iteration:
+            if cfg.fused_readout and i == cfg.num_it - 1:
+                llr, h_out = iterate(it_p, s, pe, active_tx, sc_valid,
+                                     params["readout_llrs"][0],
+                                     params["readout_chest"])
+                return [[llr.float()]], [h_out.float()]
+            s = iterate(it_p, s, pe, active_tx, sc_valid)
+            continue
         a = _aggregate_user_states(it_p["agg"], s, active_tx, dtype)
         if sc_mask is not None:
             # pad columns carry MLP(0); the update stack's first 3x3 conv
             # would bleed it into the last valid column
             a = a * sc_mask[None].to(a.dtype)
-        s = _update_state(it_p["update"], s, a, pe, cfg.layer_type_conv,
-                          cfg.fused_convs, sc_valid)
+        s = _update_state(it_p["update"], s, a, pe,
+                          cfg.fused_convs and cfg.kernels, sc_valid)
     llr = _apply_mlp(params["readout_llrs"][0], s).float()
     h_out = _apply_mlp(params["readout_chest"], s).float()
     return [[llr]], [h_out]

@@ -3,10 +3,13 @@
 Counterpart of `neural_rx_tpu/rx/neural_rx.py:NeuralPUSCHReceiver`
 (`__init__` and the planar `_prepare_inputs`), plus `serve`, which returns
 what the JAX package's `__graft_entry__.entry()` function returns: the
-final-iteration LLR grid and the refined channel estimate.
+final-iteration LLR grid and the refined channel estimate, by the same
+batch-adaptive route.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -28,6 +31,9 @@ class NeuralPUSCHReceiver:
 
     resource_grid: the PUSCH `ResourceGrid` of the UEs;
     num_bits_per_symbol: one entry per MCS (`sim.config.Parameters`).
+    fused_full: serve through the whole-CGNN kernel (the JAX entry's
+    `NRX_DEPLOY_MEGA=1` route); kernels=False: every fused route takes its
+    kernel's plain version.
     """
 
     def __init__(self, resource_grid, num_bits_per_symbol,
@@ -37,7 +43,8 @@ class NeuralPUSCHReceiver:
                  layer_type_conv: str = "sepconv",
                  var_mcs_masking: bool = False,
                  nrx_dtype=torch.float32,
-                 fused_convs: bool = True,
+                 fused_full: bool = False,
+                 kernels: bool = True,
                  device="cuda"):
         self.device = resolve_device(device)
         self.rg = resource_grid
@@ -54,7 +61,9 @@ class NeuralPUSCHReceiver:
             num_units_readout=tuple(num_units_readout),
             layer_type_conv=layer_type_conv,
             var_mcs_masking=var_mcs_masking,
-            fused_convs=fused_convs)
+            fused_convs=True,
+            fused_full=fused_full,
+            kernels=kernels)
 
         # Positional encoding from the configured slot's DMRS positions,
         # [max_num_tx, sym, sc, 2]
@@ -79,14 +88,24 @@ class NeuralPUSCHReceiver:
             y_planar, out_dtype=self.nrx_dtype if bf16 else None)
         return y_in, h_in[:, :self.max_num_tx]
 
-    def serve(self, params, y_planar: torch.Tensor):
+    def serve(self, params, y_planar: torch.Tensor,
+              fused_iteration: bool | None = None):
         """params {"cgnn": tree}; y_planar [b, 4, 14, sc, 2] float32 ->
         (llr [b, T, 14, sc, num_bits], h_hat [b, T, 14, sc, 2*rx_ant]),
-        float32, computed in `nrx_dtype` with all users active."""
+        float32, computed in `nrx_dtype` with all users active.
+
+        Route, as the JAX entry picks it per call: every iteration in the
+        iteration kernel at batch > 4 (fused_iteration=None), else the
+        stack kernel alone; the whole-CGNN kernel if the receiver was built
+        with fused_full."""
         b = y_planar.shape[0]
+        if fused_iteration is None:
+            fused_iteration = b > 4
+        cfg = dataclasses.replace(self.cgnn_cfg,
+                                  fused_iteration=fused_iteration)
         y_in, h_in = self._prepare_inputs(y_planar)
         ones = torch.ones((b, self.max_num_tx), device=y_planar.device)
-        llrs, h_hats = cgnn_apply(params["cgnn"], self.cgnn_cfg, y_in,
+        llrs, h_hats = cgnn_apply(params["cgnn"], cfg, y_in,
                                   self.pe, h_in, ones, ones[..., None],
                                   dtype=self.nrx_dtype)
         return llrs[-1][0], h_hats[-1]

@@ -1,13 +1,14 @@
 """Where the time of one nrx_rt slot goes in the PyTorch port, on the GPU.
 
 Runs `neural_rx_tpu_torch.entry.entry()` (132 PRB, bf16, committed
-weights) under `torch.profiler` for a few slots after a warm-up and prints
-one JSON line: device time per kernel name (summed over the window, per
-slot), the device-busy share of the window, and the host time per slot.
-With --trace, the Chrome trace is written to that path.
+weights; the batch-adaptive route, or with --mega the whole-CGNN kernel)
+under `torch.profiler` for a few calls after a warm-up and prints one JSON
+line: device time per kernel name (summed over the window, per call), the
+device-busy share of the window, and the host time per call. With --trace,
+the Chrome trace is written to that path.
 
     python3 scripts/torch_port_profile_slot.py [--batch 1] [--slots 10] \
-        [--trace slot_trace.json]
+        [--mega] [--trace slot_trace.json]
 """
 
 import argparse
@@ -24,6 +25,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--slots", type=int, default=10)
+    ap.add_argument("--mega", action="store_true")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
     import torch
@@ -38,7 +40,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    fn, (params, y) = entry(device="cuda", batch=args.batch)
+    fn, (params, y) = entry(device="cuda", batch=args.batch, mega=args.mega)
     for _ in range(5):
         fn(params, y)
     torch.cuda.synchronize()
@@ -60,7 +62,8 @@ def main() -> int:
     if args.trace:
         prof.export_chrome_trace(args.trace)
     print(json.dumps({
-        "card": card, "batch": args.batch, "slots": args.slots,
+        "card": card, "batch": args.batch, "mega": args.mega,
+        "slots": args.slots,
         "window_ms_per_slot": window_ms / args.slots,
         "device_busy_ms_per_slot": busy_ms / args.slots,
         "device_busy_share": busy_ms / window_ms,

@@ -46,8 +46,34 @@ def test_no_library_kernel_in_place_of_ours():
 def test_build_flags_target_sm90a():
     from neural_rx_tpu_torch.kernels import _build
     flags = " ".join(_build.NVCC_FLAGS)
+    link = " ".join(_build.LINK_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
-    assert "-shared" in flags and "-fPIC" in flags
+    assert "arch=compute_90a,code=sm_90a" in link
+    assert "-fPIC" in flags and "-shared" in link
     assert _build.BUILD_DIR.startswith(PORT)
     assert os.path.basename(_build.library_path()).startswith(
         "libnrx_kernels_")
+
+
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
+    """One nvcc per source (started together), then one link; the library
+    lands in the build directory and is reused while the sources stay."""
+    from neural_rx_tpu_torch.kernels import _build
+    log = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\necho "$@" >> ' + str(log) + '\n'
+                    'while [ $# -gt 1 ]; do [ "$1" = -o ] && touch "$2"; '
+                    'shift; done\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    info = _build.build()
+    calls = log.read_text().splitlines()
+    sources = [s for s in _build._sources() if s.endswith(".cu")]
+    assert len(sources) >= 2 and len(calls) == len(sources) + 1
+    for src in sources:
+        assert sum(f"-c {src} " in c for c in calls) == 1
+    assert "-shared" in calls[-1] and calls[-1].count(".o") == len(sources)
+    assert os.path.exists(info.path) and info.path == _build.library_path()
+    assert not [p for p in os.listdir(tmp_path / "build") if p.endswith(".o")]
+    assert _build.build().seconds == 0.0

@@ -1,10 +1,14 @@
 """The PyTorch port's serving slice vs the JAX package, end to end.
 
-nrx_rt on its 4-PRB training grid, batch 2, committed EMA weights: the
-planar input goes through `NeuralPUSCHReceiver.serve` of the port (dense LS
-estimate, CGNN with every conv stack through the kernel wrapper, which
-takes its plain version on CPU tensors) and through the JAX receiver's
-`_prepare_inputs` + `cgnn_apply(fused_convs=True)` (Pallas interpret mode).
+nrx_rt on its 4-PRB training grid, committed EMA weights: the planar input
+goes through `NeuralPUSCHReceiver.serve` of the port (dense LS estimate,
+CGNN through the kernel wrappers, which take their plain versions on CPU
+tensors) and through the JAX receiver's `_prepare_inputs` + `cgnn_apply`
+with the same fused routes (Pallas interpret mode): at batch 2 the stack
+kernel alone (`fused_convs=True`); at batch 5 the JAX entry's batch > 4
+route (`fused_iteration=True`: the iteration kernel) and its mega route
+(`fused_full=True`: the whole-CGNN kernel). The bars below hold for all
+three routes.
 
 Tolerances (relative to max |JAX|):
 - float32: 1e-4; measured ~2e-6 (pointwise sums in another order).
@@ -31,13 +35,16 @@ from neural_rx_tpu.rx.neural_rx import NeuralPUSCHReceiver as JaxReceiver
 from neural_rx_tpu.sim.config import Parameters as JaxParameters
 from neural_rx_tpu.sim.training import load_weights
 from neural_rx_tpu_torch import entry as port_entry
-from neural_rx_tpu_torch.kernels import sepconv
+from neural_rx_tpu_torch.kernels import cgnn_iter, sepconv
 
 DTYPES = {"f32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16)}
+# route -> the JAX cgnn_apply flags the JAX entry sets at batch 5
+ROUTES = {"iteration": {"fused_iteration": True},
+          "mega": {"fused_full": True}}
 
 
-def _jax_serve(params, p, dtype, y):
+def _jax_serve(params, p, dtype, y, **flags):
     rx = JaxReceiver(
         p.transmitters, num_rx_ant=p.num_rx_antennas,
         max_num_tx=p.max_num_tx, num_it=p.num_nrx_iter, d_s=p.d_s,
@@ -46,8 +53,8 @@ def _jax_serve(params, p, dtype, y):
         num_units_readout=p.num_units_readout,
         var_mcs_masking=p.mcs_var_mcs_masking, initial_chest="ls",
         mask_pilots=False, nrx_dtype=dtype)
-    cfg = dataclasses.replace(rx.cgnn_cfg, fused_convs=True,
-                              fused_iteration=False)
+    cfg = dataclasses.replace(rx.cgnn_cfg, **{
+        "fused_convs": True, "fused_iteration": False, **flags})
     yj = jnp.asarray(y)
     y_in, h_in = rx._prepare_inputs(yj[..., 0] + 1j * yj[..., 1])
     b, t = y.shape[0], rx.max_num_tx
@@ -71,6 +78,26 @@ def results():
         params = port_entry.load_params(dtype=tdt, device="cpu")
         llr, h_hat = rx.serve(params, torch.as_tensor(y))
         out["port", key] = (llr, h_hat)
+    return out
+
+
+@pytest.fixture(scope="module")
+def results_b5():
+    """Batch 5: the port's serve takes the iteration kernel's route by
+    itself; the mega route is a receiver built with fused_full."""
+    y = np.random.default_rng(4).normal(
+        size=(5, 4, 14, 48, 2)).astype(np.float32)
+    jp = JaxParameters("nrx_rt", system="nrx", training=True)
+    jparams = load_weights("weights/nrx_rt_ema_weights.pkl")
+    out = {}
+    for route, flags in ROUTES.items():
+        for key, (tdt, jdt) in DTYPES.items():
+            out["jax", route, key] = _jax_serve(jparams, jp, jdt, y, **flags)
+            rx = port_entry.make_receiver(
+                training=True, nrx_dtype=tdt, fused_full=route == "mega",
+                device="cpu")
+            params = port_entry.load_params(dtype=tdt, device="cpu")
+            out["port", route, key] = rx.serve(params, torch.as_tensor(y))
     return out
 
 
@@ -104,14 +131,75 @@ def test_bf16_matches_jax(results, i, name):
     assert _rel(got, ref32) <= 1.5 * _rel(want, ref32), name
 
 
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("i,name", [(0, "llr"), (1, "h_hat")])
+def test_batch5_routes_f32_match_jax(results_b5, route, i, name):
+    got = results_b5["port", route, "f32"][i]
+    assert got.shape[:2] == (5, 2) and got.dtype == torch.float32
+    assert _rel(got.numpy(), results_b5["jax", route, "f32"][i]) <= 1e-4, \
+        name
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("i,name", [(0, "llr"), (1, "h_hat")])
+def test_batch5_routes_bf16_match_jax(results_b5, route, i, name):
+    got = results_b5["port", route, "bf16"][i].numpy()
+    want = results_b5["jax", route, "bf16"][i]
+    ref32 = results_b5["jax", route, "f32"][i]
+    assert _rel(got, want) <= 0.1, name
+    assert np.abs(got - want).mean() / np.abs(want).max() <= 3e-3, name
+    assert _rel(got, ref32) <= 1.5 * _rel(want, ref32), name
+
+
+@pytest.mark.parametrize("batch,mega,calls", [
+    (4, False, {"stack": 3, "iteration": 0, "full": 0}),
+    (5, False, {"stack": 1, "iteration": 2, "full": 0}),
+    (5, True, {"stack": 0, "iteration": 0, "full": 1}),
+    (1, True, {"stack": 0, "iteration": 0, "full": 1})])
+def test_serve_route_by_batch(monkeypatch, batch, mega, calls):
+    """The JAX entry's batch-adaptive route: the stack kernel alone at
+    batch <= 4, the init stack plus one iteration kernel call per iteration
+    at batch > 4, one whole-CGNN call on the mega route."""
+    seen = dict.fromkeys(calls, 0)
+
+    def spy(name, fn):
+        def wrapped(*args, **kwargs):
+            seen[name] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    from neural_rx_tpu_torch.rx import cgnn as port_cgnn
+    monkeypatch.setattr(port_cgnn, "fused_conv_stack",
+                        spy("stack", port_cgnn.fused_conv_stack))
+    monkeypatch.setattr(cgnn_iter, "fused_iteration",
+                        spy("iteration", cgnn_iter.fused_iteration))
+    monkeypatch.setattr(cgnn_iter, "fused_cgnn_full",
+                        spy("full", cgnn_iter.fused_cgnn_full))
+    rx = port_entry.make_receiver(training=True, fused_full=mega,
+                                  device="cpu")
+    params = port_entry.load_params(device="cpu")
+    y = torch.as_tensor(np.random.default_rng(5).normal(
+        size=(batch, 4, 14, 48, 2)), dtype=torch.float32)
+    llr, h_hat = rx.serve(params, y)
+    assert seen == calls
+    assert llr.shape == (batch, 2, 14, 48, 4) and bool(
+        torch.isfinite(llr).all() and torch.isfinite(h_hat).all())
+
+
 def test_serve_on_cpu_launches_no_kernel():
     rx = port_entry.make_receiver(training=True, device="cpu")
     params = port_entry.load_params(device="cpu")
     y = torch.as_tensor(np.random.default_rng(2).normal(
         size=(1, 4, 14, 48, 2)), dtype=torch.float32)
-    before = sepconv.launches
+    before = (sepconv.launches, cgnn_iter.iter_launches,
+              cgnn_iter.full_launches)
     llr, _ = rx.serve(params, y)
-    assert sepconv.launches == before
+    rx_mega = port_entry.make_receiver(training=True, fused_full=True,
+                                       device="cpu")
+    rx_mega.serve(params, torch.cat([y] * 5))
+    rx.serve(params, torch.cat([y] * 5))
+    assert (sepconv.launches, cgnn_iter.iter_launches,
+            cgnn_iter.full_launches) == before
     assert llr.device.type == "cpu" and bool(torch.isfinite(llr).all())
     assert rx.cgnn_cfg.fused_convs
 
