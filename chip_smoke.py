@@ -14,16 +14,32 @@ Phases, each printing one JSON line with its seconds:
      None and (5, 1500): the sepconv stack at its three stacks; the CGNN
      iteration in state and readout modes and the whole-CGNN kernel, with
      users active (1, 1) and (1, 0);
-  4. main_path: `entry()` at 132 PRB on its routes, each run with the
+  4. ldpc_check: the layered min-sum LDPC kernel against its plain version,
+     20 iterations, hard bits exactly equal: nrx_rt's eval code (BG1,
+     Z = 384, the 5 code blocks of 16 transport blocks) on LLRs from the
+     TB chain over a BPSK-equivalent channel at 10 dB (decodable) and at
+     1.7 dB (the waterfall), the noiseless codewords, an odd count of 7;
+     the 4-PRB code (BG2, Z = 128) at 2 dB; BG1/Z = 352 and BG2/Z = 52
+     (Z no multiple of 32) at 0 dB; with bit and block errors of each;
+  5. main_path: `entry()` at 132 PRB on its routes, each run with the
      launch counts set to 0 just before and read just after: batch 1 (3
      sepconv launches, nothing else), batch 16 (1 sepconv, 2 iteration
      launches) and mega at batch 1 and 16 (1 whole-CGNN launch, nothing
      else); shapes, finite values, and each route against the same route
      through the plain versions on this card (bfloat16 as served, and
      float32);
-  5. times: CUDA-event device time per kernel launch (kernel and plain) at
-     the shapes the main path gives it, with its bound, and per call and
-     slot on each route.
+  6. eval_path: `eval_entry()` at 132 PRB, batch 16, float32, Eb/N0 10 dB
+     on the seeded flat channel, with each decoder, counts set to 0 before
+     and read after: the layered kernel (1 sepconv, 2 iteration, 2 LDPC
+     launches: one per user) and the flooding decoder (no LDPC launch);
+     b_hat equals the bits sent in every transport block but the two the
+     JAX package's receiver fails on the same slot, the CRC fails exactly
+     there, and the kernel route's b_hat and crc equal the same route
+     through the plain versions;
+  7. times: CUDA-event device time per kernel launch (kernel and plain) at
+     the shapes the main path gives it, with its bound, per call and slot
+     on each route, and the eval path's call split into receiver and
+     decode for each decoder.
 Then the `kernels` line, and last `{"ok": true, "device": {...}}`. Any
 failure raises and the script exits non-zero. Without a CUDA device it exits
 non-zero before printing anything.
@@ -43,6 +59,14 @@ import numpy as np
 TOL_F32 = 1e-4
 TOL_BF16 = 2e-2
 SC_VALID_CASES = (None, (5, 1500))
+LDPC_ITER = 20  # the layered decoder's default iteration count
+LDPC_OPS = 10   # value operations per edge, lane and iteration
+EVAL_EBNO_DB = 10.0
+# (item, user) of the transport blocks of eval_entry's example slot (batch
+# 16, seed 0, 10 dB) that do not decode: the JAX package's receiver fails
+# the same two on the same slot (tests/test_torch_eval_path.py); every other
+# one decodes to the bits sent
+EVAL_FAILS = {(11, 0), (13, 1)}
 ACTIVE_CASES = ((1.0, 1.0), (1.0, 0.0))
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_SYM, N_SC, N_TX = 14, 1584, 2
@@ -148,12 +172,31 @@ def full_work(cgnn, b, d_pe, itemsize):
     return nbytes, flops
 
 
-def bound(nbytes, flops, peaks):
+def bound(nbytes, flops, peaks, rate="bf16_flops"):
     t_bytes = nbytes / peaks["bytes_per_s"] * 1e3
-    t_ops = flops / peaks["bf16_flops"] * 1e3
+    t_ops = flops / peaks[rate] * 1e3
     return {"bytes": nbytes, "flops": flops, "bytes_ms": t_bytes,
             "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def ldpc_work(code, n):
+    """(bytes, operations) of a layered decode of n codewords: LLRs read
+    and hard bits written once (float32); per edge, lane and iteration 10
+    value operations (subtract, abs, sign test, min1, first-min test,
+    mask, min2, select, multiply, fused multiply-add)."""
+    return (2 * n * code.n_full * 4,
+            n * code.num_edges * code.z * LDPC_ITER * LDPC_OPS)
+
+
+def bpsk_llrs(bits, snr_db, gen):
+    """Sionna-convention LLRs log(p1/p0) of bits sent as 1 - 2b over a real
+    Gaussian channel of noise variance 10^(-snr_db/10)."""
+    import torch
+    var = 10.0 ** (-snr_db / 10.0)
+    y = (1.0 - 2.0 * bits) + var ** 0.5 * torch.randn(
+        bits.shape, generator=gen, device=bits.device)
+    return -2.0 * y / var
 
 
 def rel_err(got, ref):
@@ -197,9 +240,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from neural_rx_tpu_torch.entry import entry, load_params, make_receiver
+    from neural_rx_tpu_torch.entry import (entry, eval_entry, eval_example,
+                                           load_params, make_receiver)
     from neural_rx_tpu_torch.kernels import _build, cgnn_iter, sepconv
+    from neural_rx_tpu_torch.kernels import ldpc as k5
+    from neural_rx_tpu_torch.phy.nr import ldpc, tb
+    from neural_rx_tpu_torch.phy.nr.tb import tb_decode
     from neural_rx_tpu_torch.rx.cgnn import count_params
+    from neural_rx_tpu_torch.sim.config import Parameters
 
     # the plain version is the oracle: full float32 products, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -210,12 +258,14 @@ def main() -> int:
     def counts():
         return {"sepconv_stack": sepconv.launches,
                 "cgnn_iter": cgnn_iter.iter_launches,
-                "cgnn_full": cgnn_iter.full_launches}
+                "cgnn_full": cgnn_iter.full_launches,
+                "ldpc_decode": k5.launches}
 
     def reset():
         sepconv.launches = 0
         cgnn_iter.iter_launches = 0
         cgnn_iter.full_launches = 0
+        k5.launches = 0
 
     # 1. card
     t0 = time.perf_counter()
@@ -310,14 +360,77 @@ def main() -> int:
     emit({"phase": "kernel_check", "checks": checks,
           "seconds": time.perf_counter() - t0})
 
-    # 4. main path: entry() at 132 PRB on each of its routes
+    # 4. the LDPC kernel against its plain version: hard bits exactly equal
     t0 = time.perf_counter()
-    expected = {"b1": {"sepconv_stack": 3, "cgnn_iter": 0, "cgnn_full": 0},
-                "b16": {"sepconv_stack": 1, "cgnn_iter": 2, "cgnn_full": 0},
+    cfg132 = Parameters("nrx_rt", training=False).pusch_configs[0][0].tb
+    cfg4 = Parameters("nrx_rt", training=True).pusch_configs[0][0].tb
+    assert (cfg132.bg, cfg132.z, cfg132.num_cbs) == (1, 384, 5)
+    assert (cfg4.bg, cfg4.z, cfg4.num_cbs) == (2, 128, 1)
+    gen_l = torch.Generator(device=dev).manual_seed(1)
+
+    def tb_case(cfg, n_tb, snr_db):
+        """(codewords, decoder LLRs) [n_tb * C, n_full] of random TBs sent
+        through the TB chain over a BPSK-equivalent channel at snr_db."""
+        bits = torch.randint(0, 2, (n_tb, cfg.tb_size), generator=gen_l,
+                             device=dev).float()
+        cw = tb.tb_codewords(cfg, bits).reshape(-1, cfg.code.n_full)
+        coded = tb.tb_encode(cfg, bits)
+        llr = bpsk_llrs(coded, snr_db, gen_l)
+        return cw, tb.codeword_llrs(cfg, llr).reshape(-1, cfg.code.n_full)
+
+    def code_case(bg, z, n, snr_db):
+        """(codewords, LLRs) of n random codewords of one code, every
+        position sent but the punctured first 2Z."""
+        code = ldpc.get_code(bg, z)
+        info = torch.randint(0, 2, (n, code.k), generator=gen_l,
+                             device=dev).float()
+        cw = ldpc.encode(code, info)
+        llr = -bpsk_llrs(cw, snr_db, gen_l)  # internal log(p0/p1)
+        llr[:, :2 * z] = 0.0
+        return cw, llr
+
+    cw80, llr80 = tb_case(cfg132, 16, 10.0)
+    noiseless = (1.0 - 2.0 * cw80) * 8.0
+    noiseless[:, :2 * cfg132.z] = 0.0
+    ldpc_cases = {
+        "bg1_z384_10dB": (cfg132.code, cw80, llr80),
+        "bg1_z384_1.7dB": (cfg132.code, *tb_case(cfg132, 16, 1.7)),
+        "bg1_z384_noiseless": (cfg132.code, cw80, noiseless),
+        "bg1_z384_odd7": (cfg132.code, cw80[:7], llr80[:7].contiguous()),
+        "bg2_z128_2dB": (cfg4.code, *tb_case(cfg4, 16, 2.0)),
+        "bg1_z352_0dB": (ldpc.get_code(1, 352), *code_case(1, 352, 9, 0.0)),
+        "bg2_z52_0dB": (ldpc.get_code(2, 52), *code_case(2, 52, 9, 0.0))}
+    ldpc_checks = []
+    for cname, (code, cw, llr) in ldpc_cases.items():
+        got = k5.layered_decode(code, llr, LDPC_ITER)
+        ref = k5.layered_decode_reference(code, llr, LDPC_ITER)
+        torch.cuda.synchronize()
+        err = got != cw
+        rec = {"case": cname, "bg": code.bg, "z": code.z,
+               "codewords": int(llr.shape[0]),
+               "differing_bits": int((got != ref).sum()),
+               "bit_errors": int(err.sum()),
+               "block_errors": int(err.any(dim=1).sum())}
+        rec["ok"] = rec["differing_bits"] == 0 and got.shape == cw.shape
+        if cname in ("bg1_z384_10dB", "bg1_z384_noiseless",
+                     "bg1_z384_odd7"):
+            rec["ok"] = rec["ok"] and rec["bit_errors"] == 0
+        ldpc_checks.append(rec)
+    emit({"phase": "ldpc_check", "num_iter": LDPC_ITER,
+          "checks": ldpc_checks, "seconds": time.perf_counter() - t0})
+    for rec in ldpc_checks:
+        assert rec["ok"], rec
+
+    # 5. main path: entry() at 132 PRB on each of its routes
+    t0 = time.perf_counter()
+    expected = {"b1": {"sepconv_stack": 3, "cgnn_iter": 0, "cgnn_full": 0,
+                       "ldpc_decode": 0},
+                "b16": {"sepconv_stack": 1, "cgnn_iter": 2, "cgnn_full": 0,
+                        "ldpc_decode": 0},
                 "mega_b1": {"sepconv_stack": 0, "cgnn_iter": 0,
-                            "cgnn_full": 1},
+                            "cgnn_full": 1, "ldpc_decode": 0},
                 "mega_b16": {"sepconv_stack": 0, "cgnn_iter": 0,
-                             "cgnn_full": 1}}
+                             "cgnn_full": 1, "ldpc_decode": 0}}
     fn, (params, y) = entry(device="cuda")
     fn_mega, _ = entry(device="cuda", mega=True)
     y16 = torch.as_tensor(np.random.default_rng(1).normal(
@@ -368,7 +481,63 @@ def main() -> int:
             assert max(errs[key].values()) <= tol, (route, key, errs[key])
     del outs, params32
 
-    # 5. times (bf16, as served), at the shapes the main path gives each
+    # 6. the eval path at 132 PRB, batch 16, float32, with each decoder
+    t0 = time.perf_counter()
+    p_eval = Parameters("nrx_rt", training=False)
+    bits16, y_eval, act16 = eval_example(p_eval, 16, EVAL_EBNO_DB,
+                                         device=dev)
+    eval_routes = {"eval_fast_b16": True, "eval_flooding_b16": False}
+    expected_eval = {
+        "eval_fast_b16": {"sepconv_stack": 1, "cgnn_iter": 2,
+                          "cgnn_full": 0, "ldpc_decode": 2},
+        "eval_flooding_b16": {"sepconv_stack": 1, "cgnn_iter": 2,
+                              "cgnn_full": 0, "ldpc_decode": 0}}
+    eval_fns, eval_out = {}, {}
+    for route, fast in eval_routes.items():
+        fn_e, (params_e, y_e, act_e) = eval_entry(
+            device="cuda", batch=16, ebno_db=EVAL_EBNO_DB, fast_ldpc=fast)
+        assert torch.equal(y_e, y_eval)
+        eval_fns[route] = fn_e
+        reset()
+        eval_out[route] = fn_e(params_e, y_e, act_e)
+        torch.cuda.synchronize()
+        launches[route] = counts()
+    reset()
+    rx_eval_plain = make_receiver(nrx_dtype=p_eval.nrx_dtype, kernels=False,
+                                  device=dev)
+    b_plain, _, _, crc_plain = rx_eval_plain.apply(params_e, y_eval, act16,
+                                                   fast_ldpc=True)
+    torch.cuda.synchronize()
+    assert k5.launches == 0 and counts() == dict.fromkeys(counts(), 0)
+    eval_rec = {}
+    for route in eval_routes:
+        b_hat, crc = eval_out[route]
+        wrong = (b_hat != bits16).any(dim=-1)
+        eval_rec[route] = {
+            "b_hat_shape": list(b_hat.shape),
+            "crc_pass": int(crc.sum()), "crc_total": crc.numel(),
+            "crc_failed": sorted(map(tuple, (~crc).nonzero().tolist())),
+            "crc_truthful": bool(torch.equal(wrong, ~crc)),
+            "bit_errors": int((b_hat != bits16).sum())}
+    b_fast, crc_fast = eval_out["eval_fast_b16"]
+    eval_rec["eval_fast_b16"]["equals_plain_route"] = bool(
+        torch.equal(b_fast, b_plain) and torch.equal(crc_fast, crc_plain))
+    emit({"phase": "eval_path", "ebno_db": EVAL_EBNO_DB,
+          "launches": {r: launches[r] for r in eval_routes},
+          "expected": expected_eval, "results": eval_rec,
+          "seconds": time.perf_counter() - t0})
+    for route in eval_routes:
+        b_hat, crc = eval_out[route]
+        rec = eval_rec[route]
+        assert launches[route] == expected_eval[route], (route,
+                                                         launches[route])
+        assert b_hat.shape == bits16.shape, route
+        assert set(rec["crc_failed"]) == EVAL_FAILS, (route, rec)
+        assert rec["crc_truthful"], (route, rec)
+    assert eval_rec["eval_fast_b16"]["equals_plain_route"]
+    del b_plain, rx_eval_plain
+
+    # 7. times (bf16, as served), at the shapes the main path gives each
     # kernel: stacks at N = 2 (batch 1), the iteration at batch 16, the
     # whole CGNN at batch 1
     t0 = time.perf_counter()
@@ -425,8 +594,41 @@ def main() -> int:
     paths["b16_stack_route"] = {"batch": 16, "call_ms": call_ms,
                                 "slot_ms": call_ms / 16,
                                 "slots_per_s": 16 / (call_ms / 1e3)}
+    # the LDPC kernel at one user's batch-16 load: 16 TBs x 5 code blocks
+    code132 = cfg132.code
+    ldpc_time = {
+        "codewords": int(llr80.shape[0]), "bg": 1, "z": code132.z,
+        "num_iter": LDPC_ITER,
+        "kernel_ms": cuda_ms(
+            lambda: k5.layered_decode(code132, llr80, LDPC_ITER), 20),
+        "plain_ms": cuda_ms(lambda: k5.layered_decode_reference(
+            code132, llr80, LDPC_ITER), 2, warmup=1),
+        **bound(*ldpc_work(code132, llr80.shape[0]), peaks,
+                rate="f32_flops")}
+    # the eval path per decoder, split into receiver and decode
+    rx_e = make_receiver(nrx_dtype=p_eval.nrx_dtype, device=dev)
+    y_planar = torch.stack([y_eval.real, y_eval.imag], dim=-1)
+    llr_e, _ = rx_e.serve(params_e, y_planar)
+    rg = rx_e.rg
+    eval_times = {"batch": 16,
+                  "receiver_ms": cuda_ms(
+                      lambda: rx_e.serve(params_e, y_planar), 5)}
+    for route, fast in eval_routes.items():
+        dec = (k5.tb_decode_fast if fast else tb_decode)
+
+        def decode_both():
+            flat = rg.demap_data(llr_e).reshape(16, N_TX, -1)
+            return [dec(cfg.tb, flat[:, ue])
+                    for ue, cfg in enumerate(rg.configs)]
+        f_e = eval_fns[route]
+        call_ms = cuda_ms(lambda: f_e(params_e, y_eval, act16), 3, warmup=1)
+        eval_times[route] = {
+            "call_ms": call_ms, "slot_ms": call_ms / 16,
+            "slots_per_s": 16 / (call_ms / 1e3),
+            "decode_ms": cuda_ms(decode_both, 3, warmup=1)}
     emit({"phase": "times", "card": card, "per_stack": per_stack,
           "cgnn_iter": iteration, "cgnn_full": full, "paths": paths,
+          "ldpc_decode": ldpc_time, "eval_path": eval_times,
           "seconds": time.perf_counter() - t0})
 
     def max_abs(kernel):
@@ -439,7 +641,7 @@ def main() -> int:
     st_bytes = sum(s["bytes_ms"] for s in per_stack)
     st_ops = sum(s["ops_ms"] for s in per_stack)
     by_path = {k: {r: launches[r][k] for r in launches} for k in
-               ("sepconv_stack", "cgnn_iter", "cgnn_full")}
+               ("sepconv_stack", "cgnn_iter", "cgnn_full", "ldpc_decode")}
     emit({"kernels": [
         {"name": "sepconv_stack", "route": "cuda",
          "source": "neural_rx_tpu_torch/csrc/sepconv_stack.cu",
@@ -483,7 +685,25 @@ def main() -> int:
          "library_ms": None,
          "note": "ms/plain_ms/bound_ms: one launch at batch 1 (b=1, T=2, "
                  "14x1584), bf16; library: no PyTorch call computes the "
-                 "whole CGNN"}]})
+                 "whole CGNN"},
+        {"name": "ldpc_decode", "route": "cuda",
+         "source": "neural_rx_tpu_torch/csrc/ldpc_decode.cu",
+         "replaces": "neural_rx_tpu/kernels/ldpc_pallas.py:81",
+         "replaces_k": "K5 (make_decoder :81, kernel :133, pallas_call "
+                       ":189)",
+         "launches": total("ldpc_decode"),
+         "launches_by_path": by_path["ldpc_decode"],
+         "max_abs_err": max(float(c["differing_bits"] > 0)
+                            for c in ldpc_checks), "tol": 0.0,
+         "ms": ldpc_time["kernel_ms"], "plain_ms": ldpc_time["plain_ms"],
+         "bound_ms": ldpc_time["bound_ms"],
+         "bound_by": ldpc_time["bound_by"], "library_ms": None,
+         "note": "ms/plain_ms/bound_ms: one launch of 80 codewords (one "
+                 "user of a batch-16 slot: 16 TBs x 5 code blocks), BG1, "
+                 "Z=384, 20 iterations, float32; max_abs_err on hard bits "
+                 "(0 or 1); bound: 10 f32 operations per edge, lane and "
+                 "iteration at the card's f32 rate, LLRs read and bits "
+                 "written once; library: no PyTorch call decodes LDPC"}]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_all})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

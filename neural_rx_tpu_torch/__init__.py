@@ -6,7 +6,16 @@ Entry points run on the CUDA device unless the caller passes
 `device="cpu"`; without a GPU they raise instead of falling back.
 
 Serving path (`entry.entry`): dense nearest-neighbour LS channel estimate
-(`phy/chest.py`) -> CGNN (`rx/cgnn.py`) whose separable-conv stacks run in
-the hand-written CUDA kernel `csrc/sepconv_stack.cu`
-(`kernels/sepconv.py`) -> (llr, h_hat).
+(`phy/chest.py`) -> CGNN (`rx/cgnn.py`) whose separable-conv stacks and
+iterations run in the hand-written CUDA kernels of `csrc/sepconv_stack.cu`
+and `csrc/cgnn_iter.cu` (`kernels/sepconv.py`, `kernels/cgnn_iter.py`)
+-> (llr, h_hat).
+
+Eval path (`entry.eval_entry`): the transmitter (`phy/nr/transmitter.py`:
+TB encode, QAM, RE mapping, DMRS, precoding) -> channel + AWGN
+(`channel/apply.py`) -> `NeuralPUSCHReceiver.apply`: the serving path's
+LS estimate and CGNN, then a per-user transport-block decode
+(`phy/nr/tb.py`) by the flooding decoder (`phy/nr/ldpc.py`) or the
+hand-written CUDA layered min-sum decoder `csrc/ldpc_decode.cu`
+(`kernels/ldpc.py`).
 """

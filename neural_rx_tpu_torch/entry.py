@@ -8,6 +8,14 @@ batch > 4 the init stack does and each iteration runs in the iteration
 kernel (`fused_iteration=True`); with mega=True (the JAX entry's
 `NRX_DEPLOY_MEGA=1`) the whole CGNN runs in one kernel (`fused_full=True`).
 It uses the committed `weights/nrx_rt_ema_weights.npz`.
+
+`eval_entry()` is the eval receive path at the same width in float32 (the
+configuration's `nrx_dtype`, as the JAX package evaluates): `apply` ->
+LS estimate + CGNN (same routes) -> per-user transport-block decode, by the
+layered min-sum kernel (`fast_ldpc=True`) or the flooding decoder. Its
+example input is a slot of seeded random transport blocks through the
+port's transmitter, a seeded flat Rayleigh channel (`flat_channel`) and
+seeded noise at the given Eb/N0.
 """
 
 from __future__ import annotations
@@ -18,10 +26,53 @@ import torch
 from . import weights
 from .kernels.cgnn_iter import pack_mlp
 from .kernels.sepconv import pack_stack
+from .channel.apply import apply_ofdm_channel
+from .phy.misc import binary_source
 from .rx.neural_rx import NeuralPUSCHReceiver, resolve_device
 from .sim.config import Parameters
 
 NRX_DTYPE = torch.bfloat16
+
+
+def flat_channel(w: np.ndarray, batch: int, num_rx_ant: int, n_sym: int,
+                 n_sc: int, seed: int = 0, device="cpu") -> torch.Tensor:
+    """A flat Rayleigh channel matched to each user's precoder: one
+    complex gain g[b, a, t] ~ CN(0, 1) per (batch item, rx antenna, user)
+    from `np.random.default_rng(seed)`, constant over the slot, with
+    h[b, a, t, p] = g[b, a, t] * conj(w[t, p]) / sum_p |w[t, p]|^2, so the
+    user's effective channel is g. w: [T, ports] precoders. Returns
+    [b, rx_ant, T, ports, n_sym, n_sc] complex64 (a broadcast view).
+    This is the example input's channel, not one of the system's channel
+    models: it lets both users be told apart by 4 antennas in one slot."""
+    rng = np.random.default_rng(seed)
+    t = w.shape[0]
+    g = (rng.normal(size=(batch, num_rx_ant, t))
+         + 1j * rng.normal(size=(batch, num_rx_ant, t))) / np.sqrt(2.0)
+    h = g[..., None] * np.conj(w)[None, None] / np.sum(
+        np.abs(w) ** 2, axis=-1)[None, None, :, None]
+    h = torch.as_tensor(h.astype(np.complex64), device=device)
+    return h[..., None, None].expand(h.shape + (n_sym, n_sc))
+
+
+def eval_example(p: Parameters, batch: int, ebno_db: float, seed: int = 0,
+                 device="cuda"):
+    """(bits [b, T, tb_size], y [b, rx_ant, 14, sc], active_tx [b, T]) of
+    one slot with all users active: seeded random transport blocks through
+    the transmitter of the first MCS on `device`, `flat_channel` and
+    CN(0, N0) noise at `ebno_db` (`Parameters.noise_variance`). Bits and
+    noise come from a CPU `torch.Generator` seeded with `seed` (and the
+    channel from numpy), so every device gets the same slot and the CPU
+    tests can hold the JAX package to the slot the card decodes."""
+    device = resolve_device(device)
+    tx = p.transmitters[0]
+    rg = tx.resource_grid
+    gen = torch.Generator().manual_seed(seed)
+    bits = binary_source((batch, p.max_num_tx, tx.tb_size), gen).to(device)
+    h = flat_channel(tx.w[..., 0], batch, p.num_rx_antennas,
+                     rg.num_ofdm_symbols, rg.num_subcarriers, seed, device)
+    y = apply_ofdm_channel(tx(bits), h, p.noise_variance(ebno_db),
+                           generator=gen)
+    return bits, y, torch.ones((batch, p.max_num_tx), device=device)
 
 
 def make_receiver(training: bool = False, nrx_dtype=NRX_DTYPE,
@@ -68,3 +119,24 @@ def entry(device="cuda", batch: int = 1, mega: bool = False):
     y = np.random.default_rng(0).normal(size=(batch, 4, 14, sc, 2))
     y_example = torch.as_tensor(y, dtype=torch.float32, device=device)
     return rx.serve, (params, y_example)
+
+
+def eval_entry(device="cuda", batch: int = 16, ebno_db: float = 10.0,
+               fast_ldpc: bool = True):
+    """Returns (fn, example_args): fn(params, y, active_tx) -> (b_hat
+    [b, T, tb_size], crc [b, T]), the eval receive path at 132 PRB in
+    float32, decoding with the layered min-sum kernel (fast_ldpc=True) or
+    the flooding decoder; example_args = (params, y, active_tx) from
+    `eval_example` with seed 0, whose bits are the ones sent."""
+    device = resolve_device(device)
+    p = Parameters("nrx_rt", training=False)
+    rx = make_receiver(nrx_dtype=p.nrx_dtype, device=device)
+    params = load_params(dtype=p.nrx_dtype, device=device)
+    _, y, active_tx = eval_example(p, batch, ebno_db, device=device)
+
+    def fn(params, y, active_tx):
+        b_hat, _, _, crc = rx.apply(params, y, active_tx,
+                                    fast_ldpc=fast_ldpc)
+        return b_hat, crc
+
+    return fn, (params, y, active_tx)

@@ -1,20 +1,22 @@
 """PUSCH configuration: carrier + DMRS + MCS + precoding (38.211/38.214).
 
-The port's copy of `neural_rx_tpu/phy/nr/pusch.py`, trimmed to what the
-resource grid and the receiver read: the DMRS grids, the pilot mask, the
-modulation order and the codebook precoding matrix (38.211 Table
-6.3.1.5-1). Transport-block sizing belongs to the eval chain.
+The port's copy of `neural_rx_tpu/phy/nr/pusch.py`: the DMRS grids, the
+pilot mask, the modulation order, the codebook precoding matrix (38.211
+Table 6.3.1.5-1), the coded-bit budget G, the TBS and the transport-block
+chain config `tb`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 
 from .dmrs import DMRSConfig, dmrs_grid_for_port, pilot_mask, \
     dmrs_symbol_indices
-from .mcs import mcs_to_qm_rate
+from .mcs import calculate_tbs, mcs_to_qm_rate
+from .tb import TBConfig
 
 # 38.211 Table 6.3.1.5-1: single-layer, 2 antenna ports, W[tpmi]
 _CODEBOOK_1L_2P = [
@@ -72,15 +74,17 @@ class CarrierConfig:
 class PUSCHConfig:
     """Static per-UE PUSCH configuration.
 
-    Derives Qm/coderate from the MCS tables; builds the DMRS grids and
-    the pilot mask.
+    Derives Qm/coderate from the MCS tables, the data-RE count, the coded
+    bits G and the TBS; builds the DMRS grids, the pilot mask and (at first
+    use of `tb`) the transport-block chain.
     """
 
     def __init__(self, carrier: CarrierConfig, dmrs: DMRSConfig,
                  mcs_index: int = 14, mcs_table: int = 1,
                  num_antenna_ports: int = 2, precoding: str = "codebook",
                  tpmi: int = 2, symbol_allocation=(0, 14),
-                 n_rnti: int = 1, n_id: int = 1):
+                 n_rnti: int = 1, n_id: int = 1,
+                 num_bp_iter: int = 20, cn_type: str = "boxplus"):
         self.carrier = carrier
         self.dmrs = dmrs
         self.mcs_index = mcs_index
@@ -91,6 +95,8 @@ class PUSCHConfig:
         self.symbol_allocation = tuple(symbol_allocation)
         self.n_rnti = n_rnti
         self.n_id = n_id
+        self.num_bp_iter = num_bp_iter
+        self.cn_type = cn_type
         self.num_layers = len(dmrs.dmrs_port_set)
         if self.num_layers != 1:
             raise ValueError("one layer per UE (reference setup)")
@@ -101,6 +107,36 @@ class PUSCHConfig:
 
         self.num_bits_per_symbol, self.target_coderate = mcs_to_qm_rate(
             mcs_index, mcs_table)
+
+        # Data-RE count per layer (symbols in allocation minus reserved
+        # pilot REs) -> coded bits G
+        pm = self.pilot_mask()
+        s0, ns = self.symbol_allocation
+        alloc = np.zeros_like(pm)
+        alloc[s0:s0 + ns] = True
+        self.num_data_res = int((alloc & ~pm).sum())
+        self.num_coded_bits = (self.num_data_res * self.num_bits_per_symbol
+                               * self.num_layers)
+
+        # TBS per 38.214 §6.1.4.2 (DMRS overhead counts all CDM groups
+        # without data over the allocated symbols)
+        re_per_group = 6 if dmrs.config_type == 1 else 4
+        n_dmrs_per_prb = (len(self.dmrs_symbol_indices()) * re_per_group
+                          * dmrs.num_cdm_groups_without_data)
+        self.tb_size = calculate_tbs(
+            carrier.n_size_grid, ns, n_dmrs_per_prb,
+            self.num_bits_per_symbol, self.target_coderate, self.num_layers)
+
+    @functools.cached_property
+    def tb(self) -> TBConfig:
+        """The transport-block chain config. Built at first use: a BG1
+        code's generated shift table takes seconds, and serving never
+        needs it."""
+        return TBConfig(self.tb_size, self.num_coded_bits,
+                        self.num_bits_per_symbol, self.target_coderate,
+                        n_rnti=self.n_rnti, n_id=self.n_id,
+                        num_layers=self.num_layers,
+                        num_bp_iter=self.num_bp_iter, cn_type=self.cn_type)
 
     # -- grid building -------------------------------------------------
     def dmrs_symbol_indices(self):
@@ -145,3 +181,14 @@ class PUSCHConfig:
             raise ValueError("unsupported num_antenna_ports")
         w = w / np.linalg.norm(w, axis=0, keepdims=True)
         return w.astype(np.complex64)
+
+    def clone(self, **overrides) -> "PUSCHConfig":
+        kw = dict(carrier=self.carrier, dmrs=self.dmrs,
+                  mcs_index=self.mcs_index, mcs_table=self.mcs_table,
+                  num_antenna_ports=self.num_antenna_ports,
+                  precoding=self.precoding, tpmi=self.tpmi,
+                  symbol_allocation=self.symbol_allocation,
+                  n_rnti=self.n_rnti, n_id=self.n_id,
+                  num_bp_iter=self.num_bp_iter, cn_type=self.cn_type)
+        kw.update(overrides)
+        return PUSCHConfig(**kw)

@@ -1,7 +1,7 @@
 """Pseudo-random (Gold) sequence generation, 38.211 §5.2.1.
 
-Used for the DMRS pilot values. Pure NumPy, evaluated once at
-configuration time.
+Used for the DMRS pilot values and PUSCH scrambling. Pure NumPy, evaluated
+once at configuration time.
 """
 
 from __future__ import annotations
@@ -32,6 +32,13 @@ def qpsk_from_gold(c: np.ndarray) -> np.ndarray:
     re = 1.0 - 2.0 * c[0::2]
     im = 1.0 - 2.0 * c[1::2]
     return ((re + 1j * im) / np.sqrt(2.0)).astype(np.complex64)
+
+
+def pusch_scrambling_sequence(n_rnti: int, n_id: int, length: int
+                              ) -> np.ndarray:
+    """PUSCH scrambling sequence (38.211 §6.3.1.1):
+    c_init = n_rnti * 2^15 + n_id."""
+    return gold_sequence((n_rnti << 15) + n_id, length)
 
 
 def dmrs_c_init(slot_number: int, symbol_index: int, n_id: int,

@@ -1,0 +1,65 @@
+"""PUSCH transmitter: TB encode -> QAM map -> RG map -> DMRS -> precode.
+
+The port's copy of `neural_rx_tpu/phy/nr/transmitter.py:PUSCHTransmitter`
+(frequency domain, one transmitter per MCS for all its UEs: per-UE
+scrambling via n_rnti/n_id, per-UE DMRS ports, per-UE codebook
+precoding). Trainable constellations wait for the training slice.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..constellation import Constellation
+from ..grid import ResourceGrid
+from ..mapping import map_bits
+from .tb import tb_encode
+
+
+class PUSCHTransmitter:
+    """Frequency-domain PUSCH transmitter for one MCS, all UEs.
+
+    Call: bits [batch, num_tx, tb_size] -> x [batch, num_tx,
+    num_antenna_ports, 14, num_subcarriers] complex64.
+    """
+
+    def __init__(self, pusch_configs):
+        self.configs = list(pusch_configs)
+        c0 = self.configs[0]
+        self.resource_grid = ResourceGrid(self.configs)
+        self.num_bits_per_symbol = c0.num_bits_per_symbol
+        self.target_coderate = c0.target_coderate
+        self.tb_size = c0.tb_size
+        self.num_coded_bits = c0.num_coded_bits
+        self.constellation = Constellation(self.num_bits_per_symbol)
+        # [num_tx, num_ports, 1]
+        self.w = np.stack([c.precoding_matrix() for c in self.configs])
+        self.num_antenna_ports = c0.num_antenna_ports
+
+    def __call__(self, bits: torch.Tensor, slot_idx: int | None = None
+                 ) -> torch.Tensor:
+        """bits [batch, num_tx, tb_size] float {0,1} on the output's
+        device -> x [batch, num_tx, ports, 14, sc] complex64. slot_idx
+        selects the DMRS bank entry (default: the configured slot)."""
+        rg = self.resource_grid
+        dev = bits.device
+        if slot_idx is None:
+            slot_idx = self.configs[0].carrier.slot_number
+        points = Constellation.points(
+            torch.as_tensor(self.constellation._init_points, device=dev))
+
+        # Per-UE TB encode (different scrambling per UE) -> data symbols
+        grids = []
+        for i, cfg in enumerate(self.configs):
+            coded = tb_encode(cfg.tb, bits[:, i])  # [batch, G]
+            syms = map_bits(coded, points)  # [batch, n_data]
+            grids.append(rg.map_data(syms))  # [batch, 14, sc]
+        x = torch.stack(grids, dim=1)  # [batch, num_tx, 14, sc]
+
+        # Add DMRS (pre-precoding, single layer per UE)
+        x = x + rg.dmrs_grid_slot(slot_idx, dev)[None]
+
+        # Codebook precoding: port p carries w[tx, p] * layer signal
+        w = torch.as_tensor(self.w[..., 0], device=dev)  # [num_tx, ports]
+        return x[:, :, None] * w[None, :, :, None, None]

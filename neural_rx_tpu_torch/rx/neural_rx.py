@@ -1,19 +1,23 @@
-"""NeuralPUSCHReceiver serving path: dense LS estimate + CGNN -> (llr, h_hat).
+"""NeuralPUSCHReceiver: dense LS estimate + CGNN (+ transport-block decode).
 
 Counterpart of `neural_rx_tpu/rx/neural_rx.py:NeuralPUSCHReceiver`
-(`__init__` and the planar `_prepare_inputs`), plus `serve`, which returns
-what the JAX package's `__graft_entry__.entry()` function returns: the
-final-iteration LLR grid and the refined channel estimate, by the same
-batch-adaptive route.
+(`__init__`, the planar `_prepare_inputs` and the eval forward `apply`),
+plus `serve`, which returns what the JAX package's
+`__graft_entry__.entry()` function returns: the final-iteration LLR grid
+and the refined channel estimate, by the same batch-adaptive route. `apply`
+takes that route too and decodes each user's transport block.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
+from ..kernels.ldpc import tb_decode_fast
 from ..phy.chest import LSChannelEstimator
+from ..phy.nr.tb import tb_decode
 from .cgnn import CGNNConfig, cgnn_apply, pilot_positional_encoding
 
 
@@ -29,11 +33,12 @@ def resolve_device(device) -> torch.device:
 class NeuralPUSCHReceiver:
     """Static configuration + functional apply for the neural receiver.
 
-    resource_grid: the PUSCH `ResourceGrid` of the UEs;
+    resource_grid: the PUSCH `ResourceGrid` of the UEs (its configs carry
+    each UE's transport-block chain for `apply`);
     num_bits_per_symbol: one entry per MCS (`sim.config.Parameters`).
     fused_full: serve through the whole-CGNN kernel (the JAX entry's
-    `NRX_DEPLOY_MEGA=1` route); kernels=False: every fused route takes its
-    kernel's plain version.
+    `NRX_DEPLOY_MEGA=1` route); kernels=False: every fused route, and the
+    layered LDPC decoder, takes its kernel's plain version.
     """
 
     def __init__(self, resource_grid, num_bits_per_symbol,
@@ -73,20 +78,37 @@ class NeuralPUSCHReceiver:
         self.pe = torch.as_tensor(pe, device=self.device)
         self._ls = LSChannelEstimator(self.rg)
 
-    def _prepare_inputs(self, y_planar: torch.Tensor):
+    def _prepare_inputs(self, y_planar: torch.Tensor, slot_idx=None):
         """y_planar [b, rx_ant, sym, sc, 2] float32 (re/im planes) ->
         (y_in [b, sym, sc, 2*rx_ant], h_in [b, T, sym, sc, 2*rx_ant]),
         channel order [re a0.., im a0..]. bf16 receivers round y before
         the transpose and the LS estimate after its FOCC average, as the
-        JAX package does; the LS estimate reads the f32 input."""
+        JAX package does; the LS estimate reads the f32 input. slot_idx
+        selects the DMRS values the transmitter used (default: the
+        configured slot)."""
         b, ant = y_planar.shape[0], y_planar.shape[1]
         bf16 = self.nrx_dtype == torch.bfloat16
         y_t = y_planar.to(self.nrx_dtype) if bf16 else y_planar
         y_in = y_t.permute(0, 2, 3, 4, 1).reshape(
             b, y_planar.shape[2], y_planar.shape[3], 2 * ant)
         h_in = self._ls.estimate_planar_dense(
-            y_planar, out_dtype=self.nrx_dtype if bf16 else None)
+            y_planar, slot_idx=slot_idx,
+            out_dtype=self.nrx_dtype if bf16 else None)
         return y_in, h_in[:, :self.max_num_tx]
+
+    def _cgnn(self, params, y_planar: torch.Tensor, active_tx: torch.Tensor,
+              fused_iteration: bool | None, slot_idx=None):
+        """(llr, h_hat, h_in) of the final iteration, by the route `serve`
+        documents, with the users of active_tx [b, T] active."""
+        if fused_iteration is None:
+            fused_iteration = y_planar.shape[0] > 4
+        cfg = dataclasses.replace(self.cgnn_cfg,
+                                  fused_iteration=fused_iteration)
+        y_in, h_in = self._prepare_inputs(y_planar, slot_idx)
+        llrs, h_hats = cgnn_apply(params["cgnn"], cfg, y_in, self.pe, h_in,
+                                  active_tx, torch.ones_like(active_tx)[
+                                      ..., None], dtype=self.nrx_dtype)
+        return llrs[-1][0], h_hats[-1], h_in
 
     def serve(self, params, y_planar: torch.Tensor,
               fused_iteration: bool | None = None):
@@ -98,14 +120,38 @@ class NeuralPUSCHReceiver:
         iteration kernel at batch > 4 (fused_iteration=None), else the
         stack kernel alone; the whole-CGNN kernel if the receiver was built
         with fused_full."""
-        b = y_planar.shape[0]
-        if fused_iteration is None:
-            fused_iteration = b > 4
-        cfg = dataclasses.replace(self.cgnn_cfg,
-                                  fused_iteration=fused_iteration)
-        y_in, h_in = self._prepare_inputs(y_planar)
-        ones = torch.ones((b, self.max_num_tx), device=y_planar.device)
-        llrs, h_hats = cgnn_apply(params["cgnn"], cfg, y_in,
-                                  self.pe, h_in, ones, ones[..., None],
-                                  dtype=self.nrx_dtype)
-        return llrs[-1][0], h_hats[-1]
+        ones = torch.ones((y_planar.shape[0], self.max_num_tx),
+                          device=y_planar.device)
+        llr, h_hat, _ = self._cgnn(params, y_planar, ones, fused_iteration)
+        return llr, h_hat
+
+    def apply(self, params, y: torch.Tensor, active_tx: torch.Tensor,
+              mcs_arr_eval=(0,), mcs_ue_mask=None, num_it: int | None = None,
+              fast_ldpc: bool = False, slot_idx=None):
+        """Eval forward: (b_hat [b, T, tb_size], h_hat [b, T, 14, sc,
+        2*rx_ant], h_in (the LS estimate fed to the CGNN), crc [b, T]).
+
+        y: [b, rx_ant, 14, sc] complex64; active_tx: [b, T]. The CGNN takes
+        `serve`'s route in `nrx_dtype`; then each user's transport block is
+        decoded with its own scrambling: by the flooding boxplus decoder
+        (fast_ldpc=False, the reference's), or by the layered min-sum
+        kernel (fast_ldpc=True, one launch per user on the card; its plain
+        version if the receiver was built with kernels=False). Only the
+        single-MCS eval with the configured iteration count is ported."""
+        if tuple(mcs_arr_eval) != (0,) or mcs_ue_mask is not None or \
+                num_it not in (None, self.cgnn_cfg.num_it):
+            raise NotImplementedError(
+                "only the single-MCS eval with the configured iterations is "
+                "ported")
+        b = y.shape[0]
+        y_planar = torch.stack([y.real, y.imag], dim=-1)
+        llr, h_hat, h_in = self._cgnn(params, y_planar,
+                                      active_tx.to(torch.float32), None,
+                                      slot_idx)
+        llr_flat = self.rg.demap_data(llr).reshape(b, self.max_num_tx, -1)
+        decode = functools.partial(
+            tb_decode_fast, kernels=self.cgnn_cfg.kernels) if fast_ldpc \
+            else tb_decode
+        b_hats, crcs = zip(*(decode(self.rg.configs[ue].tb, llr_flat[:, ue])
+                             for ue in range(self.max_num_tx)))
+        return torch.stack(b_hats, 1), h_hat, h_in, torch.stack(crcs, 1)

@@ -1,9 +1,10 @@
 """Experiment configuration: INI parsing + PUSCH grid assembly.
 
 The port's counterpart of `neural_rx_tpu/sim/config.py:Parameters`, cut to
-what the serving path reads: the `[system]` and `[neural_receiver]` fields,
-the per-(MCS, UE) `PUSCHConfig`s and the shared resource grid. Channels,
-transmitters and CFO belong to the eval chain.
+what the serving and eval paths read: the config fields, the per-(MCS, UE)
+`PUSCHConfig`s, the shared resource grid, one `PUSCHTransmitter` per MCS
+and the noise-variance rule of the JAX package's `sim/e2e.py`. Channel
+models and CFO wait for the next eval slice.
 
 Values are parsed with `ast.literal_eval`. `X_eval` keys override `X` when
 training=False, so `nrx_rt` serves 132 PRB (1584 subcarriers) in eval mode
@@ -18,9 +19,10 @@ import os
 
 import torch
 
-from ..phy.grid import ResourceGrid
 from ..phy.nr.dmrs import DMRSConfig
+from ..phy.misc import ebnodb2no
 from ..phy.nr.pusch import CarrierConfig, PUSCHConfig
+from ..phy.nr.transmitter import PUSCHTransmitter
 
 CONFIG_DIR = os.path.join(os.path.dirname(__file__), "..", "configs")
 
@@ -47,8 +49,8 @@ def _parse_value(raw: str):
 class Parameters:
     """Parsed configuration plus the PUSCH configs and resource grid.
 
-    pusch_configs: [mcs][ue] PUSCHConfig; resource_grid: the grid of the
-    first MCS (identical across MCS).
+    pusch_configs: [mcs][ue] PUSCHConfig; transmitters: one per MCS;
+    resource_grid: the grid of the first MCS (identical across MCS).
     """
 
     def __init__(self, config_name: str, training: bool = False,
@@ -111,6 +113,25 @@ class Parameters:
                     num_antenna_ports=self.num_antenna_ports,
                     precoding=self.precoding, tpmi=self.tpmi,
                     symbol_allocation=tuple(self.symbol_allocation),
-                    n_rnti=self.n_rntis[ue], n_id=self.n_ids[ue]))
+                    n_rnti=self.n_rntis[ue], n_id=self.n_ids[ue],
+                    num_bp_iter=self.num_bp_iter, cn_type=self.cn_type))
             self.pusch_configs.append(per_ue)
-        self.resource_grid = ResourceGrid(self.pusch_configs[0])
+        self.transmitters = [PUSCHTransmitter(per_ue)
+                             for per_ue in self.pusch_configs]
+        self.resource_grid = self.transmitters[0].resource_grid
+
+    def noise_variance(self, ebno_db: float, mcs_idx: int = 0) -> float:
+        """N0 for an Eb/N0 (or, with ebno=False, an SNR) in dB, for the
+        transmitter of MCS `mcs_idx` (`sim/e2e.py:_noise_variance` of the
+        JAX package): rate-adjusted, with the resource-grid overhead
+        (pilots and CP) in the energy per bit."""
+        if self.mask_pilots:
+            raise NotImplementedError("masked pilots are not ported")
+        if not self.ebno:
+            return 10.0 ** (-ebno_db / 10.0)
+        tx = self.transmitters[mcs_idx]
+        rg = tx.resource_grid
+        return ebnodb2no(ebno_db, tx.num_bits_per_symbol,
+                         tx.target_coderate,
+                         rg.num_resource_elements * (1.0 + rg.cp_overhead),
+                         rg.num_data_symbols)

@@ -1,14 +1,16 @@
 """Where the time of one nrx_rt slot goes in the PyTorch port, on the GPU.
 
 Runs `neural_rx_tpu_torch.entry.entry()` (132 PRB, bf16, committed
-weights; the batch-adaptive route, or with --mega the whole-CGNN kernel)
-under `torch.profiler` for a few calls after a warm-up and prints one JSON
-line: device time per kernel name (summed over the window, per call), the
-device-busy share of the window, and the host time per call. With --trace,
-the Chrome trace is written to that path.
+weights; the batch-adaptive route, or with --mega the whole-CGNN kernel),
+or with --eval the eval path `entry.eval_entry()` (132 PRB, float32, its
+example slot at 10 dB; the layered LDPC kernel, or with --flooding the
+flooding decoder), under `torch.profiler` for a few calls after a warm-up
+and prints one JSON line: device time per kernel name (summed over the
+window, per call), the device-busy share of the window, and the host time
+per call. With --trace, the Chrome trace is written to that path.
 
     python3 scripts/torch_port_profile_slot.py [--batch 1] [--slots 10] \
-        [--mega] [--trace slot_trace.json]
+        [--mega | --eval [--flooding]] [--trace slot_trace.json]
 """
 
 import argparse
@@ -26,6 +28,8 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--slots", type=int, default=10)
     ap.add_argument("--mega", action="store_true")
+    ap.add_argument("--eval", action="store_true")
+    ap.add_argument("--flooding", action="store_true")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
     import torch
@@ -34,21 +38,25 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from torch.profiler import ProfilerActivity, profile
-    from neural_rx_tpu_torch.entry import entry
+    from neural_rx_tpu_torch.entry import entry, eval_entry
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    fn, (params, y) = entry(device="cuda", batch=args.batch, mega=args.mega)
+    if args.eval:
+        fn, fn_args = eval_entry(device="cuda", batch=args.batch,
+                                 fast_ldpc=not args.flooding)
+    else:
+        fn, fn_args = entry(device="cuda", batch=args.batch, mega=args.mega)
     for _ in range(5):
-        fn(params, y)
+        fn(*fn_args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.slots):
-            fn(params, y)
+            fn(*fn_args)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
@@ -63,6 +71,7 @@ def main() -> int:
         prof.export_chrome_trace(args.trace)
     print(json.dumps({
         "card": card, "batch": args.batch, "mega": args.mega,
+        "eval": args.eval, "flooding": args.flooding,
         "slots": args.slots,
         "window_ms_per_slot": window_ms / args.slots,
         "device_busy_ms_per_slot": busy_ms / args.slots,

@@ -7,8 +7,9 @@ tensors) and through the JAX receiver's `_prepare_inputs` + `cgnn_apply`
 with the same fused routes (Pallas interpret mode): at batch 2 the stack
 kernel alone (`fused_convs=True`); at batch 5 the JAX entry's batch > 4
 route (`fused_iteration=True`: the iteration kernel) and its mega route
-(`fused_full=True`: the whole-CGNN kernel). The bars below hold for all
-three routes.
+(`fused_full=True`: the whole-CGNN kernel). The same bars hold at the
+132-PRB width `entry()` serves, at batch 1 (stack route; JAX's float32 side
+there is its XLA path).
 
 Tolerances (relative to max |JAX|):
 - float32: 1e-4; measured ~2e-6 (pointwise sums in another order).
@@ -101,6 +102,26 @@ def results_b5():
     return out
 
 
+@pytest.fixture(scope="module")
+def results_132():
+    """The width `entry()` serves: 132 PRB, batch 1 (the stack kernel's
+    route), against JAX cgnn_apply: in float32 its XLA path, in bfloat16
+    its fused_convs=True route (Pallas interpret), as the JAX entry
+    serves."""
+    y = np.random.default_rng(0).normal(
+        size=(1, 4, 14, 1584, 2)).astype(np.float32)
+    jp = JaxParameters("nrx_rt", system="nrx", training=False)
+    jparams = load_weights("weights/nrx_rt_ema_weights.pkl")
+    out = {}
+    for key, (tdt, jdt) in DTYPES.items():
+        out["jax", key] = _jax_serve(jparams, jp, jdt, y,
+                                     fused_convs=key == "bf16")
+        rx = port_entry.make_receiver(nrx_dtype=tdt, device="cpu")
+        params = port_entry.load_params(dtype=tdt, device="cpu")
+        out["port", key] = rx.serve(params, torch.as_tensor(y))
+    return out
+
+
 def _rel(a, b):
     return np.abs(a - b).max() / np.abs(b).max()
 
@@ -126,6 +147,23 @@ def test_bf16_matches_jax(results, i, name):
     got = results["port", "bf16"][i].numpy()
     want = results["jax", "bf16"][i]
     ref32 = results["jax", "f32"][i]
+    assert _rel(got, want) <= 0.1, name
+    assert np.abs(got - want).mean() / np.abs(want).max() <= 3e-3, name
+    assert _rel(got, ref32) <= 1.5 * _rel(want, ref32), name
+
+
+@pytest.mark.parametrize("i,name", [(0, "llr"), (1, "h_hat")])
+def test_132prb_f32_matches_jax(results_132, i, name):
+    got = results_132["port", "f32"][i]
+    assert got.shape[:4] == (1, 2, 14, 1584)
+    assert _rel(got.numpy(), results_132["jax", "f32"][i]) <= 1e-4, name
+
+
+@pytest.mark.parametrize("i,name", [(0, "llr"), (1, "h_hat")])
+def test_132prb_bf16_matches_jax(results_132, i, name):
+    got = results_132["port", "bf16"][i].numpy()
+    want = results_132["jax", "bf16"][i]
+    ref32 = results_132["jax", "f32"][i]
     assert _rel(got, want) <= 0.1, name
     assert np.abs(got - want).mean() / np.abs(want).max() <= 3e-3, name
     assert _rel(got, ref32) <= 1.5 * _rel(want, ref32), name
