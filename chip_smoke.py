@@ -37,9 +37,12 @@ Phases, each printing one JSON line with its seconds:
      there, and the kernel route's b_hat and crc equal the same route
      through the plain versions;
   7. times: CUDA-event device time per kernel launch (kernel and plain) at
-     the shapes the main path gives it, with its bound, per call and slot
-     on each route, and the eval path's call split into receiver and
-     decode for each decoder.
+     the shapes the main path gives it, with its bound, achieved TFLOP/s
+     and share of the bound (the whole-CGNN kernel at batch 1 and 16), per
+     call and slot on each route, and the eval path's call split into
+     receiver and decode for each decoder.
+Every kernel_check record carries the share of output elements that differ
+from the plain version and, in bfloat16, the largest difference in ulps.
 Then the `kernels` line, and last `{"ok": true, "device": {...}}`. Any
 failure raises and the script exits non-zero. Without a CUDA device it exits
 non-zero before printing anything.
@@ -221,16 +224,46 @@ def cuda_ms(fn, reps, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def bf16_line(x):
+    """bfloat16 values as integers on a monotone line, one step per ulp:
+    the bit pattern for x >= 0, minus the magnitude's for x < 0 (so -0 and
+    +0 meet at 0)."""
+    import torch
+    i = x.contiguous().view(torch.int16).to(torch.int32)
+    return torch.where(i < 0, -32768 - i, i)
+
+
+def differences(got, ref):
+    """(share of elements that differ, largest difference in bf16 ulps or
+    None for another dtype) over the outputs of one call (tuples)."""
+    import torch
+    n = sum(g.numel() for g in got)
+    if got[0].dtype != torch.bfloat16:
+        return sum(int((g != r).sum()) for g, r in zip(got, ref)) / n, None
+    steps = [(bf16_line(g) - bf16_line(r)).abs() for g, r in zip(got, ref)]
+    return (sum(int((d > 0).sum()) for d in steps) / n,
+            max(int(d.max()) for d in steps))
+
+
 def compare(got, ref, dtype, tol):
     """Error record of kernel outputs against plain outputs (tuples)."""
     import torch
     errs = [rel_err(g, r) for g, r in zip(got, ref)]
     ok = all(g.shape == r.shape and g.dtype == dtype
              and bool(torch.isfinite(g).all()) for g, r in zip(got, ref))
+    share, ulps = differences(got, ref)
     return {"dtype": str(dtype),
             "max_abs_err": max(float((g.float() - r.float()).abs().max())
                                for g, r in zip(got, ref)),
-            "rel_err": max(errs), "tol": tol, "ok": ok and max(errs) <= tol}
+            "rel_err": max(errs), "differing_share": share,
+            "max_ulps": ulps, "tol": tol, "ok": ok and max(errs) <= tol}
+
+
+def rates(rec):
+    """A timing record with its achieved TFLOP/s and its share of the
+    bound (bound_ms / kernel_ms, in %)."""
+    return {**rec, "tflops": rec["flops"] / rec["kernel_ms"] / 1e9,
+            "pct_of_bound": 100.0 * rec["bound_ms"] / rec["kernel_ms"]}
 
 
 def main() -> int:
@@ -553,28 +586,40 @@ def main() -> int:
             "plain_ms": cuda_ms(
                 lambda: sepconv.sepconv_stack_reference(p, x), 10),
             **bound(*stack_work(widths, n, h, w, 2), peaks)})
+        per_stack[-1] = rates(per_stack[-1])
     s16 = (4.0 * torch.randn((16, N_TX, h, w, d_s), generator=gen,
                              device=dev)).to(bf)
     pe = pe32.to(bf)
     act16 = torch.ones((16, N_TX), device=dev)
     it0 = cgnn["iterations"][0]
-    iteration = {
+    iteration = rates({
         "shape": list(s16.shape),
         "kernel_ms": cuda_ms(
             lambda: cgnn_iter.fused_iteration(it0, s16, pe, act16), 5),
         "plain_ms": cuda_ms(lambda: cgnn_iter.fused_iteration_reference(
             it0, s16, pe, act16), 3),
-        **bound(*iteration_work(it0, 16, pe.shape[-1], 2), peaks)}
+        **bound(*iteration_work(it0, 16, pe.shape[-1], 2), peaks)})
     del s16
     z1 = z32.to(bf)
     act1 = torch.ones((1, N_TX), device=dev)
-    full = {
+    full = rates({
         "shape": list(z1.shape),
         "kernel_ms": cuda_ms(
             lambda: cgnn_iter.fused_cgnn_full(cgnn, z1, pe, act1), 20),
         "plain_ms": cuda_ms(lambda: cgnn_iter.fused_cgnn_full_reference(
             cgnn, z1, pe, act1), 5),
-        **bound(*full_work(cgnn, 1, pe.shape[-1], 2), peaks)}
+        **bound(*full_work(cgnn, 1, pe.shape[-1], 2), peaks)})
+    # the mega route's launch at batch 16
+    z16 = torch.randn((16, N_TX, h, w, 18), generator=gen,
+                      device=dev).to(bf)
+    full16 = rates({
+        "shape": list(z16.shape),
+        "kernel_ms": cuda_ms(
+            lambda: cgnn_iter.fused_cgnn_full(cgnn, z16, pe, act16), 5),
+        "plain_ms": cuda_ms(lambda: cgnn_iter.fused_cgnn_full_reference(
+            cgnn, z16, pe, act16), 2, warmup=1),
+        **bound(*full_work(cgnn, 16, pe.shape[-1], 2), peaks)})
+    del z16
     paths = {}
     for route, (f, yy, _) in routes.items():
         b = yy.shape[0]
@@ -596,7 +641,7 @@ def main() -> int:
                                 "slots_per_s": 16 / (call_ms / 1e3)}
     # the LDPC kernel at one user's batch-16 load: 16 TBs x 5 code blocks
     code132 = cfg132.code
-    ldpc_time = {
+    ldpc_time = rates({
         "codewords": int(llr80.shape[0]), "bg": 1, "z": code132.z,
         "num_iter": LDPC_ITER,
         "kernel_ms": cuda_ms(
@@ -604,7 +649,7 @@ def main() -> int:
         "plain_ms": cuda_ms(lambda: k5.layered_decode_reference(
             code132, llr80, LDPC_ITER), 2, warmup=1),
         **bound(*ldpc_work(code132, llr80.shape[0]), peaks,
-                rate="f32_flops")}
+                rate="f32_flops")})
     # the eval path per decoder, split into receiver and decode
     rx_e = make_receiver(nrx_dtype=p_eval.nrx_dtype, device=dev)
     y_planar = torch.stack([y_eval.real, y_eval.imag], dim=-1)
@@ -627,7 +672,8 @@ def main() -> int:
             "slots_per_s": 16 / (call_ms / 1e3),
             "decode_ms": cuda_ms(decode_both, 3, warmup=1)}
     emit({"phase": "times", "card": card, "per_stack": per_stack,
-          "cgnn_iter": iteration, "cgnn_full": full, "paths": paths,
+          "cgnn_iter": iteration, "cgnn_full": full,
+          "cgnn_full_b16": full16, "paths": paths,
           "ldpc_decode": ldpc_time, "eval_path": eval_times,
           "seconds": time.perf_counter() - t0})
 
@@ -682,10 +728,12 @@ def main() -> int:
          "max_abs_err": max_abs("cgnn_full"), "tol": TOL_BF16,
          "ms": full["kernel_ms"], "plain_ms": full["plain_ms"],
          "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
-         "library_ms": None,
+         "library_ms": None, "ms_b16": full16["kernel_ms"],
+         "plain_ms_b16": full16["plain_ms"],
+         "bound_ms_b16": full16["bound_ms"],
          "note": "ms/plain_ms/bound_ms: one launch at batch 1 (b=1, T=2, "
-                 "14x1584), bf16; library: no PyTorch call computes the "
-                 "whole CGNN"},
+                 "14x1584), bf16; *_b16: the mega route's launch at batch "
+                 "16; library: no PyTorch call computes the whole CGNN"},
         {"name": "ldpc_decode", "route": "cuda",
          "source": "neural_rx_tpu_torch/csrc/ldpc_decode.cu",
          "replaces": "neural_rx_tpu/kernels/ldpc_pallas.py:81",

@@ -21,18 +21,18 @@
 //
 // K3 design. The TPU program held every user's 128-channel activations for
 // a 128-column block in VMEM; Hopper's 227 KB of shared memory hold one
-// image's two 128-channel buffers for a 32-column tile. So a block owns
+// image's two 128-channel buffers for a ~30-column tile. So a block owns
 // one (batch item, user t, column tile) and the tile's 3-column halo.
-// Prologue: it loads s_t and pe_t into z's slots in buffer A, then for every
-// user u runs the aggregation MLP over the tile in chunks of positions
+// Prologue: it loads s_t and pe_t into z's slots in buffer A; then, chunk by
+// chunk of positions, it runs every user's aggregation MLP in user order
 // (the other users' states come from device memory, the hidden layer goes
-// to scratch in the free part of A and B), keeping sum_u sps_u in an f32
-// array at the end of B and sps_t in z's first slot. Then a_t is formed in
-// place, the update stack runs as in the stack kernel, and the epilogue adds
-// the residual and writes the state, or runs both readouts on the core
-// columns and writes llr and h_hat. The other user's aggregation MLP is
-// recomputed in each user's blocks (~15 % of the iteration's FLOPs), which
-// keeps the stack kernel's tile width.
+// to scratch in the free part of A and B), keeping the chunk's sum_u sps_u
+// in an f32 array and sps_t in z's first slot, and forms the chunk's a_t in
+// place. Then the update stack runs as in the stack kernel, and the
+// epilogue adds the residual and writes the state, or runs both readouts on
+// the core columns and writes llr and h_hat. The other user's aggregation
+// MLP is recomputed in each user's blocks (~15 % of the iteration's FLOPs),
+// which keeps the stack kernel's tile width.
 //
 // K4 design. The whole CGNN (init stack, every iteration, both readouts)
 // does not fit a per-tile halo: 9 columns each side with every user's state
@@ -46,13 +46,54 @@
 //
 // What bounds them on this card: K3 at batch 16 is ~69 GFLOP against
 // ~0.2 GB of traffic and K4 at batch 1 ~12.6 GFLOP against ~2 MB, so both
-// are bound by operations on the tensor cores (~70 and ~13 us). These first
-// kernels run every product on the CUDA cores in f32 (16 warps, 4x4
-// register tiles fed from shared memory) and are bound by the shared-memory
-// loads and the f32 FMA rate, like the stack kernel.
+// are bound by operations on the tensor cores (~70 and ~13 us); 92.5 % of
+// an iteration's operations are bf16 products with f32 sums, 6.8 % the
+// depthwise taps.
+//
+// bf16 tiles (tensor cores). Every product (update stack, aggregation MLP,
+// readouts, K4's init stack) runs as nrx::pointwise_mma: mma.sync m16n8k16
+// bf16 -> f32, A fragments from shared memory by ldmatrix, each warp's B
+// fragments (one n8 tile: 8 output channels x all of K, 16 registers)
+// loaded once a layer from the fragment-ordered copy of the weights that
+// the wrapper appends to the packed buffer (kernels/cgnn_iter.py,
+// mma_fragments; one 8-byte load a lane and k-step). The epilogue objects
+// (nrx_tile.cuh, here AggEpi and OutEpi) take the rounded values a row at a
+// time and store column pairs. A second product on |a| and |w| bounds each
+// sum's error; a sum within that bound of a bf16 rounding boundary is
+// summed again in order on the CUDA cores (~1 % of them), so the rounded
+// outputs stay those of the plain version. Without that, the tensor cores'
+// order flipped ~1 % of K3's and ~66 % of K4's bf16 outputs by an ulp or
+// more on nrx_rt (max rel err 5e-3 and 3.4e-2 against TOL_BF16 = 2e-2):
+// the network carries one flipped rounding through its later layers.
+// Padded shapes at nrx_rt (K to 16, N to 16 in the packed copy, with zero
+// weights; pad lanes of A zeroed in registers; n8 tiles past N skipped):
+//   init stack   K 18 -> 32, N 128 | K 128, N 128 | K 128, N 56 -> 64
+//   update stack K 114 -> 128, N 128 | K 128, N 128 | K 128, N 56 -> 64
+//   aggregation  K 56 -> 64, N 64 | K 64, N 56 -> 64
+//   readouts     K 56 -> 64, N 128 | K 128, N 4 -> 16 (llr), 8 -> 16 (h_hat)
+// M (positions, H * columns) is walked in 16-row tiles, the last one
+// clamped. Shared memory (nrx::row_ld): rows 16-byte aligned, stride an odd
+// number of 16-byte chunks so ldmatrix is free of bank conflicts: A and B
+// [P][136] each (128 channels), z [P][120] (114), the state and chunk
+// scratch [.][56], the hidden layers [.][72] (64) and [.][136] (128). That
+// costs two columns against packed rows: w_tile 24 (E = 30, P = 420) in
+// 228,480 B a block for the iteration and for K4's init stack, plus the
+// warps' re-sum lists (2,048 B): 230,528 B of the 232,448 (packed bf16
+// rows: 26 in 229,376 B). 66 tiles over 1584 columns; aggregation chunks
+// of 256 positions. The depthwise taps (nrx::depthwise_pairs) keep a
+// channel pair a thread with its taps in registers and compute two adjacent
+// columns from shared inputs; state rows move in 16-byte chunks. ptxas: 128
+// registers, no spills. The float32 instantiations, which the eval path
+// runs, keep the CUDA-core tile (16 warps of 4x4 f32 FMA register tiles;
+// w_tile 10) and their bit-exact sums: TF32 would not hold float32's
+// tolerance.
+//
+// Launch set-up (shared-memory opt-in, the kernel's shared-memory
+// attribute, K4's occupancy) is queried once per device, kernel and size.
 
 #include <cooperative_groups.h>
 
+#include <mutex>
 #include <type_traits>
 
 #include "nrx_tile.cuh"
@@ -67,6 +108,12 @@ using nrx::to_f;
 constexpr int kMaxIt = 4;
 constexpr int kMaxUsers = 8;
 constexpr int kMinChunk = 64;
+constexpr int kMaxDevices = 64;
+
+// bf16 tiles run their products on the tensor cores, float32 tiles on the
+// CUDA cores (TF32 would not keep float32's sums).
+template <typename T>
+constexpr bool kUseMma = std::is_same<T, __nv_bfloat16>::value;
 
 // Static shape of one iteration stage and its shared-memory layout.
 struct IterDesc {
@@ -75,45 +122,144 @@ struct IterDesc {
   StackDesc upd;  // widths[0] == 2 d_s + d_pe, widths[L] == d_s
   int w_tile;     // core columns of a tile
   int chunk;      // positions per aggregation chunk
-  int scr_off;    // scratch: elements from the start of shared memory
-  int acc_off;    // f32 user sum: bytes from the start of shared memory
+  int scr_off;    // chunk scratch: elements from the start of the buffers
+  int acc_off;    // chunk's f32 user sum: bytes from the start of the buffers
   int readout;    // 0: state out, 1: llr, 2: llr and h_hat
   MlpDesc ro, ch;
   size_t smem;    // bytes
 };
 
-// One aggregation MLP over np positions: src [np][stride] -> epi(p, o, y)
-// with y the f32 output sum before its bias. Hidden layer in hid_buf.
-template <typename T, typename Epi>
+// One MLP over np positions: src [np][stride] -> epi (an epilogue object,
+// nrx_tile.cuh) of the output layer, whose bias it adds. Hidden layer in
+// hid_buf [np][row_ld(hid)].
+template <typename T, bool kMma, typename Epi>
 __device__ __forceinline__ void mlp(const T* src, int stride, int np,
                                     const T* __restrict__ w, const MlpDesc& m,
-                                    T* hid_buf, Epi epi) {
+                                    T* hid_buf, nrx::FixList fx, Epi epi) {
   const T* w1 = w;
   const T* b1 = w1 + m.in * m.hid;
   const T* w2 = b1 + m.hid;
-  nrx::pointwise<T>(src, stride, np, w1, m.in, m.hid, [&](int p, int o, float y) {
-    y += to_f(b1[o]);
-    if (y < 0.f) y = 0.f;  // NaN passes, as max(y, 0) does
-    hid_buf[(size_t)p * m.hid + o] = from_f<T>(y);
-  });
+  const T* b2 = w2 + m.hid * m.out;
+  const int ld_h = nrx::row_ld(m.hid, kMma);
+  nrx::product<T, kMma>(src, stride, np, w1, w + m.f1, b1, m.in, m.hid, fx,
+                        nrx::HiddenEpi<T>{hid_buf, b1, ld_h});
   __syncthreads();
-  nrx::pointwise<T>(hid_buf, m.hid, np, w2, m.hid, m.out, epi);
+  nrx::product<T, kMma>(hid_buf, ld_h, np, w2, w + m.f2, b2, m.hid, m.out, fx, epi);
   __syncthreads();
 }
 
-// One readout MLP on the core positions of the tile: state [Pc][d_s] in
-// src, hidden layer in hid_buf, output [b, T, H, W, out] rows of image img.
+// The readout's output layer: rows of [H, W, n_out] of one image, y + bias
+// rounded, core columns w0 + [0, w_tile) inside W only.
 template <typename T>
-__device__ void readout(const T* src, int Pc, const T* __restrict__ w,
-                        const MlpDesc& m, T* hid_buf, T* out, size_t img,
-                        int H, int W, int w0, int w_tile) {
-  const T* b2 = w + m.in * m.hid + m.hid + m.hid * m.out;
-  T* o_img = out + img * H * W * m.out;
-  mlp<T>(src, m.in, Pc, w, m, hid_buf, [&](int p, int o, float y) {
+struct OutEpi {
+  T* o_img;
+  const T* bias;
+  int W, w0, w_tile, n_out;
+  __device__ void operator()(int p, int o, float y) const {
     const int h = p / w_tile;
     const int g = w0 + p % w_tile;
-    if (g < W) o_img[((size_t)h * W + g) * m.out + o] = from_f<T>(y + to_f(b2[o]));
-  });
+    if (g < W) o_img[((size_t)h * W + g) * n_out + o] = from_f<T>(y + to_f(bias[o]));
+  }
+  using Row = T*;  // null past W
+  __device__ Row row(int p) const {
+    const int g = w0 + p % w_tile;
+    return g < W ? o_img + ((size_t)(p / w_tile) * W + g) * n_out : nullptr;
+  }
+  __device__ void put(Row r, int o, __nv_bfloat16 v) const {
+    if (r) r[o] = v;
+  }
+  __device__ void put2(Row r, int o, __nv_bfloat16 v0, __nv_bfloat16 v1) const {
+    if (!r) return;
+    if (n_out % 2 == 0) {
+      *reinterpret_cast<__nv_bfloat162*>(r + o) = __halves2bfloat162(v0, v1);
+    } else {
+      r[o] = v0;
+      r[o + 1] = v1;
+    }
+  }
+};
+
+// The aggregation MLP's output layer on the rows p of a chunk: sps =
+// round(y + bias) * act, rounded; tot (f32, [p][d_s]) += sps; z [p][ld_z] =
+// sps when the MLP ran on the block's own user.
+template <typename T>
+struct AggEpi {
+  float* tot;
+  T* z;
+  const T* bias;
+  int d_s, ld_z;
+  float act;
+  bool own;
+  __device__ void operator()(int p, int o, float y) const {
+    const T sps = from_f<T>(to_f(from_f<T>(y + to_f(bias[o]))) * act);
+    tot[(size_t)p * d_s + o] += to_f(sps);
+    if (own) z[(size_t)p * ld_z + o] = sps;
+  }
+  struct Row {
+    float* tot;
+    T* z;
+  };
+  __device__ Row row(int p) const {
+    return Row{tot + (size_t)p * d_s, z + (size_t)p * ld_z};
+  }
+  __device__ void put(const Row& r, int o, __nv_bfloat16 v) const {
+    const __nv_bfloat16 sps = __float2bfloat16_rn(__bfloat162float(v) * act);
+    r.tot[o] += __bfloat162float(sps);
+    if (own) r.z[o] = sps;
+  }
+  __device__ void put2(const Row& r, int o, __nv_bfloat16 v0, __nv_bfloat16 v1) const {
+    const __nv_bfloat162 sps = __floats2bfloat162_rn(__bfloat162float(v0) * act,
+                                                     __bfloat162float(v1) * act);
+    float2* t = reinterpret_cast<float2*>(r.tot + o);
+    float2 cur = *t;
+    cur.x += __low2float(sps);
+    cur.y += __high2float(sps);
+    *t = cur;
+    if (own) *reinterpret_cast<__nv_bfloat162*>(r.z + o) = sps;
+  }
+};
+
+// One readout MLP on the core positions of the tile: state [Pc][row_ld(d_s)]
+// in src, hidden layer in hid_buf, output [b, T, H, W, out] rows of image img.
+template <typename T, bool kMma>
+__device__ void readout(const T* src, int Pc, const T* __restrict__ w,
+                        const MlpDesc& m, T* hid_buf, T* out, size_t img,
+                        int H, int W, int w0, int w_tile, nrx::FixList fx) {
+  const T* b2 = w + m.in * m.hid + m.hid + m.hid * m.out;
+  mlp<T, kMma>(src, nrx::row_ld(m.in, kMma), Pc, w, m, hid_buf, fx,
+               OutEpi<T>{out + img * H * W * m.out, b2, W, w0, w_tile, m.out});
+}
+
+// Tensor-core path: state rows move as 16-byte chunks of 8 channels (d_s is
+// a multiple of 8 there), so a thread has 8 channels in flight a load.
+// dst[r * ld + c] = row(r)[c] for r < n, c < d, zeros where row(r) is null.
+template <typename RowFn>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, int ld, int n, int d,
+                                          RowFn row) {
+  const int cpr = d / 8;
+  for (int i = threadIdx.x; i < n * cpr; i += blockDim.x) {
+    const int r = i / cpr;
+    const int c = (i - r * cpr) * 8;
+    const __nv_bfloat16* sp = row(r);
+    *reinterpret_cast<uint4*>(dst + (size_t)r * ld + c) =
+        sp ? __ldg(reinterpret_cast<const uint4*>(sp + c)) : make_uint4(0, 0, 0, 0);
+  }
+}
+
+// x + y of 8 bf16 pairs, each sum in f32 and rounded once, as from_f(to_f +
+// to_f) does.
+__device__ __forceinline__ uint4 add_chunks(uint4 x, uint4 y) {
+  const uint32_t* a = reinterpret_cast<const uint32_t*>(&x);
+  const uint32_t* b = reinterpret_cast<const uint32_t*>(&y);
+  uint4 r;
+  uint32_t* o = reinterpret_cast<uint32_t*>(&r);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(nrx::bf16_lo(a[k]) + nrx::bf16_lo(b[k]),
+                                                   nrx::bf16_hi(a[k]) + nrx::bf16_hi(b[k]));
+    o[k] = *reinterpret_cast<const uint32_t*>(&v);
+  }
+  return r;
 }
 
 // One tile of one iteration: user t of batch item bi, core columns
@@ -128,16 +274,20 @@ __device__ void iter_tile(const T* s, const T* pe, const float* act, T* out,
                           const T* __restrict__ ch_w, const IterDesc& q, int H,
                           int W, int lo, int hi, int bi, int t, int tile,
                           unsigned char* smem) {
+  constexpr bool kMma = kUseMma<T>;
   const int L = q.upd.n_layers;
   const int E = q.w_tile + 2 * L;
   const int P = H * E;
   const int d_s = q.d_s;
-  const int zc = q.upd.widths[0];
-  T* buf_a = reinterpret_cast<T*>(smem);
-  T* buf_b = buf_a + (size_t)P * nrx::stack_cmax(q.upd);
-  T* scr_s = buf_a + q.scr_off;                // [chunk][d_s]
-  T* scr_h = scr_s + (size_t)q.chunk * d_s;    // [chunk][agg.hid]
-  float* tot = reinterpret_cast<float*>(smem + q.acc_off);  // [P][d_s]
+  const int ld_z = nrx::row_ld(q.upd.widths[0], kMma);  // z = [a, s, pe]
+  const int ld_s = nrx::row_ld(d_s, kMma);
+  const nrx::FixList fx = nrx::fix_list(smem);
+  unsigned char* base = smem + (kMma ? nrx::kFixBytes : 0);  // past the lists
+  T* buf_a = reinterpret_cast<T*>(base);
+  T* buf_b = buf_a + (size_t)P * nrx::row_ld(nrx::stack_cmax(q.upd), kMma);
+  T* scr_s = buf_a + q.scr_off;                // [chunk][ld_s]
+  T* scr_h = scr_s + (size_t)q.chunk * ld_s;   // [chunk][row_ld(agg.hid)]
+  float* tot = reinterpret_cast<float*>(base + q.acc_off);  // [chunk][d_s]
   const int w0 = tile * q.w_tile;
   const int g0 = w0 - L;
   const int vlo = max(lo, 0);
@@ -146,78 +296,116 @@ __device__ void iter_tile(const T* s, const T* pe, const float* act, T* out,
   const T* s_b = s + (size_t)bi * q.n_users * img * d_s;
   const float* act_b = act + (size_t)bi * q.n_users;
 
-  // 1. z[:, d_s:] = [s_t, pe_t] (zero outside the valid columns), sums = 0.
-  const int c_sp = d_s + q.d_pe;
-  for (int i = threadIdx.x; i < P * c_sp; i += blockDim.x) {
-    const int c = i % c_sp;
-    const int p = i / c_sp;
-    const int h = p / E;
-    const int g = g0 + p % E;
-    T v = from_f<T>(0.f);
-    if (g >= vlo && g < vhi) {
-      const size_t rc = (size_t)t * img + (size_t)h * W + g;
-      v = c < d_s ? s_b[rc * d_s + c] : pe[rc * q.d_pe + c - d_s];
+  // 1. z[:, d_s:] = [s_t, pe_t] (zero outside the valid columns).
+  if constexpr (kMma) {
+    load_rows(buf_a + d_s, ld_z, P, d_s, [&](int p) -> const T* {
+      const int g = g0 + p % E;
+      return g >= vlo && g < vhi ? s_b + ((size_t)t * img + (size_t)(p / E) * W + g) * d_s
+                                 : nullptr;
+    });
+    for (int i = threadIdx.x; i < P * q.d_pe; i += blockDim.x) {
+      const int p = i / q.d_pe;
+      const int g = g0 + p % E;
+      const size_t rc = (size_t)t * img + (size_t)(p / E) * W + g;
+      buf_a[(size_t)p * ld_z + 2 * d_s + i % q.d_pe] =
+          g >= vlo && g < vhi ? pe[rc * q.d_pe + i % q.d_pe] : from_f<T>(0.f);
     }
-    buf_a[(size_t)p * zc + d_s + c] = v;
+  } else {
+    const int c_sp = d_s + q.d_pe;
+    for (int i = threadIdx.x; i < P * c_sp; i += blockDim.x) {
+      const int c = i % c_sp;
+      const int p = i / c_sp;
+      const int h = p / E;
+      const int g = g0 + p % E;
+      T v = from_f<T>(0.f);
+      if (g >= vlo && g < vhi) {
+        const size_t rc = (size_t)t * img + (size_t)h * W + g;
+        v = c < d_s ? s_b[rc * d_s + c] : pe[rc * q.d_pe + c - d_s];
+      }
+      buf_a[(size_t)p * ld_z + d_s + c] = v;
+    }
   }
-  for (int i = threadIdx.x; i < P * d_s; i += blockDim.x) tot[i] = 0.f;
   float cnt = -1.f;
   for (int u = 0; u < q.n_users; ++u) cnt += act_b[u];
   cnt = fmaxf(cnt, 0.f);
   const float scale = to_f(from_f<T>(cnt == 0.f ? 1.f : 1.f / fmaxf(cnt, 1.f)));
   __syncthreads();
 
-  // 2. Aggregation MLP of every user, chunk by chunk; sps_t goes to z's
-  //    first slot, sum_u sps_u to tot.
+  // 2. Chunk by chunk of positions: the aggregation MLP of every user in
+  //    order (sps_t to z's first slot, sum_u sps_u to the chunk's f32 sum),
+  //    then a_t = (tot - sps_t) * scale in z's first slot.
   const T* b2 = agg_w + q.agg.in * q.agg.hid + q.agg.hid + q.agg.hid * q.agg.out;
-  for (int u = 0; u < q.n_users; ++u) {
-    const float act_u = act_b[u];
-    for (int p0 = 0; p0 < P; p0 += q.chunk) {
-      const int np = min(q.chunk, P - p0);
-      const T* src = buf_a + (size_t)p0 * zc + d_s;
-      int stride = zc;
+  for (int p0 = 0; p0 < P; p0 += q.chunk) {
+    const int np = min(q.chunk, P - p0);
+    for (int i = threadIdx.x; i < np * d_s; i += blockDim.x) tot[i] = 0.f;
+    for (int u = 0; u < q.n_users; ++u) {
+      const T* src = buf_a + (size_t)p0 * ld_z + d_s;
+      int stride = ld_z;
       if (u != t) {
-        for (int i = threadIdx.x; i < np * d_s; i += blockDim.x) {
-          const int c = i % d_s;
-          const int p = p0 + i / d_s;
-          const int h = p / E;
-          const int g = g0 + p % E;
-          scr_s[i] = (g >= vlo && g < vhi)
-                         ? s_b[((size_t)u * img + (size_t)h * W + g) * d_s + c]
-                         : from_f<T>(0.f);
+        if constexpr (kMma) {
+          load_rows(scr_s, ld_s, np, d_s, [&](int r) -> const T* {
+            const int p = p0 + r;
+            const int g = g0 + p % E;
+            return g >= vlo && g < vhi
+                       ? s_b + ((size_t)u * img + (size_t)(p / E) * W + g) * d_s
+                       : nullptr;
+          });
+        } else {
+          for (int i = threadIdx.x; i < np * d_s; i += blockDim.x) {
+            const int c = i % d_s;
+            const int p = p0 + i / d_s;
+            const int h = p / E;
+            const int g = g0 + p % E;
+            scr_s[(size_t)(i / d_s) * ld_s + c] =
+                (g >= vlo && g < vhi)
+                    ? s_b[((size_t)u * img + (size_t)h * W + g) * d_s + c]
+                    : from_f<T>(0.f);
+          }
         }
         __syncthreads();
         src = scr_s;
-        stride = d_s;
+        stride = ld_s;
       }
-      mlp<T>(src, stride, np, agg_w, q.agg, scr_h, [&](int p, int o, float y) {
-        const T sps = from_f<T>(to_f(from_f<T>(y + to_f(b2[o]))) * act_u);
-        const size_t r = (size_t)(p0 + p);
-        tot[r * d_s + o] += to_f(sps);
-        if (u == t) buf_a[r * zc + o] = sps;
-      });
+      mlp<T, kMma>(src, stride, np, agg_w, q.agg, scr_h, fx,
+                   AggEpi<T>{tot, buf_a + (size_t)p0 * ld_z, b2, d_s, ld_z, act_b[u], u == t});
     }
+    for (int i = threadIdx.x; i < np * d_s; i += blockDim.x) {
+      const int o = i % d_s;
+      const int p = p0 + i / d_s;
+      const int g = g0 + p % E;
+      T* zp = buf_a + (size_t)p * ld_z + o;
+      const float diff = to_f(from_f<T>(to_f(from_f<T>(tot[i])) - to_f(*zp)));
+      *zp = (g >= vlo && g < vhi) ? from_f<T>(diff * scale) : from_f<T>(0.f);
+    }
+    __syncthreads();
   }
-
-  // 3. a_t = (tot - sps_t) * scale in z's first slot.
-  for (int i = threadIdx.x; i < P * d_s; i += blockDim.x) {
-    const int o = i % d_s;
-    const int p = i / d_s;
-    const int g = g0 + p % E;
-    T* zp = buf_a + (size_t)p * zc + o;
-    const float diff = to_f(from_f<T>(to_f(from_f<T>(tot[i])) - to_f(*zp)));
-    *zp = (g >= vlo && g < vhi) ? from_f<T>(diff * scale) : from_f<T>(0.f);
-  }
-  __syncthreads();
 
   // 4. Update stack.
-  nrx::run_stack<T>(buf_a, buf_b, upd_w, q.upd, H, E, g0, vlo, vhi);
+  nrx::run_stack<T, kMma>(buf_a, buf_b, upd_w, q.upd, H, E, g0, vlo, vhi, fx);
 
   // 5. Residual; the state, or both readouts on it.
   const T* s_t = s_b + (size_t)t * img * d_s;
   const size_t img_out = (size_t)bi * q.n_users + t;
+  const int cpr = d_s / 8;  // 16-byte chunks a state row (tensor-core path)
   if (q.readout == 0) {
     T* o_t = out + img_out * img * d_s;
+    if constexpr (kMma) {
+      for (int i = threadIdx.x; i < H * q.w_tile * cpr; i += blockDim.x) {
+        const int r = i / cpr;
+        const int c = (i - r * cpr) * 8;
+        const int cc = r % q.w_tile;
+        const int h = r / q.w_tile;
+        const int g = w0 + cc;
+        if (g < W) {
+          const size_t o = ((size_t)h * W + g) * d_s + c;
+          *reinterpret_cast<uint4*>(o_t + o) = add_chunks(
+              *reinterpret_cast<const uint4*>(buf_a + ((size_t)h * E + L + cc) * ld_s + c),
+              __ldg(reinterpret_cast<const uint4*>(s_t + o)));
+        }
+      }
+      __syncthreads();
+      return;
+    }
     for (int i = threadIdx.x; i < H * q.w_tile * d_s; i += blockDim.x) {
       const int c = i % d_s;
       const int cc = (i / d_s) % q.w_tile;
@@ -225,7 +413,7 @@ __device__ void iter_tile(const T* s, const T* pe, const float* act, T* out,
       const int g = w0 + cc;
       if (g < W) {
         const size_t r = ((size_t)h * W + g) * d_s + c;
-        o_t[r] = from_f<T>(to_f(buf_a[((size_t)h * E + L + cc) * d_s + c]) +
+        o_t[r] = from_f<T>(to_f(buf_a[((size_t)h * E + L + cc) * ld_s + c]) +
                            to_f(s_t[r]));
       }
     }
@@ -233,63 +421,107 @@ __device__ void iter_tile(const T* s, const T* pe, const float* act, T* out,
     return;
   }
   const int Pc = H * q.w_tile;
-  for (int i = threadIdx.x; i < Pc * d_s; i += blockDim.x) {
-    const int c = i % d_s;
-    const int p = i / d_s;
-    const int h = p / q.w_tile;
-    const int cc = p % q.w_tile;
-    const int g = w0 + cc;
-    buf_b[i] = g < W ? from_f<T>(to_f(buf_a[((size_t)h * E + L + cc) * d_s + c]) +
-                                 to_f(s_t[((size_t)h * W + g) * d_s + c]))
-                     : from_f<T>(0.f);
+  if constexpr (kMma) {
+    for (int i = threadIdx.x; i < Pc * cpr; i += blockDim.x) {
+      const int p = i / cpr;
+      const int c = (i - p * cpr) * 8;
+      const int h = p / q.w_tile;
+      const int cc = p % q.w_tile;
+      const int g = w0 + cc;
+      *reinterpret_cast<uint4*>(buf_b + (size_t)p * ld_s + c) =
+          g < W ? add_chunks(*reinterpret_cast<const uint4*>(
+                                 buf_a + ((size_t)h * E + L + cc) * ld_s + c),
+                             __ldg(reinterpret_cast<const uint4*>(
+                                 s_t + ((size_t)h * W + g) * d_s + c)))
+                : make_uint4(0, 0, 0, 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < Pc * d_s; i += blockDim.x) {
+      const int c = i % d_s;
+      const int p = i / d_s;
+      const int h = p / q.w_tile;
+      const int cc = p % q.w_tile;
+      const int g = w0 + cc;
+      buf_b[(size_t)p * ld_s + c] =
+          g < W ? from_f<T>(to_f(buf_a[((size_t)h * E + L + cc) * ld_s + c]) +
+                            to_f(s_t[((size_t)h * W + g) * d_s + c]))
+                : from_f<T>(0.f);
+    }
   }
   __syncthreads();
-  readout<T>(buf_b, Pc, ro_w, q.ro, buf_a, out, img_out, H, W, w0, q.w_tile);
+  readout<T, kMma>(buf_b, Pc, ro_w, q.ro, buf_a, out, img_out, H, W, w0, q.w_tile, fx);
   if (q.readout == 2)
-    readout<T>(buf_b, Pc, ch_w, q.ch, buf_a, out2, img_out, H, W, w0, q.w_tile);
+    readout<T, kMma>(buf_b, Pc, ch_w, q.ch, buf_a, out2, img_out, H, W, w0, q.w_tile,
+                     fx);
 }
 
 inline size_t align16(size_t v) { return (v + 15) & ~(size_t)15; }
 
 // Shared-memory layout of an iteration tile of E = w_tile + 2L columns:
-// buffers A and B ([P][cmax] each, P = H * E), z = [a, s, pe] at the start
-// of A, the f32 user sum [P][d_s] at the end, the chunk scratch between.
-// Returns false if it does not fit in `limit` bytes.
-bool iter_layout(IterDesc* q, int H, int w_tile, size_t itemsize,
+// buffers A and B ([P][ld(cmax)] each, P = H * E, ld = nrx::row_ld), z =
+// [a, s, pe] at the start of A ([P][ld(zc)]), then the aggregation's chunk
+// scratch: state [chunk][ld(d_s)], hidden [chunk][ld(agg.hid)] and the f32
+// user sum [chunk][d_s]. On the tensor-core path the re-sum lists
+// (nrx::kFixBytes) come first and the offsets count from their end, and a
+// chunk is a multiple of 16 positions. Returns false if it does not fit in
+// `limit` bytes.
+bool iter_layout(IterDesc* q, int H, int w_tile, size_t itemsize, bool mma,
                  size_t limit) {
   const int L = q->upd.n_layers;
   const size_t P = (size_t)H * (w_tile + 2 * L);
-  const size_t cmax = nrx::stack_cmax(q->upd);
-  const size_t zc = q->upd.widths[0];
-  const size_t per_chunk = (size_t)(q->d_s + q->agg.hid) * itemsize;
+  const size_t cmax = nrx::row_ld(nrx::stack_cmax(q->upd), mma);
+  const size_t zc = nrx::row_ld(q->upd.widths[0], mma);
+  const size_t per_chunk_t =
+      (size_t)(nrx::row_ld(q->d_s, mma) + nrx::row_ld(q->agg.hid, mma)) * itemsize;
+  const size_t per_chunk = per_chunk_t + q->d_s * sizeof(float);
   const size_t scr = align16(P * zc * itemsize);
-  const size_t acc = align16(P * q->d_s * sizeof(float));
   const size_t min_chunk = P < (size_t)kMinChunk ? P : (size_t)kMinChunk;
   size_t total = 2 * P * cmax * itemsize;
-  if (total < scr + min_chunk * per_chunk + 16 + acc)
-    total = scr + min_chunk * per_chunk + 16 + acc;
+  if (total < scr + min_chunk * per_chunk + 16) total = scr + min_chunk * per_chunk + 16;
   total = align16(total);
-  if (total > limit) return false;
-  // readouts: state [Pc][d_s] in B, hidden [Pc][hid] in A
+  const size_t fix = mma ? nrx::kFixBytes : 0;
+  if (total + fix > limit || (mma && P > (size_t)nrx::kMmaMaxP)) return false;
+  // readouts: state [Pc][ld(d_s)] in B, hidden [Pc][ld(hid)] in A
   const size_t Pc = (size_t)H * w_tile;
-  if (q->readout > 0 && Pc * q->ro.hid > P * cmax) return false;
-  if (q->readout > 1 && Pc * q->ch.hid > P * cmax) return false;
+  if (q->readout > 0 && Pc * nrx::row_ld(q->ro.hid, mma) > P * cmax) return false;
+  if (q->readout > 1 && Pc * nrx::row_ld(q->ch.hid, mma) > P * cmax) return false;
+  size_t chunk = (total - scr - 16) / per_chunk;
+  if (mma && chunk >= 16) chunk &= ~(size_t)15;
+  if (chunk > P) chunk = P;
   q->w_tile = w_tile;
-  q->acc_off = (int)((total - acc) & ~(size_t)15);
+  q->chunk = (int)chunk;
   q->scr_off = (int)(scr / itemsize);
-  size_t chunk = (q->acc_off - scr) / per_chunk;
-  q->chunk = (int)(chunk < P ? chunk : P);
-  q->smem = total;
+  q->acc_off = (int)align16(scr + chunk * per_chunk_t);
+  q->smem = total + fix;
   return true;
 }
 
 // Widest equal tiles over W whose layout fits `limit` bytes; false if none.
-bool iter_tiles(IterDesc* q, int H, int W, size_t itemsize, size_t limit) {
+bool iter_tiles(IterDesc* q, int H, int W, size_t itemsize, bool mma, size_t limit) {
   int w_tile = W < nrx::kMaxTile ? W : nrx::kMaxTile;
-  while (w_tile >= 1 && !iter_layout(q, H, w_tile, itemsize, limit)) --w_tile;
+  while (w_tile >= 1 && !iter_layout(q, H, w_tile, itemsize, mma, limit)) --w_tile;
   if (w_tile < 1) return false;
   const int n_tiles = (W + w_tile - 1) / w_tile;
-  return iter_layout(q, H, (W + n_tiles - 1) / n_tiles, itemsize, limit);
+  return iter_layout(q, H, (W + n_tiles - 1) / n_tiles, itemsize, mma, limit);
+}
+
+// What the tensor-core tile takes: products of at most kMmaMaxK input
+// channels (weights held in registers) and, for the aggregation MLP that
+// reads the state's slot of z in place, a 16-byte-aligned slot (d_s a
+// multiple of 8).
+bool mma_fits(const StackDesc& d) {
+  for (int l = 0; l < d.n_layers; ++l)
+    if (d.widths[l] > nrx::kMmaMaxK) return false;
+  return true;
+}
+
+bool mma_fits(const MlpDesc& m) {
+  return m.in <= nrx::kMmaMaxK && m.hid <= nrx::kMmaMaxK;
+}
+
+bool mma_fits(const IterDesc& q) {
+  return q.d_s % 8 == 0 && mma_fits(q.upd) && mma_fits(q.agg) &&
+         (q.readout < 1 || mma_fits(q.ro)) && (q.readout < 2 || mma_fits(q.ch));
 }
 
 bool make_iter_desc(IterDesc* q, int n_users, int d_s, int d_pe,
@@ -299,7 +531,7 @@ bool make_iter_desc(IterDesc* q, int n_users, int d_s, int d_pe,
   q->n_users = n_users;
   q->d_s = d_s;
   q->d_pe = d_pe;
-  q->agg = MlpDesc{agg_dims[0], agg_dims[1], agg_dims[2]};
+  q->agg = nrx::make_mlp_desc(agg_dims[0], agg_dims[1], agg_dims[2]);
   if (!nrx::make_stack_desc(n_layers, widths, &q->upd)) return false;
   if (n_users < 1 || n_users > kMaxUsers || d_s < 1 || d_pe < 1) return false;
   if (q->agg.in != d_s || q->agg.out != d_s || q->agg.hid < 1) return false;
@@ -307,22 +539,64 @@ bool make_iter_desc(IterDesc* q, int n_users, int d_s, int d_pe,
     return false;
   if (ro_dims) {
     q->readout = ch_dims ? 2 : 1;
-    q->ro = MlpDesc{ro_dims[0], ro_dims[1], ro_dims[2]};
+    q->ro = nrx::make_mlp_desc(ro_dims[0], ro_dims[1], ro_dims[2]);
     if (q->ro.in != d_s || q->ro.hid < 1 || q->ro.out < 1) return false;
     if (ch_dims) {
-      q->ch = MlpDesc{ch_dims[0], ch_dims[1], ch_dims[2]};
+      q->ch = nrx::make_mlp_desc(ch_dims[0], ch_dims[1], ch_dims[2]);
       if (q->ch.in != d_s || q->ch.hid < 1 || q->ch.out < 1) return false;
     }
   }
   return true;
 }
 
-cudaError_t smem_optin(size_t* bytes) {
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+// Launch set-up is queried once and reused by every later launch: per
+// device its opt-in shared-memory limit and SM count, per (kernel, device)
+// the dynamic shared memory the kernel was allowed and its occupancy at the
+// last shared-memory size asked for. A kernel template instance is one
+// (kernel, dtype). One mutex guards the tables (ctypes calls run without
+// Python's lock).
+struct DeviceSetup {
+  size_t optin;  // 0: not queried yet
+  int n_sm;
+};
+
+struct KernelSetup {
+  size_t allowed;   // dynamic shared memory granted so far
+  size_t occ_smem;  // shared memory of the cached occupancy
+  int per_sm;       // resident blocks per SM at occ_smem; 0: not queried
+};
+
+std::mutex& setup_mutex() {
+  static std::mutex mu;
+  return mu;
+}
+
+// The current device and its set-up; the caller holds setup_mutex().
+cudaError_t device_setup(int* dev, DeviceSetup* out) {
+  static DeviceSetup cache[kMaxDevices];
+  cudaError_t err = cudaGetDevice(dev);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  *bytes = (size_t)optin;
+  if (*dev < 0 || *dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  DeviceSetup& d = cache[*dev];
+  if (d.optin == 0) {
+    int optin = 0, n_sm = 0;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, *dev);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, *dev);
+    if (err != cudaSuccess) return err;
+    d = DeviceSetup{(size_t)optin, n_sm};
+  }
+  *out = d;
+  return cudaSuccess;
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory unless it already may.
+template <typename K>
+cudaError_t allow_smem(K* kernel, KernelSetup& k, size_t bytes) {
+  if (bytes <= k.allowed) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) k.allowed = bytes;
   return err;
 }
 
@@ -354,13 +628,19 @@ __global__ void __launch_bounds__(nrx::kThreads) cgnn_iter_kernel(IterArgs<T> a)
 
 template <typename T>
 cudaError_t launch_iter(IterArgs<T> a, int b, cudaStream_t stream) {
-  size_t optin = 0;
-  cudaError_t err = smem_optin(&optin);
-  if (err != cudaSuccess) return err;
-  if (!iter_tiles(&a.q, a.H, a.W, sizeof(T), optin)) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(cgnn_iter_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.q.smem);
-  if (err != cudaSuccess) return err;
+  static KernelSetup setup[kMaxDevices];
+  if (kUseMma<T> && !mma_fits(a.q)) return cudaErrorInvalidValue;
+  {
+    std::lock_guard<std::mutex> lock(setup_mutex());
+    int dev = 0;
+    DeviceSetup d;
+    cudaError_t err = device_setup(&dev, &d);
+    if (err != cudaSuccess) return err;
+    if (!iter_tiles(&a.q, a.H, a.W, sizeof(T), kUseMma<T>, d.optin))
+      return cudaErrorInvalidValue;
+    err = allow_smem(cgnn_iter_kernel<T>, setup[dev], a.q.smem);
+    if (err != cudaSuccess) return err;
+  }
   dim3 grid((a.W + a.q.w_tile - 1) / a.q.w_tile, b * a.q.n_users);
   cgnn_iter_kernel<T><<<grid, nrx::kThreads, a.q.smem, stream>>>(a);
   return cudaGetLastError();
@@ -397,9 +677,9 @@ __global__ void __launch_bounds__(nrx::kThreads) cgnn_full_kernel(FullArgs<T> a)
   // Stage 0: the init stack, z0 -> state[0].
   const int tiles0 = (a.W + a.init_w_tile - 1) / a.init_w_tile;
   for (int item = blockIdx.x; item < n_img * tiles0; item += gridDim.x)
-    nrx::stack_tile<T>(a.z0, a.init_w, a.state[0], a.init, a.H, a.W,
-                       a.init_w_tile, a.lo, a.hi, item / tiles0, item % tiles0,
-                       smem_raw);
+    nrx::stack_tile<T, kUseMma<T>>(a.z0, a.init_w, a.state[0], a.init, a.H, a.W,
+                                   a.init_w_tile, a.lo, a.hi, item / tiles0,
+                                   item % tiles0, smem_raw);
 
   // Stages 1..num_it: the iterations, the last one with both readouts.
   for (int i = 0; i < a.num_it; ++i) {
@@ -419,36 +699,50 @@ __global__ void __launch_bounds__(nrx::kThreads) cgnn_full_kernel(FullArgs<T> a)
 
 template <typename T>
 cudaError_t launch_full(FullArgs<T>& a, cudaStream_t stream) {
-  size_t optin = 0;
-  cudaError_t err = smem_optin(&optin);
-  if (err != cudaSuccess) return err;
-  a.init_w_tile = nrx::stack_w_tile(a.init, a.H, a.W, sizeof(T), optin);
-  if (a.init_w_tile < 1) return cudaErrorInvalidValue;
-  size_t smem = nrx::stack_smem(a.init, a.H, a.init_w_tile, sizeof(T));
-  const int n_img = a.b * a.it[0].n_users;
-  int items = n_img * ((a.W + a.init_w_tile - 1) / a.init_w_tile);
-  for (int i = 0; i < a.num_it; ++i) {
-    if (!iter_tiles(&a.it[i], a.H, a.W, sizeof(T), optin)) return cudaErrorInvalidValue;
-    if (a.it[i].smem > smem) smem = a.it[i].smem;
-    const int n = n_img * ((a.W + a.it[i].w_tile - 1) / a.it[i].w_tile);
-    if (n > items) items = n;
+  static KernelSetup setup[kMaxDevices];
+  constexpr bool kMma = kUseMma<T>;
+  if (kMma && !mma_fits(a.init)) return cudaErrorInvalidValue;
+  for (int i = 0; i < a.num_it; ++i)
+    if (kMma && !mma_fits(a.it[i])) return cudaErrorInvalidValue;
+  int blocks = 0;
+  size_t smem = 0;
+  {
+    std::lock_guard<std::mutex> lock(setup_mutex());
+    int dev = 0;
+    DeviceSetup d;
+    cudaError_t err = device_setup(&dev, &d);
+    if (err != cudaSuccess) return err;
+    a.init_w_tile = nrx::stack_w_tile(a.init, a.H, a.W, sizeof(T), d.optin, kMma);
+    if (a.init_w_tile < 1) return cudaErrorInvalidValue;
+    smem = nrx::stack_smem(a.init, a.H, a.init_w_tile, sizeof(T), kMma);
+    const int n_img = a.b * a.it[0].n_users;
+    int items = n_img * ((a.W + a.init_w_tile - 1) / a.init_w_tile);
+    for (int i = 0; i < a.num_it; ++i) {
+      if (!iter_tiles(&a.it[i], a.H, a.W, sizeof(T), kMma, d.optin))
+        return cudaErrorInvalidValue;
+      if (a.it[i].smem > smem) smem = a.it[i].smem;
+      const int n = n_img * ((a.W + a.it[i].w_tile - 1) / a.it[i].w_tile);
+      if (n > items) items = n;
+    }
+    KernelSetup& k = setup[dev];
+    err = allow_smem(cgnn_full_kernel<T>, k, smem);
+    if (err != cudaSuccess) return err;
+    if (k.per_sm == 0 || k.occ_smem != smem) {
+      int per_sm = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cgnn_full_kernel<T>,
+                                                          nrx::kThreads, smem);
+      if (err != cudaSuccess) return err;
+      if (per_sm < 1) return cudaErrorInvalidConfiguration;
+      k.per_sm = per_sm;
+      k.occ_smem = smem;
+    }
+    // every block resident at once, none without work in the widest stage
+    blocks = k.per_sm * d.n_sm < items ? k.per_sm * d.n_sm : items;
   }
-  err = cudaFuncSetAttribute(cgnn_full_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, n_sm = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cgnn_full_kernel<T>,
-                                                      nrx::kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  // every block resident at once, none without work in the widest stage
-  const int blocks = per_sm * n_sm < items ? per_sm * n_sm : items;
   void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel((const void*)cgnn_full_kernel<T>, dim3(blocks),
-                                    dim3(nrx::kThreads), args, smem, stream);
+  cudaError_t err = cudaLaunchCooperativeKernel((const void*)cgnn_full_kernel<T>,
+                                                dim3(blocks), dim3(nrx::kThreads),
+                                                args, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -463,8 +757,10 @@ extern "C" {
 // out}; upd_w: packed update stack, widths: n_layers + 1 ints (host). State
 // mode (ro_w null): out [b, t, h, w, d_s]. Readout mode: out = llr [b, t, h,
 // w, ro_dims[2]] and, if ch_w is given, out2 = h_hat [b, t, h, w,
-// ch_dims[2]]. Dims arrays live on the host. Launches on `stream`,
-// allocates nothing, does not synchronise; returns cudaGetLastError().
+// ch_dims[2]]. Dims arrays live on the host. In bfloat16 every packed
+// weight buffer is followed by its products' B fragments (the wrapper's
+// pack_mlp_mma / pack_stack_mma). Launches on `stream`, allocates nothing,
+// does not synchronise; returns cudaGetLastError().
 int nrx_cgnn_iter(const void* s, const void* pe, const void* act, void* out,
                   void* out2, const void* agg_w, const void* agg_dims,
                   const void* upd_w, int n_layers, const void* widths,
@@ -509,7 +805,8 @@ int nrx_cgnn_iter(const void* s, const void* pe, const void* act, void* out,
 // init_widths); agg_w, upd_w: host arrays of num_it device pointers to the
 // packed aggregation MLPs and update stacks, agg_dims {in, hid, out} per
 // iteration, upd_widths n_upd + 1 ints per iteration; ro_w, ch_w: packed
-// readout MLPs. Host arrays for every dims argument. Launches on `stream`,
+// readout MLPs, in bfloat16 each followed by its B fragments as for
+// nrx_cgnn_iter. Host arrays for every dims argument. Launches on `stream`,
 // allocates nothing, does not synchronise; returns the launch's error.
 int nrx_cgnn_full(const void* z0, const void* pe, const void* act, void* state_a,
                   void* state_b, void* llr, void* hh, const void* init_w,

@@ -16,33 +16,81 @@
 // its input channels in order, with FMA, the bias is added in f32 and the
 // result is rounded to the working type. Columns outside [lo, hi) ∩ [0, W)
 // are zero before every layer and after the last.
+//
+// Two paths, chosen at compile time by the kMma template argument:
+//   - CUDA cores (kMma false; the stack kernel, and every float32 tile):
+//     `pointwise`, f32 FMA over c in order; rows packed, stride c.
+//   - tensor cores (kMma true; bf16 only, the CGNN kernels' bf16 tiles):
+//     `pointwise_mma`, mma.sync m16n8k16 bf16 x bf16 -> f32, and
+//     `depthwise_pairs`. The products are exact and sum in f32, 16 input
+//     channels per k-step in the tensor core's order, so a sum may differ
+//     from the in-order FMA sum in its last f32 bits; the few sums that lie
+//     so close to a bf16 rounding boundary that this could change the
+//     rounded output are summed again in order (see pointwise_mma). The
+//     depthwise taps round exactly as on the CUDA-core path. Rows are
+//     `row_ld(c, true)` elements apart (see there).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <type_traits>
+
 namespace nrx {
 
 constexpr int kMaxLayers = 4;
 constexpr int kThreads = 512;
 constexpr int kMaxTile = 64;
+// Tensor-core path: a warp holds the weights of one n8 tile (8 output
+// channels) for all k-steps of a layer in registers, so a product takes at
+// most kMmaMaxK input channels (8 k-steps x 2 = 16 registers; more, with the
+// rest of a CGNN tile, spill under __launch_bounds__(512)'s 128).
+constexpr int kMmaMaxK = 128;
+
+// Channel stride of an activation row in shared memory. CUDA cores: c.
+// Tensor cores: ldmatrix needs 16-byte row addresses, so c is rounded up to
+// 8 elements, plus 8 more when that is an even number of 16-byte chunks: an
+// odd chunk count puts the 8 rows of one ldmatrix phase in 8 different
+// 16-byte bank groups (no conflicts). nrx_rt: 18 -> 24, 56 -> 56, 64 -> 72,
+// 114 -> 120, 128 -> 136.
+__host__ __device__ constexpr int row_ld(int c, bool mma) {
+  return !mma ? c : ((c + 7) / 8 % 2 == 0 ? (c + 7) / 8 * 8 + 8 : (c + 7) / 8 * 8);
+}
+
+// Values of one product's B fragments in a packed buffer (the wrapper's
+// `mma_fragments`): 16-wide slabs of output channels x 16-deep k-steps x 32
+// lanes x 8 bf16.
+inline int frag_size(int cin, int cout) {
+  return (cout + 15) / 16 * ((cin + 15) / 16) * 32 * 8;
+}
 
 // A separable-conv stack in a packed weight buffer: per layer dw [9][c_in]
-// (tap-major, ky * 3 + kx), pw [c_in][c_out], b [c_out].
+// (tap-major, ky * 3 + kx), pw [c_in][c_out], b [c_out]; in bf16 for the
+// tensor-core path, then from the next multiple of 8 values each layer's
+// pw as B fragments (frag_off).
 struct StackDesc {
   int n_layers;
   int widths[kMaxLayers + 1];
   int dw_off[kMaxLayers];
   int pw_off[kMaxLayers];
   int b_off[kMaxLayers];
+  int frag_off[kMaxLayers];
 };
 
 // A one-hidden-layer MLP in a packed buffer: w1 [in][hid], b1 [hid],
-// w2 [hid][out], b2 [out].
+// w2 [hid][out], b2 [out]; for the tensor-core path then, from the next
+// multiple of 8 values, w1 and w2 as B fragments (f1, f2).
 struct MlpDesc {
   int in, hid, out;
+  int f1, f2;
 };
+
+inline MlpDesc make_mlp_desc(int in, int hid, int out) {
+  const int f1 = (in * hid + hid + hid * out + out + 7) / 8 * 8;
+  return MlpDesc{in, hid, out, f1, f1 + frag_size(in, hid)};
+}
 
 inline bool make_stack_desc(int n_layers, const int* widths, StackDesc* d) {
   if (n_layers < 1 || n_layers > kMaxLayers) return false;
@@ -60,6 +108,11 @@ inline bool make_stack_desc(int n_layers, const int* widths, StackDesc* d) {
     off += d->widths[l] * d->widths[l + 1];
     d->b_off[l] = off;
     off += d->widths[l + 1];
+  }
+  off = (off + 7) / 8 * 8;
+  for (int l = 0; l < n_layers; ++l) {
+    d->frag_off[l] = off;
+    off += frag_size(d->widths[l], d->widths[l + 1]);
   }
   return true;
 }
@@ -134,18 +187,413 @@ __device__ __forceinline__ void pointwise(const T* src, int stride, int P,
   }
 }
 
-// Every layer of the stack on the tile in A ([H][E][widths[0]], columns
-// outside the valid range already zero); the output [H][E][widths[L]] is
-// left in A, valid on the core columns [L, E - L). g0: grid column of
-// buffer column 0; [vlo, vhi): valid grid columns.
+// The four 8x8 bf16 matrices of an m16k16 A fragment, one 16-byte row
+// address a lane (shared memory).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const __nv_bfloat16* row) {
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+// 8 read-only bytes at p + kOff bytes, the offset an immediate of the load
+// (so the compiler keeps one base register, not one address a k-step).
+template <int kOff>
+__device__ __forceinline__ uint2 ldg_at(const uint2* p) {
+  uint2 v;
+  asm volatile("ld.global.nc.v2.u32 {%0, %1}, [%2+%3];\n"
+               : "=r"(v.x), "=r"(v.y)
+               : "l"(p), "n"(kOff));
+  return v;
+}
+
+// b[s][hf] of one n8 tile for s < steps (p: this lane's half of its first
+// 16-byte fragment word, the next k-step's 512 bytes on), zeros past steps.
+template <int kS, int kSteps>
+__device__ __forceinline__ void load_fragments(uint32_t (&b)[kSteps][2], const uint2* p,
+                                               int steps) {
+  if constexpr (kS < kSteps) {
+    const uint2 v = kS < steps ? ldg_at<kS * 32 * 16>(p) : make_uint2(0, 0);
+    b[kS][0] = v.x;
+    b[kS][1] = v.y;
+    load_fragments<kS + 1, kSteps>(b, p, steps);
+  }
+}
+
+// c += a (16x16, row-major) * b (16x8, column-major), bf16 in, f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The tensor-core path's re-sum lists, at the start of a block's dynamic
+// shared memory: kFixPerWarp 2-byte entries (p * 16 + column in the
+// 16-wide slab of the warp's n8 tile) for each warp; a warp queues at most
+// 32 at a time and empties its list to under 32 entries, so it never holds
+// more than 63. kMmaEta: the bound on |tensor-core sum - in-order sum| as a
+// share of S = sum_c |a_c w_c|. The in-order f32 sum's rounding errors add
+// as a random walk, ~2^-24 S; its worst case for 128 terms is 2^-17 S; the
+// tensor core's own rounding is not documented. 2^-20 kept every output of
+// nrx_rt bit-identical to the plain version on the H100 (PERF.md).
+constexpr int kFixPerWarp = 64;
+constexpr int kFixBytes = kThreads / 32 * kFixPerWarp * 2;
+constexpr float kMmaEta = 1.0f / 1048576.0f;  // 2^-20
+// positions a tile may hold: p * 16 + column fits an entry
+constexpr int kMmaMaxP = 4096;
+
+struct FixList {
+  uint16_t* base;  // warp w's list at base + w * kFixPerWarp
+};
+
+__device__ __forceinline__ FixList fix_list(unsigned char* smem) {
+  return FixList{reinterpret_cast<uint16_t*>(smem)};
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+
+// Whether y and every sum within d of it give one bf16 value of y + b: the
+// ends of [y - d, y + d], rounded outwards, plus b, round to one bf16 (the
+// f32 add and the bf16 rounding are monotone, and so is a ReLU after them).
+// If so, *v is that value. Branch-free: every test is evaluated.
+__device__ __forceinline__ bool certify(float y, float d, float b, __nv_bfloat16* v) {
+  const float lo = __fadd_rn(__fsub_rd(y, d), b);
+  const float hi = __fadd_rn(__fadd_ru(y, d), b);
+  *v = __float2bfloat16_rn(lo);
+  const bool same =
+      __bfloat16_as_ushort(*v) == __bfloat16_as_ushort(__float2bfloat16_rn(hi));
+  return same & (fabsf(y) < INFINITY) & (d < INFINITY);
+}
+
+// ReLU of a rounded value, as max(y, 0) before the rounding gives it: NaN
+// passes, a negative value (also one that rounded to -0) becomes +0.
+__device__ __forceinline__ __nv_bfloat16 relu_bf16(__nv_bfloat16 v) {
+  const unsigned short b = __bfloat16_as_ushort(v);
+  return (b & 0x8000u) && (b & 0x7fffu) <= 0x7f80u ? __ushort_as_bfloat16(0) : v;
+}
+
+// Epilogues. A product hands each output to an epilogue object: on the CUDA
+// cores as epi(p, o, y), y the f32 sum before the bias; on the tensor cores
+// per row, r = epi.row(p), then epi.put(r, o, v) or epi.put2(r, o, v0, v1)
+// (o even, o + 1 < cout) with v = y + bias[o] rounded to bf16, the value
+// epi(p, o, y) rounds before any ReLU. Both forms store the same.
+
+// A stack layer: A [h][col][ld] = y + bias, ReLU on hidden layers, zero
+// outside the valid columns [vlo, vhi) (grid column g0 + col).
 template <typename T>
+struct StackEpi {
+  T* buf_a;
+  const T* bias;
+  int E, wl, c_lo, g0, vlo, vhi, ld;
+  bool relu;
+  __device__ void operator()(int p, int o, float y) const {
+    const int h = p / wl;
+    const int col = c_lo + p % wl;
+    const int g = g0 + col;
+    y += to_f(bias[o]);
+    if (relu && y < 0.f) y = 0.f;  // NaN passes, as max(y, 0) does
+    buf_a[((size_t)h * E + col) * ld + o] =
+        (g >= vlo && g < vhi) ? from_f<T>(y) : from_f<T>(0.f);
+  }
+  struct Row {
+    T* dst;
+    bool valid;
+  };
+  __device__ Row row(int p) const {
+    const int h = p / wl;
+    const int col = c_lo + p % wl;
+    const int g = g0 + col;
+    return Row{buf_a + ((size_t)h * E + col) * ld, g >= vlo && g < vhi};
+  }
+  __device__ __nv_bfloat16 value(const Row& r, __nv_bfloat16 v) const {
+    return !r.valid ? __ushort_as_bfloat16(0) : relu ? relu_bf16(v) : v;
+  }
+  __device__ void put(const Row& r, int o, __nv_bfloat16 v) const { r.dst[o] = value(r, v); }
+  __device__ void put2(const Row& r, int o, __nv_bfloat16 v0, __nv_bfloat16 v1) const {
+    *reinterpret_cast<__nv_bfloat162*>(r.dst + o) =
+        __halves2bfloat162(value(r, v0), value(r, v1));
+  }
+};
+
+// The hidden layer of an MLP: hid [p][ld] = max(y + bias, 0).
+template <typename T>
+struct HiddenEpi {
+  T* hid;
+  const T* bias;
+  int ld;
+  __device__ void operator()(int p, int o, float y) const {
+    y += to_f(bias[o]);
+    if (y < 0.f) y = 0.f;  // NaN passes, as max(y, 0) does
+    hid[(size_t)p * ld + o] = from_f<T>(y);
+  }
+  using Row = T*;
+  __device__ Row row(int p) const { return hid + (size_t)p * ld; }
+  __device__ void put(Row r, int o, __nv_bfloat16 v) const { r[o] = relu_bf16(v); }
+  __device__ void put2(Row r, int o, __nv_bfloat16 v0, __nv_bfloat16 v1) const {
+    *reinterpret_cast<__nv_bfloat162*>(r + o) = __halves2bfloat162(relu_bf16(v0), relu_bf16(v1));
+  }
+};
+
+// The contract of `pointwise` on the tensor cores, with the same rounded
+// results: y[p][o] = sum_c src[p * stride + c] * w[c * cout + o] for p < P,
+// o < cout, handed to epi per row as bf16(y + bias[o]) (see the
+// epilogues). src in shared memory, 16-byte aligned, stride a multiple of 8
+// (row_ld); wf: w as B fragments (frag_size values, 16-byte aligned) and
+// bias, in device memory; cin <= kMmaMaxK, P <= kMmaMaxP; fx: the block's
+// re-sum lists (warp w's at fx.base + w * kFixPerWarp). The caller
+// synchronises.
+//
+// Each warp takes an n8 tile of output channels, loads its B fragments into
+// registers once (K padded to a multiple of 16 and N to 16 with zeros, in
+// the packed layout; one 8-byte load a lane and k-step), then walks 16-row M
+// tiles, loading their A fragments with ldmatrix. Rows past P re-read row P
+// - 1 and are dropped. The lanes of the last k-step past cin (pad lanes, or
+// the next row's first channels) are zeroed in registers, so nothing in
+// them reaches a sum (0 x NaN); a row is read at most 8 elements past c =
+// cin. Beside each sum a second product on |a| and |w| gives S = sum_c |a_c
+// w_c|. The tensor cores add 16 products at a time in their own order, so
+// their y may differ from the in-order f32 sum in its last bits; where y +
+// bias lies within kMmaEta * S of a bf16 rounding boundary, (p, o) goes to
+// the warp's list, and 32 at a time the warp sums them again in order, one
+// a lane, reading the weight column from wf. So the rounded outputs are
+// those of `pointwise` and of the plain version, not one ulp off.
+template <typename Epi>
+__device__ __forceinline__ void pointwise_mma(const __nv_bfloat16* src, int stride, int P,
+                                              const __nv_bfloat16* __restrict__ wf,
+                                              const __nv_bfloat16* __restrict__ bias,
+                                              int cin, int cout, FixList fx, Epi epi) {
+  constexpr int kSteps = kMmaMaxK / 16;
+  constexpr uint32_t kAbs = 0x7fff7fffu;  // clears both bf16 sign bits
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int g = lane >> 2;  // row (A, C) or column (B) of the fragment
+  const int q = lane & 3;   // pair of k (A, B) or of columns (C)
+  const int steps = (cin + 15) / 16;
+  const int n_tiles = (cout + 7) / 8;
+  const int groups = n_tiles >= n_warps ? 1 : n_warps / n_tiles;
+  const int m_tiles = (P + 15) / 16;
+  uint16_t* list = fx.base + warp * kFixPerWarp;
+  for (int unit = warp; unit < n_tiles * groups; unit += n_warps) {
+    const int nt = unit % n_tiles;
+    const int o0 = 8 * nt;          // first column of the tile
+    const int n_base = o0 & ~15;    // first column of its 16-wide slab
+    // the slab's fragments: [k-step][lane] of 16 bytes, the tile's half
+    // (j = nt & 1) of each
+    const uint2* frag = reinterpret_cast<const uint2*>(
+        reinterpret_cast<const uint4*>(wf) + (size_t)(nt >> 1) * steps * 32);
+    uint32_t b[kSteps][2];
+    load_fragments<0, kSteps>(b, frag + 2 * lane + (nt & 1), steps);
+
+    // The in-order sums of the n (<= 32) entries list[top - n, top), one a
+    // lane, through epi. Warp-uniform.
+    auto resum = [&](int top, int n) {
+      __syncwarp();
+      if (lane < n) {
+        const int e = list[top - n + lane];
+        const int p = e >> 4;
+        const int o = n_base + (e & 15);
+        // column e & 15: bit 3 picks the half of the 16-byte words of the
+        // lanes 4g..4g+3 (g = e & 7), whose (x, y) hold k = 16 s + 2 qq
+        // (+1) and 16 s + 8 + 2 qq (+1)
+        const uint2* col = frag + (e & 7) * 8 + ((e >> 3) & 1);
+        const __nv_bfloat16* a = src + (size_t)p * stride;
+        float acc = 0.f;
+        for (int s = 0; s < steps; ++s) {
+          uint2 v[4];
+#pragma unroll
+          for (int qq = 0; qq < 4; ++qq) v[qq] = __ldg(col + 2 * (s * 32 + qq));
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+            for (int qq = 0; qq < 4; ++qq) {
+              const int k = 16 * s + 8 * hf + 2 * qq;
+              const uint32_t wv = hf ? v[qq].y : v[qq].x;
+              const uint32_t av = *reinterpret_cast<const uint32_t*>(a + k);
+              if (k < cin) acc = fmaf(bf16_lo(av), bf16_lo(wv), acc);
+              if (k + 1 < cin) acc = fmaf(bf16_hi(av), bf16_hi(wv), acc);
+            }
+        }
+        epi.put(epi.row(p), o, __float2bfloat16_rn(acc + to_f(bias[o])));
+      }
+      __syncwarp();
+    };
+
+    // One pass per M tile, and one more with no tile that empties the list.
+    const int o = o0 + 2 * q;  // this lane's columns o and o + 1
+    int pending = 0;           // entries in the warp's list
+    for (int mt = unit / n_tiles;; mt += groups) {
+      const bool done = mt >= m_tiles;
+      const int m0 = 16 * mt;
+      uint32_t need = 0;  // bit r: this lane's C register r needs the re-sum
+      if (!done) {
+        // ldmatrix.x4: lanes 0-15 address rows 0-15 at k 0, lanes 16-31 at k 8
+        const __nv_bfloat16* row =
+            src + (size_t)min(m0 + (lane & 15), P - 1) * stride + (lane >> 4) * 8;
+        float acc[4] = {0.f, 0.f, 0.f, 0.f}, mag[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int s = 0; s < kSteps; ++s) {
+          if (s >= steps) break;
+          uint32_t a[4], a_abs[4];
+          ldmatrix_x4(a, row + 16 * s);
+          if (s == steps - 1) {
+            // k = 16 s + {0, 0, 8, 8}[r] + 2q and k + 1: low and high half
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int k = 16 * s + (r >> 1) * 8 + 2 * q;
+              a[r] &= (k < cin ? 0xffffu : 0u) | (k + 1 < cin ? 0xffff0000u : 0u);
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r) a_abs[r] = a[r] & kAbs;
+          const uint32_t b_abs[2] = {b[s][0] & kAbs, b[s][1] & kAbs};
+          mma_bf16(acc, a, b[s]);
+          mma_bf16(mag, a_abs, b_abs);
+        }
+        // C fragment: rows g and g + 8 (hf), columns o and o + 1 (registers
+        // 2 hf and 2 hf + 1)
+        if (o < cout) {
+          const float b0 = to_f(bias[o]);
+          const float b1 = o + 1 < cout ? to_f(bias[o + 1]) : 0.f;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int p = m0 + g + 8 * hf;
+            if (p >= P) continue;
+            const int r = 2 * hf;
+            __nv_bfloat16 v0, v1;
+            const bool ok0 = certify(acc[r], kMmaEta * mag[r], b0, &v0);
+            const bool ok1 = certify(acc[r + 1], kMmaEta * mag[r + 1], b1, &v1) &
+                             (o + 1 < cout);
+            const typename Epi::Row rw = epi.row(p);
+            if (ok0 && ok1) {
+              epi.put2(rw, o, v0, v1);
+            } else {
+              if (ok0) epi.put(rw, o, v0);
+              else need |= 1u << r;
+              if (ok1) epi.put(rw, o + 1, v1);
+              else if (o + 1 < cout) need |= 1u << (r + 1);
+            }
+          }
+        }
+      }
+      // queue the flagged (p, o), one a lane and round; re-sum whenever 32
+      // are queued, and the rest after the last tile
+      for (;;) {
+        const unsigned ballot = __ballot_sync(0xffffffffu, need != 0);
+        if (ballot == 0 && !(done && pending > 0)) break;
+        if (need != 0) {
+          const int r = __ffs(need) - 1;
+          need &= need - 1;
+          const int p = m0 + g + (r >> 1) * 8;
+          list[pending + __popc(ballot & ((1u << lane) - 1))] =
+              (uint16_t)(p * 16 + o - n_base + (r & 1));
+        }
+        pending += __popc(ballot);
+        if (pending >= 32 || (done && ballot == 0)) {
+          const int n = min(pending, 32);
+          resum(pending, n);
+          pending -= n;
+        }
+      }
+      if (done) break;
+    }
+  }
+}
+
+// pointwise on the chosen path: w [cin][cout] on the CUDA cores, its
+// fragments wf, the bias and fx on the tensor cores (see pointwise_mma).
+template <typename T, bool kMma, typename Epi>
+__device__ __forceinline__ void product(const T* src, int stride, int P,
+                                        const T* __restrict__ w,
+                                        const T* __restrict__ wf,
+                                        const T* __restrict__ bias, int cin, int cout,
+                                        FixList fx, Epi epi) {
+  if constexpr (kMma) {
+    static_assert(std::is_same<T, __nv_bfloat16>::value, "tensor cores: bf16 only");
+    pointwise_mma(src, stride, P, wf, bias, cin, cout, fx, epi);
+  } else {
+    pointwise<T>(src, stride, P, w, cin, cout, epi);
+  }
+}
+
+// Depthwise step of the tensor-core path: A [h][col][lda] -> B [p][ldb],
+// p = h * wl + col - c_lo, for cin <= 2 * blockDim.x. Each thread keeps one
+// channel pair (c, c + 1) and its 9 taps in registers and walks pairs of
+// adjacent output columns of one row, blockDim.x / pairs at a time: the two
+// outputs share their 3 x 4 input pairs (32-bit loads; bf16 pairs stored as
+// 32-bit words). Arithmetic as on the CUDA-core path: per output and channel
+// an f32 sum from 0 in tap order, multiply then add, rounded once. For odd
+// cin the last pair's second lane is a pad lane (tap 0, value unused).
+__device__ __forceinline__ void depthwise_pairs(const __nv_bfloat16* a, __nv_bfloat16* b,
+                                                const __nv_bfloat16* __restrict__ dw,
+                                                int H, int E, int wl, int c_lo, int cin,
+                                                int lda, int ldb) {
+  const int pairs = (cin + 1) / 2;
+  const int rows = blockDim.x / pairs;
+  if ((int)threadIdx.x >= rows * pairs) return;
+  const int c = 2 * (threadIdx.x % pairs);
+  float k0[9], k1[9];
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+    k0[t] = to_f(dw[t * cin + c]);
+    k1[t] = c + 1 < cin ? to_f(dw[t * cin + c + 1]) : 0.f;
+  }
+  const int wp = (wl + 1) / 2;  // column pairs a row
+  for (int it = threadIdx.x / pairs; it < H * wp; it += rows) {
+    const int h = it / wp;
+    const int cc = 2 * (it - h * wp);  // first output column - c_lo
+    const bool two = cc + 1 < wl;
+    // acc[column][channel]
+    float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      const int hh = h + dy - 1;
+      if (hh < 0 || hh >= H) continue;  // SAME zero padding in time
+      const __nv_bfloat16* in = a + ((size_t)hh * E + c_lo + cc - 1) * lda + c;
+      float x0[4], x1[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        uint32_t v = 0;
+        if (k < 3 || two) v = *reinterpret_cast<const uint32_t*>(in + (size_t)k * lda);
+        x0[k] = bf16_lo(v);
+        x1[k] = bf16_hi(v);
+      }
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const int t = dy * 3 + dx;
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          acc[m][0] = __fadd_rn(acc[m][0], __fmul_rn(x0[dx + m], k0[t]));
+          acc[m][1] = __fadd_rn(acc[m][1], __fmul_rn(x1[dx + m], k1[t]));
+        }
+      }
+    }
+    __nv_bfloat16* out = b + (size_t)(h * wl + cc) * ldb + c;
+    *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(acc[0][0], acc[0][1]);
+    if (two)
+      *reinterpret_cast<__nv_bfloat162*>(out + ldb) = __floats2bfloat162_rn(acc[1][0], acc[1][1]);
+  }
+}
+
+// Every layer of the stack on the tile in A ([H][E][widths[0]], row stride
+// row_ld(widths[0], kMma), columns outside the valid range already zero);
+// the output [H][E][widths[L]] is left in A, valid on the core columns
+// [L, E - L). g0: grid column of buffer column 0; [vlo, vhi): valid grid
+// columns.
+template <typename T, bool kMma = false>
 __device__ void run_stack(T* buf_a, T* buf_b, const T* __restrict__ wts,
                           const StackDesc& d, int H, int E, int g0, int vlo,
-                          int vhi) {
+                          int vhi, FixList fx = FixList{}) {
   const int L = d.n_layers;
   for (int l = 0; l < L; ++l) {
     const int cin = d.widths[l];
     const int cout = d.widths[l + 1];
+    const int ld_in = row_ld(cin, kMma);
+    const int ld_out = row_ld(cout, kMma);
     const int c_lo = l + 1;          // first buffer column this layer writes
     const int wl = E - 2 * (l + 1);  // columns this layer writes
     const int P = H * wl;            // positions this layer writes
@@ -154,82 +602,113 @@ __device__ void run_stack(T* buf_a, T* buf_b, const T* __restrict__ wts,
     const T* bias = wts + d.b_off[l];
 
     // Depthwise: A [h][col][cin] -> B [p][cin], p = h * wl + col - c_lo.
-    for (int i = threadIdx.x; i < P * cin; i += blockDim.x) {
-      const int c = i % cin;
-      const int p = i / cin;
-      const int h = p / wl;
-      const int col = c_lo + p % wl;
-      float acc = 0.f;
+    if constexpr (kMma) {
+      depthwise_pairs(buf_a, buf_b, dw, H, E, wl, c_lo, cin, ld_in, ld_in);
+    } else {
+      for (int i = threadIdx.x; i < P * cin; i += blockDim.x) {
+        const int c = i % cin;
+        const int p = i / cin;
+        const int h = p / wl;
+        const int col = c_lo + p % wl;
+        float acc = 0.f;
 #pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-        const int hh = h + dy - 1;
-        if (hh < 0 || hh >= H) continue;  // SAME zero padding in time
+        for (int dy = 0; dy < 3; ++dy) {
+          const int hh = h + dy - 1;
+          if (hh < 0 || hh >= H) continue;  // SAME zero padding in time
 #pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const float xv = to_f(buf_a[((size_t)hh * E + col + dx - 1) * cin + c]);
-          const float kv = to_f(dw[(dy * 3 + dx) * cin + c]);
-          acc = __fadd_rn(acc, __fmul_rn(xv, kv));
+          for (int dx = 0; dx < 3; ++dx) {
+            const float xv = to_f(buf_a[((size_t)hh * E + col + dx - 1) * cin + c]);
+            const float kv = to_f(dw[(dy * 3 + dx) * cin + c]);
+            acc = __fadd_rn(acc, __fmul_rn(xv, kv));
+          }
         }
+        buf_b[i] = from_f<T>(acc);
       }
-      buf_b[i] = from_f<T>(acc);
     }
     __syncthreads();
 
     // Pointwise + bias (+ ReLU on hidden layers): B [P][cin] -> A [h][col][cout].
-    const bool relu = l < L - 1;
-    pointwise<T>(buf_b, cin, P, pw, cin, cout, [&](int p, int o, float y) {
-      const int h = p / wl;
-      const int col = c_lo + p % wl;
-      const int g = g0 + col;
-      y += to_f(bias[o]);
-      if (relu && y < 0.f) y = 0.f;  // NaN passes, as max(y, 0) does
-      buf_a[((size_t)h * E + col) * cout + o] =
-          (g >= vlo && g < vhi) ? from_f<T>(y) : from_f<T>(0.f);
-    });
+    const T* pwf = kMma ? wts + d.frag_off[l] : nullptr;
+    product<T, kMma>(buf_b, ld_in, P, pw, pwf, bias, cin, cout, fx,
+                     StackEpi<T>{buf_a, bias, E, wl, c_lo, g0, vlo, vhi, ld_out, l < L - 1});
     __syncthreads();
   }
 }
 
 // One tile of the stack (the body of the stack kernel): image n of x
 // [N, H, W, widths[0]] -> out [N, H, W, widths[L]], core columns
-// [tile * w_tile, (tile + 1) * w_tile). Shared memory: A then B, each
-// [H][w_tile + 2L][cmax].
-template <typename T>
+// [tile * w_tile, (tile + 1) * w_tile). Shared memory: on the tensor-core
+// path the re-sum list (kFixBytes), then A and B, each
+// [H][w_tile + 2L][row_ld(cmax, kMma)].
+template <typename T, bool kMma = false>
 __device__ void stack_tile(const T* x, const T* __restrict__ wts, T* out,
                            const StackDesc& d, int H, int W, int w_tile,
                            int lo, int hi, int n, int tile,
                            unsigned char* smem) {
   const int L = d.n_layers;
   const int E = w_tile + 2 * L;
-  T* buf_a = reinterpret_cast<T*>(smem);
-  T* buf_b = buf_a + (size_t)H * E * stack_cmax(d);
+  const FixList fx = fix_list(smem);
+  T* buf_a = reinterpret_cast<T*>(smem + (kMma ? kFixBytes : 0));
+  T* buf_b = buf_a + (size_t)H * E * row_ld(stack_cmax(d), kMma);
   const int w0 = tile * w_tile;
   const int g0 = w0 - L;  // grid column of buffer column 0
   const int vlo = max(lo, 0);
   const int vhi = min(hi, W);
 
   const int c0 = d.widths[0];
+  const int ld0 = row_ld(c0, kMma);
   const T* xn = x + (size_t)n * H * W * c0;
-  for (int i = threadIdx.x; i < H * E * c0; i += blockDim.x) {
-    const int c = i % c0;
-    const int col = (i / c0) % E;
-    const int h = i / (c0 * E);
-    const int g = g0 + col;
-    buf_a[i] = (g >= vlo && g < vhi) ? xn[((size_t)h * W + g) * c0 + c]
-                                     : from_f<T>(0.f);
+  if (kMma && c0 % 2 == 0) {
+    // bf16 pairs: 4-byte loads (the input rows are 4-byte aligned)
+    const int ppr = c0 / 2;
+    for (int i = threadIdx.x; i < H * E * ppr; i += blockDim.x) {
+      const int r = i / ppr;
+      const int c = (i - r * ppr) * 2;
+      const int g = g0 + r % E;
+      *reinterpret_cast<uint32_t*>(buf_a + (size_t)r * ld0 + c) =
+          (g >= vlo && g < vhi)
+              ? __ldg(reinterpret_cast<const unsigned int*>(
+                    xn + ((size_t)(r / E) * W + g) * c0 + c))
+              : 0u;
+    }
+  } else {
+    for (int i = threadIdx.x; i < H * E * c0; i += blockDim.x) {
+      const int c = i % c0;
+      const int col = (i / c0) % E;
+      const int h = i / (c0 * E);
+      const int g = g0 + col;
+      buf_a[(size_t)(i / c0) * ld0 + c] =
+          (g >= vlo && g < vhi) ? xn[((size_t)h * W + g) * c0 + c] : from_f<T>(0.f);
+    }
   }
   __syncthreads();
-  run_stack<T>(buf_a, buf_b, wts, d, H, E, g0, vlo, vhi);
+  run_stack<T, kMma>(buf_a, buf_b, wts, d, H, E, g0, vlo, vhi, fx);
 
   const int cl = d.widths[L];
+  const int ldl = row_ld(cl, kMma);
   T* on = out + (size_t)n * H * W * cl;
-  for (int i = threadIdx.x; i < H * w_tile * cl; i += blockDim.x) {
-    const int c = i % cl;
-    const int cc = (i / cl) % w_tile;
-    const int h = i / (cl * w_tile);
-    const int g = w0 + cc;
-    if (g < W)
-      on[((size_t)h * W + g) * cl + c] = buf_a[((size_t)h * E + L + cc) * cl + c];
+  if (kMma && cl % 8 == 0) {
+    // 16-byte chunks (rows of 8k bf16 are 16-byte aligned in both)
+    const int cpr = cl / 8;
+    for (int i = threadIdx.x; i < H * w_tile * cpr; i += blockDim.x) {
+      const int r = i / cpr;
+      const int c = (i - r * cpr) * 8;
+      const int cc = r % w_tile;
+      const int h = r / w_tile;
+      const int g = w0 + cc;
+      if (g < W)
+        *reinterpret_cast<uint4*>(on + ((size_t)h * W + g) * cl + c) =
+            *reinterpret_cast<const uint4*>(buf_a + ((size_t)h * E + L + cc) * ldl + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < H * w_tile * cl; i += blockDim.x) {
+      const int c = i % cl;
+      const int cc = (i / cl) % w_tile;
+      const int h = i / (cl * w_tile);
+      const int g = w0 + cc;
+      if (g < W)
+        on[((size_t)h * W + g) * cl + c] = buf_a[((size_t)h * E + L + cc) * ldl + c];
+    }
   }
   __syncthreads();  // A is free for the next tile
 }
@@ -237,9 +716,12 @@ __device__ void stack_tile(const T* x, const T* __restrict__ wts, T* out,
 // Largest tile width (core columns) whose two buffers fit in `smem` bytes,
 // then narrowed to equal tiles over W; 0 if none fits.
 inline int stack_w_tile(const StackDesc& d, int H, int W, size_t itemsize,
-                        size_t smem) {
-  const size_t per_col = 2 * (size_t)H * stack_cmax(d) * itemsize;
-  int w_tile = (int)(smem / per_col) - 2 * d.n_layers;
+                        size_t smem, bool mma = false) {
+  const size_t per_col = 2 * (size_t)H * row_ld(stack_cmax(d), mma) * itemsize;
+  const size_t fix = mma ? kFixBytes : 0;
+  if (smem <= fix) return 0;
+  int w_tile = (int)((smem - fix) / per_col) - 2 * d.n_layers;
+  if (mma && H * (w_tile + 2 * d.n_layers) > kMmaMaxP) w_tile = kMmaMaxP / H - 2 * d.n_layers;
   if (w_tile > kMaxTile) w_tile = kMaxTile;
   if (w_tile > W) w_tile = W;
   if (w_tile < 1) return 0;
@@ -248,8 +730,9 @@ inline int stack_w_tile(const StackDesc& d, int H, int W, size_t itemsize,
 }
 
 inline size_t stack_smem(const StackDesc& d, int H, int w_tile,
-                         size_t itemsize) {
-  return 2 * (size_t)H * (w_tile + 2 * d.n_layers) * stack_cmax(d) * itemsize;
+                         size_t itemsize, bool mma = false) {
+  return (mma ? kFixBytes : 0) +
+         2 * (size_t)H * (w_tile + 2 * d.n_layers) * row_ld(stack_cmax(d), mma) * itemsize;
 }
 
 }  // namespace nrx

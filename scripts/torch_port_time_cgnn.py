@@ -1,0 +1,88 @@
+"""Device time of the port's CGNN kernels alone, on the GPU.
+
+Builds the kernels from `neural_rx_tpu_torch/csrc` (printing what ptxas
+reports of registers and spills when it compiles them), then times with
+CUDA events, in bfloat16 at nrx_rt's widths (132 PRB, committed weights,
+inputs from numpy's default_rng(0)): the separable-conv stack kernel over
+the three stacks of one batch-1 slot, the fused iteration at batch 16 in
+state mode, and the whole-CGNN kernel at batch 1 and 16; each beside its
+bound, as `chip_smoke.py` computes it. Prints one JSON line. It uses only
+what `chip_smoke.py` has had since the whole-CGNN kernel came, so a copy of
+it also times an older checkout of the repository.
+
+    python3 scripts/torch_port_time_cgnn.py [--reps 10]
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N_TX, N_SYM, N_SC = 2, 14, 1584
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--reps", type=int, default=10)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from neural_rx_tpu_torch.entry import load_params, make_receiver
+    from neural_rx_tpu_torch.kernels import _build, cgnn_iter, sepconv
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    info = _build.build()
+    ptxas = [ln.strip() for ln in info.log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    peaks = cs.card_peaks(torch.cuda.get_device_name(0))
+    bf, dev = torch.bfloat16, torch.device("cuda")
+    cgnn = load_params(device=dev)["cgnn"]
+    pe = make_receiver(device=dev).pe.to(bf)
+    rng = np.random.default_rng(0)
+
+    def rand(shape, scale=1.0):
+        return torch.as_tensor(scale * rng.standard_normal(shape),
+                               dtype=torch.float32, device=dev).to(bf)
+
+    def rates(rec):  # achieved TFLOP/s and share of the bound
+        return {**rec, "tflops": rec["flops"] / rec["kernel_ms"] / 1e9,
+                "pct_of_bound": 100.0 * rec["bound_ms"] / rec["kernel_ms"]}
+
+    out = {"card": card, "nvcc_seconds": info.seconds, "ptxas": ptxas}
+    stacks = [cgnn["s_init"][0]] + [it["update"] for it in cgnn["iterations"]]
+    xs = [rand((N_TX, N_SYM, N_SC, cs.widths_of(p)[0])) for p in stacks]
+    out["sepconv_slot_ms"] = sum(
+        cs.cuda_ms(lambda p=p, x=x: sepconv.fused_conv_stack(p, x), args.reps)
+        for p, x in zip(stacks, xs))
+    it0 = cgnn["iterations"][0]
+    s16 = rand((16, N_TX, N_SYM, N_SC, 56), 4.0)
+    act16 = torch.ones((16, N_TX), device=dev)
+    rec = {"kernel_ms": cs.cuda_ms(
+        lambda: cgnn_iter.fused_iteration(it0, s16, pe, act16), args.reps),
+        **cs.bound(*cs.iteration_work(it0, 16, pe.shape[-1], 2), peaks)}
+    out["cgnn_iter_b16"] = rates(rec)
+    del s16
+    for b in (1, 16):
+        z = rand((b, N_TX, N_SYM, N_SC, 18))
+        act = torch.ones((b, N_TX), device=dev)
+        rec = {"kernel_ms": cs.cuda_ms(
+            lambda: cgnn_iter.fused_cgnn_full(cgnn, z, pe, act), args.reps),
+            **cs.bound(*cs.full_work(cgnn, b, pe.shape[-1], 2), peaks)}
+        out[f"cgnn_full_b{b}"] = rates(rec)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,119 @@
+"""The weights of the tensor-core CGNN tiles as the kernels read them.
+
+For bfloat16 the wrappers in `neural_rx_tpu_torch/kernels/cgnn_iter.py`
+append to each packed MLP and stack buffer the B fragments of every
+product (`mma_fragments`), which `csrc/nrx_tile.cuh` loads one 16-byte
+word per lane and k-step, and `csrc/nrx_tile.cuh` finds them at offsets it
+computes from the widths alone (`make_mlp_desc`, `make_stack_desc`). These
+CPU tests decode the fragments with the layout written out independently
+and hold the offsets to that rule. No kernel runs here.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from neural_rx_tpu_torch import weights
+from neural_rx_tpu_torch.kernels import cgnn_iter
+from neural_rx_tpu_torch.kernels.sepconv import pack_stack
+
+BF = torch.bfloat16
+
+
+def frag_size(c_in, c_out):
+    """Values of one product's fragments: 16-wide slabs x 16-deep k-steps
+    x 32 lanes x 8 values (csrc/nrx_tile.cuh, frag_size)."""
+    return -(-c_out // 16) * -(-c_in // 16) * 32 * 8
+
+
+def decode(frag, c_in, c_out):
+    """w [c_in, c_out] back from the fragments, walking the layout as the
+    kernel's lanes read it: slab, k-step, lane 4 g + q, then (j, hf, e)
+    for w[16 s + 8 hf + 2 q + e][16 slab + 8 j + g]; values that fall
+    in the padding must be zero."""
+    steps, slabs = -(-c_in // 16), -(-c_out // 16)
+    f = frag.float().numpy().reshape(slabs, steps, 32, 2, 2, 2)
+    w = np.zeros((16 * steps, 16 * slabs), dtype=np.float32)
+    for slab in range(slabs):
+        for s in range(steps):
+            for lane in range(32):
+                g, q = divmod(lane, 4)
+                for j in range(2):
+                    for hf in range(2):
+                        for e in range(2):
+                            k = 16 * s + 8 * hf + 2 * q + e
+                            n = 16 * slab + 8 * j + g
+                            w[k, n] = f[slab, s, lane, j, hf, e]
+    assert not w[c_in:].any() and not w[:, c_out:].any()
+    return w[:c_in, :c_out]
+
+
+@pytest.mark.parametrize("c_in, c_out", [
+    (18, 128), (114, 128), (128, 56), (56, 64), (64, 56), (128, 4),
+    (128, 8), (5, 3)])
+def test_fragments_hold_the_weights(c_in, c_out):
+    rng = np.random.default_rng(c_in * 1000 + c_out)
+    w = torch.as_tensor(rng.standard_normal((c_in, c_out)),
+                        dtype=torch.float32).to(BF)
+    frag = cgnn_iter.mma_fragments(w)
+    assert frag.dtype == BF and frag.numel() == frag_size(c_in, c_out)
+    np.testing.assert_array_equal(decode(frag, c_in, c_out), w.float().numpy())
+
+
+@pytest.fixture(scope="module")
+def cgnn():
+    return weights.load(weights.NRX_RT_EMA, device="cpu")
+
+
+def mlps(cgnn):
+    return ([it["agg"] for it in cgnn["iterations"]]
+            + [cgnn["readout_llrs"][0], cgnn["readout_chest"]])
+
+
+def stacks(cgnn):
+    return [cgnn["s_init"][0]] + [it["update"] for it in cgnn["iterations"]]
+
+
+def test_mlp_buffer_layout(cgnn):
+    for p in mlps(cgnn):
+        (w1, b1), (w2, b2) = [(d["w"], d["b"]) for d in
+                              (p["hidden"][0], p["out"])]
+        i, h = w1.shape
+        o = w2.shape[1]
+        buf = cgnn_iter.pack_mlp_mma(p)
+        plain = i * h + h + h * o + o
+        f1 = -(-plain // 8) * 8  # make_mlp_desc
+        f2 = f1 + frag_size(i, h)
+        assert buf.dtype == BF and buf.numel() == f2 + frag_size(h, o)
+        assert torch.equal(buf[:plain], cgnn_iter.pack_mlp(p, BF))
+        assert not buf[plain:f1].any()
+        np.testing.assert_array_equal(decode(buf[f1:f2], i, h),
+                                      w1.to(BF).float().numpy())
+        np.testing.assert_array_equal(decode(buf[f2:], h, o),
+                                      w2.to(BF).float().numpy())
+
+
+def test_stack_buffer_layout(cgnn):
+    for p in stacks(cgnn):
+        layers = list(p["hidden"]) + [p["out"]]
+        buf = cgnn_iter.pack_stack_mma(p)
+        plain = sum(9 * lp["pw"].shape[0] + lp["pw"].numel()
+                    + lp["pw"].shape[1] for lp in layers)
+        assert torch.equal(buf[:plain], pack_stack(p, BF))
+        off = -(-plain // 8) * 8  # make_stack_desc's frag_off[0]
+        for lp in layers:
+            c_in, c_out = lp["pw"].shape
+            n = frag_size(c_in, c_out)
+            np.testing.assert_array_equal(decode(buf[off:off + n], c_in, c_out),
+                                          lp["pw"].to(BF).float().numpy())
+            off += n
+        assert buf.numel() == off
+
+
+def test_packed_buffers_are_built_once(cgnn):
+    p = cgnn["iterations"][0]
+    assert cgnn_iter.pack_mlp_mma(p["agg"]) is cgnn_iter.pack_mlp_mma(p["agg"])
+    assert cgnn_iter.pack_stack_mma(p["update"]) is \
+        cgnn_iter.pack_stack_mma(p["update"])
+    # the float32 and plain bf16 buffers stay as they were
+    assert cgnn_iter.pack_mlp(p["agg"], BF).numel() == 56 * 64 + 64 + 64 * 56 + 56
