@@ -38,9 +38,10 @@ Phases, each printing one JSON line with its seconds:
      through the plain versions;
   7. times: CUDA-event device time per kernel launch (kernel and plain) at
      the shapes the main path gives it, with its bound, achieved TFLOP/s
-     and share of the bound (the whole-CGNN kernel at batch 1 and 16), per
-     call and slot on each route, and the eval path's call split into
-     receiver and decode for each decoder.
+     and share of the bound (the sepconv stack at N = 2 and on the batch-16
+     route's init stack at N = 32, the whole-CGNN kernel at batch 1 and
+     16), per call and slot on each route, and the eval path's call split
+     into receiver and decode for each decoder.
 Every kernel_check record carries the share of output elements that differ
 from the plain version and, in bfloat16, the largest difference in ulps.
 Then the `kernels` line, and last `{"ok": true, "device": {...}}`. Any
@@ -587,6 +588,18 @@ def main() -> int:
                 lambda: sepconv.sepconv_stack_reference(p, x), 10),
             **bound(*stack_work(widths, n, h, w, 2), peaks)})
         per_stack[-1] = rates(per_stack[-1])
+    # the batch-16 route's launch: the init stack on all 32 images
+    p_init = stacks["init"]
+    x32 = torch.randn((16 * N_TX, h, w, 18), generator=gen,
+                      device=dev).to(bf)
+    stack_n32 = rates({
+        "stack": "init", "widths": widths_of(p_init), "shape": [32, h, w],
+        "kernel_ms": cuda_ms(lambda: sepconv.fused_conv_stack(p_init, x32),
+                             20),
+        "plain_ms": cuda_ms(
+            lambda: sepconv.sepconv_stack_reference(p_init, x32), 3),
+        **bound(*stack_work(widths_of(p_init), 32, h, w, 2), peaks)})
+    del x32
     s16 = (4.0 * torch.randn((16, N_TX, h, w, d_s), generator=gen,
                              device=dev)).to(bf)
     pe = pe32.to(bf)
@@ -672,7 +685,8 @@ def main() -> int:
             "slots_per_s": 16 / (call_ms / 1e3),
             "decode_ms": cuda_ms(decode_both, 3, warmup=1)}
     emit({"phase": "times", "card": card, "per_stack": per_stack,
-          "cgnn_iter": iteration, "cgnn_full": full,
+          "sepconv_init_n32": stack_n32, "cgnn_iter": iteration,
+          "cgnn_full": full,
           "cgnn_full_b16": full16, "paths": paths,
           "ldpc_decode": ldpc_time, "eval_path": eval_times,
           "seconds": time.perf_counter() - t0})
@@ -701,10 +715,13 @@ def main() -> int:
          "plain_ms": sum(s["plain_ms"] for s in per_stack),
          "bound_ms": sum(s["bound_ms"] for s in per_stack),
          "bound_by": "bytes" if st_bytes >= st_ops else "operations",
-         "library_ms": None,
+         "library_ms": None, "ms_n32": stack_n32["kernel_ms"],
+         "plain_ms_n32": stack_n32["plain_ms"],
+         "bound_ms_n32": stack_n32["bound_ms"],
          "note": "ms/plain_ms/bound_ms: sum over the 3 launches of one "
                  "batch-1 slot (init, update0, update1), bf16, N=2, "
-                 "14x1584; library: no PyTorch call computes a separable "
+                 "14x1584; *_n32: the batch-16 route's launch (init stack, "
+                 "N=32); library: no PyTorch call computes a separable "
                  "stack"},
         {"name": "cgnn_iter", "route": "cuda",
          "source": "neural_rx_tpu_torch/csrc/cgnn_iter.cu",

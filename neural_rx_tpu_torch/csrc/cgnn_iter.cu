@@ -96,24 +96,27 @@
 #include <mutex>
 #include <type_traits>
 
+#include "nrx_launch.cuh"
 #include "nrx_tile.cuh"
 
 namespace {
 
+using nrx::allow_smem;
+using nrx::device_setup;
+using nrx::DeviceSetup;
 using nrx::from_f;
+using nrx::KernelSetup;
+using nrx::kMaxDevices;
+using nrx::kUseMma;
+using nrx::mma_fits;
 using nrx::MlpDesc;
+using nrx::setup_mutex;
 using nrx::StackDesc;
 using nrx::to_f;
 
 constexpr int kMaxIt = 4;
 constexpr int kMaxUsers = 8;
 constexpr int kMinChunk = 64;
-constexpr int kMaxDevices = 64;
-
-// bf16 tiles run their products on the tensor cores, float32 tiles on the
-// CUDA cores (TF32 would not keep float32's sums).
-template <typename T>
-constexpr bool kUseMma = std::is_same<T, __nv_bfloat16>::value;
 
 // Static shape of one iteration stage and its shared-memory layout.
 struct IterDesc {
@@ -506,15 +509,9 @@ bool iter_tiles(IterDesc* q, int H, int W, size_t itemsize, bool mma, size_t lim
 }
 
 // What the tensor-core tile takes: products of at most kMmaMaxK input
-// channels (weights held in registers) and, for the aggregation MLP that
-// reads the state's slot of z in place, a 16-byte-aligned slot (d_s a
-// multiple of 8).
-bool mma_fits(const StackDesc& d) {
-  for (int l = 0; l < d.n_layers; ++l)
-    if (d.widths[l] > nrx::kMmaMaxK) return false;
-  return true;
-}
-
+// channels (weights held in registers; stacks: nrx::mma_fits) and, for the
+// aggregation MLP that reads the state's slot of z in place, a
+// 16-byte-aligned slot (d_s a multiple of 8).
 bool mma_fits(const MlpDesc& m) {
   return m.in <= nrx::kMmaMaxK && m.hid <= nrx::kMmaMaxK;
 }
@@ -547,57 +544,6 @@ bool make_iter_desc(IterDesc* q, int n_users, int d_s, int d_pe,
     }
   }
   return true;
-}
-
-// Launch set-up is queried once and reused by every later launch: per
-// device its opt-in shared-memory limit and SM count, per (kernel, device)
-// the dynamic shared memory the kernel was allowed and its occupancy at the
-// last shared-memory size asked for. A kernel template instance is one
-// (kernel, dtype). One mutex guards the tables (ctypes calls run without
-// Python's lock).
-struct DeviceSetup {
-  size_t optin;  // 0: not queried yet
-  int n_sm;
-};
-
-struct KernelSetup {
-  size_t allowed;   // dynamic shared memory granted so far
-  size_t occ_smem;  // shared memory of the cached occupancy
-  int per_sm;       // resident blocks per SM at occ_smem; 0: not queried
-};
-
-std::mutex& setup_mutex() {
-  static std::mutex mu;
-  return mu;
-}
-
-// The current device and its set-up; the caller holds setup_mutex().
-cudaError_t device_setup(int* dev, DeviceSetup* out) {
-  static DeviceSetup cache[kMaxDevices];
-  cudaError_t err = cudaGetDevice(dev);
-  if (err != cudaSuccess) return err;
-  if (*dev < 0 || *dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  DeviceSetup& d = cache[*dev];
-  if (d.optin == 0) {
-    int optin = 0, n_sm = 0;
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, *dev);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, *dev);
-    if (err != cudaSuccess) return err;
-    d = DeviceSetup{(size_t)optin, n_sm};
-  }
-  *out = d;
-  return cudaSuccess;
-}
-
-// Lets `kernel` take `bytes` of dynamic shared memory unless it already may.
-template <typename K>
-cudaError_t allow_smem(K* kernel, KernelSetup& k, size_t bytes) {
-  if (bytes <= k.allowed) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) k.allowed = bytes;
-  return err;
 }
 
 // ---------------------------------------------------------------- K3

@@ -18,9 +18,10 @@
 // are zero before every layer and after the last.
 //
 // Two paths, chosen at compile time by the kMma template argument:
-//   - CUDA cores (kMma false; the stack kernel, and every float32 tile):
-//     `pointwise`, f32 FMA over c in order; rows packed, stride c.
-//   - tensor cores (kMma true; bf16 only, the CGNN kernels' bf16 tiles):
+//   - CUDA cores (kMma false; every float32 tile): `pointwise`, f32 FMA
+//     over c in order; rows packed, stride c.
+//   - tensor cores (kMma true; every bf16 tile: the stack kernel's and the
+//     CGNN kernels'):
 //     `pointwise_mma`, mma.sync m16n8k16 bf16 x bf16 -> f32, and
 //     `depthwise_pairs`. The products are exact and sum in f32, 16 input
 //     channels per k-step in the tensor core's order, so a sum may differ

@@ -25,17 +25,35 @@
 // intermediate activations never touch device memory. Two shared buffers:
 // the depthwise step reads A and writes B, the pointwise step reads B and
 // writes A. The widest layer (128 channels at nrx_rt) sets W_t through the
-// 227 KB shared-memory limit: W_t = 26 in bf16 at 3 layers, 10 in f32.
-// The tile code lives in nrx_tile.cuh, shared with cgnn_iter.cu.
+// 227 KB shared-memory limit. The tile code lives in nrx_tile.cuh, shared
+// with cgnn_iter.cu, where the iteration kernel and the whole-CGNN kernel's
+// init stage run the same tile.
 //
-// What bounds it on this card: at the nrx_rt shapes the work is ~2.5-3.7
-// GFLOP against ~7-15 MB of device traffic, so the tensor-core bound is a
-// few microseconds for both. This first kernel runs the pointwise products
-// on the CUDA cores in f32 (one block per SM, 16 warps, 4x4 register tiles)
-// and is bound by its shared-memory loads and the f32 FMA rate instead;
-// the halo re-computation costs (W_t + 2L) / W_t extra work on the first
-// layer. Tensor cores (wgmma) and TMA loads are later work.
+// bf16 (the serving dtype) runs the tensor-core tile, as K3/K4 do:
+// nrx::pointwise_mma (mma.sync m16n8k16 bf16 -> f32, A fragments from
+// shared memory by ldmatrix, each warp's B fragments of one n8 tile in
+// registers, from the fragment-ordered copy of the weights that the wrapper
+// appends: kernels/sepconv.py, pack_stack_mma) with its re-sum of the sums
+// that lie near a bf16 rounding boundary, so the outputs stay those of the
+// plain version; nrx::depthwise_pairs for the taps. Rows are row_ld(c, true)
+// apart (18 -> 24, 114 -> 120, 128 -> 136, 56 -> 56), and the warps' re-sum
+// lists (nrx::kFixBytes) open the dynamic shared memory: W_t = 24 (E = 30)
+// in 230,528 B at nrx_rt, 66 tiles over 1584 columns, so one batch-1 slot
+// (N = 2) is 132 blocks, one wave at one block per SM. The tile takes at
+// most nrx::kMmaMaxK = 128 input channels a layer; the wrapper refuses a
+// wider bf16 stack. float32 (the eval path) keeps the CUDA-core tile (16
+// warps of 4x4 f32 FMA register tiles, W_t = 10), bit for bit.
+//
+// What bounds it on this card: at the nrx_rt shapes a launch at N = 2 does
+// 2.5 (init) or 3.7 (update) GFLOP against 6.6 or 15 MB of device traffic,
+// so a batch-1 slot's three launches are bound by their bytes (~12 us),
+// with ~10 us at the tensor cores' bf16 rate close behind; the halo
+// re-computation costs (W_t + 2L) / W_t extra work on the first layer.
+//
+// Launch set-up (shared-memory opt-in, the kernel's shared-memory
+// attribute) is queried once per device, kernel and size (nrx_launch.cuh).
 
+#include "nrx_launch.cuh"
 #include "nrx_tile.cuh"
 
 namespace {
@@ -48,27 +66,31 @@ __global__ void __launch_bounds__(nrx::kThreads)
                          T* __restrict__ out, StackDesc d, int H, int W,
                          int w_tile, int lo, int hi) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  nrx::stack_tile<T>(x, wts, out, d, H, W, w_tile, lo, hi, blockIdx.y,
-                     blockIdx.x, smem_raw);
+  nrx::stack_tile<T, nrx::kUseMma<T>>(x, wts, out, d, H, W, w_tile, lo, hi, blockIdx.y,
+                                      blockIdx.x, smem_raw);
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const void* w, void* out, const StackDesc& d,
                    int n, int h, int wc, int lo, int hi, cudaStream_t stream) {
-  int dev = 0;
-  int optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  const int w_tile = nrx::stack_w_tile(d, h, wc, sizeof(T), optin);
-  if (w_tile < 1) return cudaErrorInvalidValue;
-  const int n_tiles = (wc + w_tile - 1) / w_tile;
-  const size_t smem = nrx::stack_smem(d, h, w_tile, sizeof(T));
-  err = cudaFuncSetAttribute(sepconv_stack_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(n_tiles, n);
+  static nrx::KernelSetup setup[nrx::kMaxDevices];
+  constexpr bool kMma = nrx::kUseMma<T>;
+  if (kMma && !nrx::mma_fits(d)) return cudaErrorInvalidValue;
+  int w_tile = 0;
+  size_t smem = 0;
+  {
+    std::lock_guard<std::mutex> lock(nrx::setup_mutex());
+    int dev = 0;
+    nrx::DeviceSetup ds;
+    cudaError_t err = nrx::device_setup(&dev, &ds);
+    if (err != cudaSuccess) return err;
+    w_tile = nrx::stack_w_tile(d, h, wc, sizeof(T), ds.optin, kMma);
+    if (w_tile < 1) return cudaErrorInvalidValue;
+    smem = nrx::stack_smem(d, h, w_tile, sizeof(T), kMma);
+    err = nrx::allow_smem(sepconv_stack_kernel<T>, setup[dev], smem);
+    if (err != cudaSuccess) return err;
+  }
+  dim3 grid((wc + w_tile - 1) / w_tile, n);
   sepconv_stack_kernel<T><<<grid, nrx::kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out), d,
       h, wc, w_tile, lo, hi);
@@ -82,7 +104,9 @@ extern "C" {
 // x: [n, h, wc, widths[0]], out: [n, h, wc, widths[n_layers]], both
 // contiguous in the working type (dtype 0: float32, 1: bfloat16). w: the
 // packed stack, per layer dw [9][c_in], pw [c_in][c_out], b [c_out] in the
-// same type. widths: host array of n_layers + 1 ints. Launches on `stream`,
+// same type; in bfloat16 followed by every layer's B fragments (the
+// wrapper's pack_stack_mma), and no layer wider than 128 input channels.
+// widths: host array of n_layers + 1 ints. Launches on `stream`,
 // allocates nothing, does not synchronise; returns cudaGetLastError().
 int nrx_sepconv_stack(const void* x, const void* w, void* out, int dtype, int n,
                       int h, int wc, int n_layers, const void* widths, int lo,

@@ -45,9 +45,9 @@ _SIGNATURES = {
     # ch_dims, num_it, dtype, b, t, h, w, d_s, d_pe, lo, hi, stream
     "nrx_cgnn_full": (_I, [_P] * 8 + [_I, _P, _P, _P, _P, _I]
                       + [_P] * 5 + [_I] * 10 + [_P]),
-    # llr, out, c2v, row_ptr, cols, shifts, edges, n, z, n_cols, n_rows,
+    # llr, out, state, row_ptr, cols, shifts, n, z, n_cols, n_rows,
     # n_edges, num_iter, stream
-    "nrx_ldpc_layered_decode": (_I, [_P] * 7 + [_I] * 6 + [_P]),
+    "nrx_ldpc_layered_decode": (_I, [_P] * 6 + [_I] * 6 + [_P]),
     "nrx_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -15,9 +15,9 @@ s [b, T, H, W, d_s], pe [T, H, W, d_pe], active_tx [b, T].
 Weights go to the kernels packed once per dtype (`pack_mlp`,
 `sepconv.pack_stack`); for bfloat16, whose kernels run their products on
 the tensor cores, each packed buffer is followed by the products' weights
-in MMA fragment order (`pack_mlp_mma`, `pack_stack_mma`). The bfloat16
-kernels keep the plain versions' rounded outputs exactly (csrc/nrx_tile.cuh,
-pointwise_mma).
+in MMA fragment order (`pack_mlp_mma`, `sepconv.pack_stack_mma`). The
+bfloat16 kernels keep the plain versions' rounded outputs exactly
+(csrc/nrx_tile.cuh, pointwise_mma).
 
 Dispatch: a CPU tensor goes to the plain PyTorch version, a CUDA tensor
 launches the kernel or raises. The plain versions keep the TPU kernel's
@@ -34,8 +34,8 @@ import ctypes
 import torch
 
 from . import _build
-from .sepconv import (_DTYPE_CODES, _layers, _valid_range, pack_stack,
-                      sepconv_stack_reference)
+from .sepconv import (_DTYPE_CODES, _layers, _valid_range, with_fragments,
+                      sepconv_stack_reference, stack_weights)
 
 MAX_ITERATIONS = 4
 MAX_USERS = 8
@@ -69,65 +69,18 @@ def pack_mlp(p, dtype: torch.dtype) -> torch.Tensor:
     return cache[dtype]
 
 
-def mma_fragments(w: torch.Tensor) -> torch.Tensor:
-    """w [c_in, c_out] as the B fragments of the kernels' tensor-core
-    products (`csrc/nrx_tile.cuh`, pointwise_mma), flat, zero-padded to
-    16-deep k-steps and 16-wide slabs of output channels: for slab, k-step
-    s and lane l = 4 g + q in order, 8 values w[k][n] with k = 16 s + 8 hf +
-    2 q + e, n = 16 slab + 8 j + g, for (j, hf, e) in order (j, hf, e in
-    {0, 1}): one 16-byte load a lane and k-step."""
-    c_in, c_out = w.shape
-    steps, slabs = -(-c_in // 16), -(-c_out // 16)
-    wp = torch.zeros((16 * steps, 16 * slabs), dtype=w.dtype, device=w.device)
-    wp[:c_in, :c_out] = w
-
-    def ax(n, dim):
-        shape = [1] * 6
-        shape[dim] = n
-        return torch.arange(n, device=w.device).view(shape)
-    lane = ax(32, 2)
-    k = 16 * ax(steps, 1) + 8 * ax(2, 4) + 2 * (lane % 4) + ax(2, 5)
-    n = 16 * ax(slabs, 0) + 8 * ax(2, 3) + lane // 4
-    return wp[k, n].reshape(-1)
-
-
-def _with_fragments(plain: torch.Tensor, mats) -> torch.Tensor:
-    """plain, zero-padded to a multiple of 8 values (16 bytes), then the
-    fragments of each matrix: the bfloat16 layout of the tensor-core
-    kernels, whose offsets `csrc/nrx_tile.cuh` computes alike."""
-    pad = plain.new_zeros((-plain.numel()) % 8)
-    return torch.cat([plain, pad] + [mma_fragments(m.to(plain.dtype))
-                                     for m in mats]).contiguous()
-
-
 def pack_mlp_mma(p) -> torch.Tensor:
     """`pack_mlp` in bfloat16 followed by the fragments of w1 and w2: the
     weights of the tensor-core MLP. Built once and kept in p["packed"]."""
     cache = p.setdefault("packed", {})
     if "mma" not in cache:
         w1, _, w2, _ = _dense(p, "mlp")
-        cache["mma"] = _with_fragments(pack_mlp(p, torch.bfloat16), (w1, w2))
-    return cache["mma"]
-
-
-def pack_stack_mma(p) -> torch.Tensor:
-    """`pack_stack` in bfloat16 followed by the fragments of every layer's
-    pointwise weights: the weights of the tensor-core stack. Built once and
-    kept in p["packed"]."""
-    cache = p.setdefault("packed", {})
-    if "mma" not in cache:
-        cache["mma"] = _with_fragments(pack_stack(p, torch.bfloat16),
-                                       [lp["pw"] for lp in _layers(p)])
+        cache["mma"] = with_fragments(pack_mlp(p, torch.bfloat16), (w1, w2))
     return cache["mma"]
 
 
 def _mlp_weights(p, dtype):
     return pack_mlp_mma(p) if dtype == torch.bfloat16 else pack_mlp(p, dtype)
-
-
-def _stack_weights(p, dtype):
-    return pack_stack_mma(p) if dtype == torch.bfloat16 else \
-        pack_stack(p, dtype)
 
 
 def mlp_reference(p, x: torch.Tensor) -> torch.Tensor:
@@ -299,7 +252,7 @@ def _launch_iteration(it_p, s, pe, active_tx, sc_valid, readout_p, chest_p):
     pe = _on(pe, dev, "pe").to(dtype).contiguous()
     act = _on(active_tx, dev, "active_tx").float().contiguous()
     agg_w = _on(_mlp_weights(it_p["agg"], dtype), dev, "weights")
-    upd_w = _on(_stack_weights(it_p["update"], dtype), dev, "weights")
+    upd_w = _on(stack_weights(it_p["update"], dtype), dev, "weights")
     lo, hi = _valid_range(sc_valid, w)
     ro_w = ch_w = None
     ro_dims = ch_dims = None
@@ -361,10 +314,10 @@ def _launch_full(params, z0, pe, active_tx, sc_valid, num_it):
     ch_dims = _readout_dims(ch_p, d_s, "chest")
     pe = _on(pe, dev, "pe").to(dtype).contiguous()
     act = _on(active_tx, dev, "active_tx").float().contiguous()
-    init_w = _on(_stack_weights(init_p, dtype), dev, "weights")
+    init_w = _on(stack_weights(init_p, dtype), dev, "weights")
     agg_ws = [_on(_mlp_weights(it_p["agg"], dtype), dev, "weights")
               for it_p in its]
-    upd_ws = [_on(_stack_weights(it_p["update"], dtype), dev, "weights")
+    upd_ws = [_on(stack_weights(it_p["update"], dtype), dev, "weights")
               for it_p in its]
     ro_w = _on(_mlp_weights(ro_p, dtype), dev, "weights")
     ch_w = _on(_mlp_weights(ch_p, dtype), dev, "weights")

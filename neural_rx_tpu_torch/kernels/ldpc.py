@@ -6,8 +6,11 @@ Counterpart of `neural_rx_tpu/kernels/ldpc_pallas.py` (`make_decoder`,
 Pallas kernel's and its NumPy oracle's (`reference_layered_decode`): check
 rows in order, app updated in place, alpha = 0.8125, the first minimum of a
 row masked for the second, hard bits out. The TPU tiling argument (`tile`)
-and `interpret` have no counterpart: the CUDA kernel decodes one codeword
-per block.
+and `interpret` have no counterpart: the CUDA kernel decodes all codewords
+of a call in one launch, one codeword a block, and keeps per check row and
+lane a compressed state (min1, min2, and a word of edge signs, the
+first-minimum edge and the sign parity) from which it rebuilds each
+message exactly; its scratch is [N, rows, 3, Z] 32-bit words.
 
 Dispatch: a CPU tensor goes to the plain PyTorch version, a CUDA tensor
 launches the kernel or raises. The plain version (float32, like the
@@ -52,12 +55,12 @@ def _row_plan(code: LDPCCode) -> list[list[tuple[int, int, int]]]:
 @functools.lru_cache(maxsize=16)
 def _plan_tensors(code: LDPCCode, device: torch.device) -> dict:
     """The row plan as int32 tensors on `device`: row_ptr [R + 1] and cols,
-    shifts, edges [E] in row order. Built once per (code, device)."""
+    shifts [E] in row order. Built once per (code, device)."""
     flat = [entry for row in _row_plan(code) for entry in row]
-    cols, shifts, edges = zip(*flat)
+    cols, shifts, _ = zip(*flat)
     as_i32 = functools.partial(torch.tensor, dtype=torch.int32, device=device)
     return {"row_ptr": as_i32(code.row_ptr.tolist()), "cols": as_i32(cols),
-            "shifts": as_i32(shifts), "edges": as_i32(edges)}
+            "shifts": as_i32(shifts)}
 
 
 @functools.lru_cache(maxsize=16)
@@ -141,17 +144,18 @@ def _launch(code: LDPCCode, llr: torch.Tensor, num_iter: int
     out = torch.empty_like(llr)
     if n == 0:
         return out
-    # check messages, [N, E, Z]; the kernel never reads them before it
-    # writes them, so they need no clearing
-    c2v = torch.empty((n, code.num_edges, code.z), dtype=torch.float32,
-                      device=llr.device)
+    # check-node state, [N, rows, 3, Z] words (min1, min2, signs and first
+    # minimum); the kernel never reads a row's state before it writes it, so
+    # it needs no clearing
+    state = torch.empty((n, code.num_rows, 3, code.z), dtype=torch.float32,
+                        device=llr.device)
     plan = _plan_tensors(code, llr.device)
     lib = _build.load()
     rc = lib.nrx_ldpc_layered_decode(
-        llr.data_ptr(), out.data_ptr(), c2v.data_ptr(),
+        llr.data_ptr(), out.data_ptr(), state.data_ptr(),
         plan["row_ptr"].data_ptr(), plan["cols"].data_ptr(),
-        plan["shifts"].data_ptr(), plan["edges"].data_ptr(), n, code.z,
-        code.num_cols, code.num_rows, code.num_edges, num_iter,
+        plan["shifts"].data_ptr(), n, code.z, code.num_cols, code.num_rows,
+        code.num_edges, num_iter,
         torch.cuda.current_stream(llr.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("ldpc_decode launch failed: "

@@ -9,6 +9,13 @@ A stack `p` is {"hidden": [layer, ...], "out": layer} with each layer
 are channels-last [N, H, W, C] in float32 or bfloat16; ReLU follows every
 hidden layer, the output layer is linear.
 
+Weights go to the kernel packed once per dtype (`stack_weights`): float32
+as `pack_stack`; bfloat16, whose tile runs its products on the tensor cores
+(as the CGNN kernels' bfloat16 tiles do), as `pack_stack_mma`, the same
+buffer followed by every layer's pointwise weights in MMA fragment order
+(`mma_fragments`). That tile takes at most `MMA_MAX_K` input channels a
+layer: the wrapper refuses a wider bfloat16 stack.
+
 Dispatch: a CPU tensor goes to the plain PyTorch version, a CUDA tensor
 launches the kernel or raises. The plain version is the kernel's oracle.
 """
@@ -23,6 +30,7 @@ import torch.nn.functional as F
 from . import _build
 
 MAX_LAYERS = 4
+MMA_MAX_K = 128  # nrx::kMmaMaxK: input channels of a tensor-core product
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches since the last reset; the wrapper adds one per launch.
@@ -92,6 +100,54 @@ def pack_stack(p, dtype: torch.dtype) -> torch.Tensor:
     return cache[dtype]
 
 
+def mma_fragments(w: torch.Tensor) -> torch.Tensor:
+    """w [c_in, c_out] as the B fragments of the kernels' tensor-core
+    products (`csrc/nrx_tile.cuh`, pointwise_mma), flat, zero-padded to
+    16-deep k-steps and 16-wide slabs of output channels: for slab, k-step
+    s and lane l = 4 g + q in order, 8 values w[k][n] with k = 16 s + 8 hf +
+    2 q + e, n = 16 slab + 8 j + g, for (j, hf, e) in order (j, hf, e in
+    {0, 1}): one 16-byte load a lane and k-step."""
+    c_in, c_out = w.shape
+    steps, slabs = -(-c_in // 16), -(-c_out // 16)
+    wp = torch.zeros((16 * steps, 16 * slabs), dtype=w.dtype, device=w.device)
+    wp[:c_in, :c_out] = w
+
+    def ax(n, dim):
+        shape = [1] * 6
+        shape[dim] = n
+        return torch.arange(n, device=w.device).view(shape)
+    lane = ax(32, 2)
+    k = 16 * ax(steps, 1) + 8 * ax(2, 4) + 2 * (lane % 4) + ax(2, 5)
+    n = 16 * ax(slabs, 0) + 8 * ax(2, 3) + lane // 4
+    return wp[k, n].reshape(-1)
+
+
+def with_fragments(plain: torch.Tensor, mats) -> torch.Tensor:
+    """plain, zero-padded to a multiple of 8 values (16 bytes), then the
+    fragments of each matrix: the bfloat16 layout of the tensor-core
+    kernels, whose offsets `csrc/nrx_tile.cuh` computes alike."""
+    pad = plain.new_zeros((-plain.numel()) % 8)
+    return torch.cat([plain, pad] + [mma_fragments(m.to(plain.dtype))
+                                     for m in mats]).contiguous()
+
+
+def pack_stack_mma(p) -> torch.Tensor:
+    """`pack_stack` in bfloat16 followed by the fragments of every layer's
+    pointwise weights: the weights of the tensor-core stack. Built once and
+    kept in p["packed"]."""
+    cache = p.setdefault("packed", {})
+    if "mma" not in cache:
+        cache["mma"] = with_fragments(pack_stack(p, torch.bfloat16),
+                                      [lp["pw"] for lp in _layers(p)])
+    return cache["mma"]
+
+
+def stack_weights(p, dtype: torch.dtype) -> torch.Tensor:
+    """The stack's weights as the kernels read them in `dtype`."""
+    return pack_stack_mma(p) if dtype == torch.bfloat16 else \
+        pack_stack(p, dtype)
+
+
 def fused_conv_stack(p, x: torch.Tensor, sc_valid=None) -> torch.Tensor:
     """The stack applied to x [N, H, W, C_in] -> [N, H, W, C_out].
 
@@ -119,7 +175,10 @@ def _launch(p, x: torch.Tensor, sc_valid) -> torch.Tensor:
         raise ValueError(f"at most {MAX_LAYERS} layers, got {len(layers)}")
     if any(int(lp["pw"].shape[0]) != c for lp, c in zip(layers, widths)):
         raise ValueError(f"channel widths do not chain: {widths}")
-    w = pack_stack(p, x.dtype)
+    if x.dtype == torch.bfloat16 and max(widths[:-1]) > MMA_MAX_K:
+        raise ValueError(f"the bfloat16 tile takes at most {MMA_MAX_K} "
+                         f"input channels a layer, got {widths}")
+    w = stack_weights(p, x.dtype)
     if w.device != x.device:
         raise ValueError(f"weights on {w.device}, activations on {x.device}")
     n, h, wc, _ = x.shape

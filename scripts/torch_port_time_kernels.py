@@ -1,16 +1,20 @@
-"""Device time of the port's CGNN kernels alone, on the GPU.
+"""Device time of the port's kernels alone, on the GPU.
 
 Builds the kernels from `neural_rx_tpu_torch/csrc` (printing what ptxas
 reports of registers and spills when it compiles them), then times with
-CUDA events, in bfloat16 at nrx_rt's widths (132 PRB, committed weights,
-inputs from numpy's default_rng(0)): the separable-conv stack kernel over
-the three stacks of one batch-1 slot, the fused iteration at batch 16 in
-state mode, and the whole-CGNN kernel at batch 1 and 16; each beside its
-bound, as `chip_smoke.py` computes it. Prints one JSON line. It uses only
-what `chip_smoke.py` has had since the whole-CGNN kernel came, so a copy of
-it also times an older checkout of the repository.
+CUDA events at nrx_rt's widths (132 PRB, committed weights, inputs from
+numpy's default_rng(0)), each beside its bound as `chip_smoke.py` computes
+it: in bfloat16 the separable-conv stack kernel over the three stacks of
+one batch-1 slot (N = 2) and on the batch-16 route's init stack (N = 32),
+the fused iteration at batch 16 in state mode and the whole-CGNN kernel at
+batch 1 and 16; in float32 the layered LDPC decoder on one user's batch-16
+load (80 BG1/Z = 384 codewords at 10 dB, 20 iterations). Beside the times:
+the elements of the stack slot and the hard bits of the decode that differ
+from the plain versions. Prints one JSON line. It uses only what
+`chip_smoke.py` has had since the LDPC kernel came, so a copy of it also
+times an older checkout of the repository.
 
-    python3 scripts/torch_port_time_cgnn.py [--reps 10]
+    python3 scripts/torch_port_time_kernels.py [--reps 10]
 """
 
 import argparse
@@ -37,6 +41,8 @@ def main() -> int:
     import chip_smoke as cs
     from neural_rx_tpu_torch.entry import load_params, make_receiver
     from neural_rx_tpu_torch.kernels import _build, cgnn_iter, sepconv
+    from neural_rx_tpu_torch.kernels import ldpc as k5
+    from neural_rx_tpu_torch.phy.nr import ldpc
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -65,6 +71,18 @@ def main() -> int:
     out["sepconv_slot_ms"] = sum(
         cs.cuda_ms(lambda p=p, x=x: sepconv.fused_conv_stack(p, x), args.reps)
         for p, x in zip(stacks, xs))
+    # elements that differ from the plain version, over the slot's stacks
+    out["sepconv_slot_differing"] = sum(
+        int((sepconv.fused_conv_stack(p, x)
+             != sepconv.sepconv_stack_reference(p, x)).sum())
+        for p, x in zip(stacks, xs))
+    x32 = rand((32, N_SYM, N_SC, 18))
+    rec = {"kernel_ms": cs.cuda_ms(
+        lambda: sepconv.fused_conv_stack(stacks[0], x32), args.reps),
+        **cs.bound(*cs.stack_work(cs.widths_of(stacks[0]), 32, N_SYM, N_SC,
+                                  2), peaks)}
+    out["sepconv_init_n32"] = rates(rec)
+    del x32
     it0 = cgnn["iterations"][0]
     s16 = rand((16, N_TX, N_SYM, N_SC, 56), 4.0)
     act16 = torch.ones((16, N_TX), device=dev)
@@ -80,6 +98,25 @@ def main() -> int:
             lambda: cgnn_iter.fused_cgnn_full(cgnn, z, pe, act), args.reps),
             **cs.bound(*cs.full_work(cgnn, b, pe.shape[-1], 2), peaks)}
         out[f"cgnn_full_b{b}"] = rates(rec)
+    # one user's batch-16 transport blocks: 16 x 5 codewords, BPSK at 10 dB
+    code = ldpc.get_code(1, 384)
+    sent = torch.as_tensor(rng.integers(0, 2, (80, code.k)),
+                           dtype=torch.float32, device=dev)
+    cw = ldpc.encode(code, sent)
+    snr = 10.0 ** (10.0 / 10.0)
+    y = (1.0 - 2.0 * cw) + torch.as_tensor(
+        rng.standard_normal(tuple(cw.shape)) / snr ** 0.5,
+        dtype=torch.float32, device=dev)
+    llr = (2.0 * snr * y).contiguous()  # internal log(p0/p1)
+    llr[:, :2 * code.z] = 0.0
+    bits = k5.layered_decode(code, llr, cs.LDPC_ITER)
+    rec = {"kernel_ms": cs.cuda_ms(
+        lambda: k5.layered_decode(code, llr, cs.LDPC_ITER), args.reps),
+        "bit_errors": int((bits != cw).sum()),
+        "differing_bits": int((bits != k5.layered_decode_reference(
+            code, llr, cs.LDPC_ITER)).sum()),
+        **cs.bound(*cs.ldpc_work(code, 80), peaks, rate="f32_flops")}
+    out["ldpc_decode_80"] = rates(rec)
     print(json.dumps(out))
     return 0
 

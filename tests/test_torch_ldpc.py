@@ -195,7 +195,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
                                             device="meta"))
     plan = k5._plan_tensors(code, torch.device("cpu"))
     assert plan["row_ptr"].dtype == torch.int32
-    assert int(plan["row_ptr"][-1]) == code.num_edges == len(plan["edges"])
+    assert int(plan["row_ptr"][-1]) == code.num_edges == len(plan["cols"]) \
+        == len(plan["shifts"])
+    # the kernel packs column * Z and the shift into one word: shifts mod Z
+    assert 0 <= int(plan["shifts"].min()) and int(plan["shifts"].max()) < 52
     assert code.max_row_deg <= k5.MAX_ROW_DEG
     assert ldpc.get_code(1, 384).max_row_deg == k5.MAX_ROW_DEG
 
@@ -224,3 +227,129 @@ def test_jax_kernel_rounds_the_update_once(monkeypatch):
         size=(5, code.n_full)).astype(np.float32) * 2
     monkeypatch.setattr(k5, "fused_multiply_add", lambda a, b, c: a * b + c)
     assert (_port_bits(2, 128, llr, 4) != _oracle(2, 128, llr, 4)).any()
+
+
+ALPHA32 = np.float32(k5.ALPHA)
+
+
+def _rows(code):
+    """Per row: (cols [deg], lanes (j + s) mod Z [deg, Z])."""
+    lanes = np.arange(code.z)
+    out = []
+    for r, cols in enumerate(code.rows):
+        shifts = [int(code.shifts[(r, c)]) for c in cols]
+        out.append((np.array(cols), (lanes[None] + np.array(shifts)[:, None])
+                    % code.z))
+    return out
+
+
+def _decode_full(code, llr, num_iter):
+    """Layered min-sum with one stored message per edge and lane (the
+    first kernel's form): app [N, n_cols, Z] float32 after each
+    iteration."""
+    n = llr.shape[0]
+    app = llr.reshape(n, code.num_cols, code.z).clone()
+    msgs = [torch.zeros((n, len(cols), code.z)) for cols, _ in _rows(code)]
+    apps = []
+    for _ in range(num_iter):
+        for (cols, lanes), msg in zip(_rows(code), msgs):
+            t = app[:, cols[:, None], lanes] - msg
+            sgn = torch.where(t < 0, -1.0, 1.0)
+            mag = t.abs()
+            min1 = mag.amin(dim=1, keepdim=True)
+            is_min = mag <= min1
+            first = is_min & (is_min.cumsum(dim=1) == 1)
+            min2 = torch.where(first, 1e30, mag).amin(dim=1, keepdim=True)
+            coef = ALPHA32 * sgn.prod(dim=1, keepdim=True) * sgn
+            other = torch.where(first, min2, min1)
+            msg.copy_(coef * other)
+            app[:, cols[:, None], lanes] = k5.fused_multiply_add(coef, other,
+                                                                  t)
+        apps.append(app.clone())
+    return apps
+
+
+def _decode_compressed(code, llr, num_iter):
+    """The redesigned kernel's form: per row and lane only min1, min2 and a
+    word of edge signs (bits 0..18), the first-minimum edge (bits 19..23)
+    and the sign parity (bit 24); the running minimum over a row's edges in
+    order starts at the first edge and takes a later one only if it is
+    strictly smaller; each message is rebuilt as one rounded product
+    +-alpha * (first ? min2 : min1), the app as one fused multiply-add. app
+    after each iteration."""
+    n = llr.shape[0]
+    app = llr.reshape(n, code.num_cols, code.z).clone()
+    shape = (n, code.num_rows, code.z)
+    st_min1, st_min2 = torch.zeros(shape), torch.zeros(shape)
+    st_word = torch.zeros(shape, dtype=torch.int64)
+    apps = []
+    for it in range(num_iter):
+        for r, (cols, lanes) in enumerate(_rows(code)):
+            m1, m2, w = st_min1[:, r], st_min2[:, r], st_word[:, r]
+            first_old = (w >> 19) & 31
+            parity_old = (w >> 24) & 1
+            t = []
+            for k in range(len(cols)):
+                v = app[:, cols[k], lanes[k]]
+                if it > 0:
+                    flip = (parity_old ^ (w >> k)) & 1
+                    coef = torch.where(flip == 1, -ALPHA32, ALPHA32)
+                    v = v - coef * torch.where(first_old == k, m2, m1)
+                t.append(v)
+            neg = (t[0] < 0).long()
+            min1, min2 = t[0].abs(), torch.full_like(m1, 1e30)
+            first = torch.zeros_like(w)
+            for k in range(1, len(cols)):
+                neg = neg | ((t[k] < 0).long() << k)
+                m = t[k].abs()
+                take = m < min1
+                min2 = torch.minimum(min2, torch.where(take, min1, m))
+                first = torch.where(take, k, first)
+                min1 = torch.where(take, m, min1)
+            parity = torch.zeros_like(w)
+            for k in range(len(cols)):
+                parity = parity ^ ((neg >> k) & 1)
+            for k in range(len(cols)):
+                flip = (parity ^ (neg >> k)) & 1
+                coef = torch.where(flip == 1, -ALPHA32, ALPHA32)
+                other = torch.where(first == k, min2, min1)
+                app[:, cols[k], lanes[k]] = k5.fused_multiply_add(coef, other,
+                                                                  t[k])
+            st_min1[:, r], st_min2[:, r] = min1, min2
+            st_word[:, r] = neg | first << 19 | parity << 24
+        apps.append(app.clone())
+    return apps
+
+
+def _tie_llrs(code, seed, n):
+    """LLRs on a coarse grid (exact ties within rows), with -0.0 and +0.0
+    among them and the punctured first 2Z at 0."""
+    rng = np.random.default_rng(seed)
+    llr = np.round(rng.normal(size=(n, code.n_full)) * 2.0).astype(
+        np.float32) / 2
+    llr[rng.random(llr.shape) < 0.05] = np.float32(-0.0)
+    llr[:, :2 * code.z] = 0.0
+    llr[0, 2 * code.z:3 * code.z] = np.float32(-0.0)
+    return llr
+
+
+@pytest.mark.parametrize("bg,z,num_iter", [(1, 384, 2), (1, 352, 3),
+                                           (2, 52, 3)])
+def test_compressed_state_decodes_as_full_messages(bg, z, num_iter):
+    """The kernel's compressed check-node state rebuilds every message
+    exactly: the app is bit for bit that of the full-message decode after
+    every iteration (-0.0 apart from +0.0), and the hard bits are those of
+    the port's plain version and of the JAX package's oracle."""
+    code = ldpc.get_code(bg, z)
+    llr_np = _tie_llrs(code, 17 + z, 2)
+    assert (np.signbit(llr_np) & (llr_np == 0)).any()
+    llr = torch.as_tensor(llr_np)
+    full = _decode_full(code, llr, num_iter)
+    comp = _decode_compressed(code, llr, num_iter)
+    for a, b in zip(full, comp):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    bits = (comp[-1] < 0).float().reshape(llr.shape[0], -1)
+    assert torch.equal(bits, k5.layered_decode_reference(code, llr,
+                                                         num_iter))
+    np.testing.assert_array_equal(bits.numpy(),
+                                  _oracle(bg, z, llr_np, num_iter))

@@ -8,6 +8,8 @@ with sc_valid as an int and as a (lo, hi) pair. The CUDA kernel itself is
 held against the same plain version on the GPU by chip_smoke.py.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -142,7 +144,11 @@ def test_packed_layout():
     assert off == buf.numel()
 
 
-def test_kernel_rejects_what_it_cannot_take():
+def test_kernel_rejects_what_it_cannot_take(monkeypatch):
+    """Refused before any launch: another dtype, widths that do not chain,
+    and in bfloat16 a layer of more than 128 input channels (the
+    tensor-core tile's limit), which float32 still takes."""
+    monkeypatch.setattr(_build, "load", lambda: pytest.fail("launched"))
     p = from_jax_numpy(_stack(13, 10, [32], 8))
     x = torch.zeros((1, 7, 36, 10), dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -150,3 +156,17 @@ def test_kernel_rejects_what_it_cannot_take():
     x = torch.zeros((1, 7, 36, 12))
     with pytest.raises(ValueError):
         sepconv._launch(p, x, None)
+    wide = from_jax_numpy(_stack(14, 130, [32], 8))
+    x = torch.zeros((1, 7, 36, 130))
+    before = sepconv.launches
+    with pytest.raises(ValueError, match="128 input channels"):
+        sepconv._launch(wide, x.to(torch.bfloat16), None)
+    assert sepconv.launches == before
+    launched = []
+    monkeypatch.setattr(_build, "load", lambda: types.SimpleNamespace(
+        nrx_sepconv_stack=lambda *a: launched.append(a[3]) or 0))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    assert sepconv._launch(wide, x, None).shape == (1, 7, 36, 8)
+    assert launched == [0]  # dtype code 0: float32
