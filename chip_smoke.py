@@ -13,14 +13,18 @@ Phases, each printing one JSON line with its seconds:
      nrx_rt widths (N = b*T = 2, 14x1584), float32 and bfloat16, sc_valid
      None and (5, 1500): the sepconv stack at its three stacks; the CGNN
      iteration in state and readout modes and the whole-CGNN kernel, with
-     users active (1, 1) and (1, 0);
+     users active (1, 1) and (1, 0); the iteration in readout mode with
+     the 2- and 6-bit LLR readouts of nrx_rt_qpsk and nrx_rt_64qam, every
+     output equal to the plain version's;
   4. ldpc_check: the layered min-sum LDPC kernel against its plain version,
      20 iterations, hard bits exactly equal: nrx_rt's eval code (BG1,
      Z = 384, the 5 code blocks of 16 transport blocks) on LLRs from the
      TB chain over a BPSK-equivalent channel at 10 dB (decodable) and at
      1.7 dB (the waterfall), the noiseless codewords, an odd count of 7;
      the 4-PRB code (BG2, Z = 128) at 2 dB; BG1/Z = 352 and BG2/Z = 52
-     (Z no multiple of 32) at 0 dB; with bit and block errors of each;
+     (Z no multiple of 32) at 0 dB; the 150 codewords of user 0 of one
+     Monte-Carlo step (batch 30, DoubleTDLlow, 3 dB, the receiver's LLRs);
+     with bit and block errors of each;
   5. main_path: `entry()` at 132 PRB on its routes, each run with the
      launch counts set to 0 just before and read just after: batch 1 (3
      sepconv launches, nothing else), batch 16 (1 sepconv, 2 iteration
@@ -36,7 +40,22 @@ Phases, each printing one JSON line with its seconds:
      JAX package's receiver fails on the same slot, the CRC fails exactly
      there, and the kernel route's b_hat and crc equal the same route
      through the plain versions;
-  7. times: CUDA-event device time per kernel launch (kernel and plain) at
+  7. mc_path: the Monte-Carlo BLER evaluation (`mc_entry()`, `E2EModel`,
+     `sim_ber`) of nrx_rt at 132 PRB, batch 30, float32, DoubleTDLlow:
+     launches of one step with each decoder, counts set to 0 before and
+     read after (1 sepconv, 2 iteration and 2 LDPC launches of 150
+     codewords with the layered kernel; no LDPC launch with flooding); the
+     kernel route against the plain route from the same generator seed
+     (nrx_rt: 2 steps at 3 dB with each decoder; nrx_rt_qpsk and
+     nrx_rt_64qam: 1 step with the layered decoder): counters, b_hat and
+     crc equal; a `sim_ber` sweep with the layered kernel at 2, 3 and 4 dB
+     and with flooding at 3 dB, each point's BLER with its Wilson interval
+     beside the committed JAX curve (`JAX_CURVE`), inside the sanity band
+     of that curve 1 dB to either side and decreasing with Eb/N0; device
+     ms of a step split into draws + transmitter + channel, receiver and
+     decode, the sweep's slots/s by wall clock and by device time, and
+     the host-device copies of a step (profiler);
+  8. times: CUDA-event device time per kernel launch (kernel and plain) at
      the shapes the main path gives it, with its bound, achieved TFLOP/s
      and share of the bound (the sepconv stack at N = 2 and on the batch-16
      route's init stack at N = 32, the whole-CGNN kernel at batch 1 and
@@ -72,6 +91,21 @@ EVAL_EBNO_DB = 10.0
 # one decodes to the bits sent
 EVAL_FAILS = {(11, 0), (13, 1)}
 ACTIVE_CASES = ((1.0, 1.0), (1.0, 0.0))
+MC_BATCH = 30  # nrx_rt's batch_size_eval
+MC_SEED = 0
+MC_EBNO_DB = 3.0
+MC_SWEEP_DB = (2.0, 3.0, 4.0)
+MC_TARGET_BLOCK_ERRORS = 100
+MC_MAX_ITER = 40
+# The JAX package's committed BLER curve of nrx_rt on DoubleTDLlow (132 PRB,
+# 2 users, flooding decoder): results/nrx_rt_results.pkl, key
+# ('Neural Receiver', 2, 0), Eb/N0 -2 ... 7 dB, measured with an earlier
+# EMA snapshot of the committed weights (results/README.md), so a sanity
+# band only. results/ is not in the card's copy, hence the constant.
+JAX_CURVE_DB = tuple(float(e) for e in range(-2, 8))
+JAX_CURVE = (1.0, 0.9916666666666667, 0.8916666666666667, 0.6833333333333333,
+             0.37962962962962965, 0.14444444444444443, 0.04065040650406504,
+             0.007541666666666667, 0.00125, 8.333333333333333e-05)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_SYM, N_SC, N_TX = 14, 1584, 2
 
@@ -260,6 +294,24 @@ def compare(got, ref, dtype, tol):
             "max_ulps": ulps, "tol": tol, "ok": ok and max(errs) <= tol}
 
 
+def jax_bler(ebno_db: float) -> float:
+    """The committed JAX curve at ebno_db, interpolated in log10 BLER."""
+    return float(10.0 ** np.interp(ebno_db, JAX_CURVE_DB,
+                                   np.log10(JAX_CURVE)))
+
+
+def jax_ebno(bler: float) -> float:
+    """The Eb/N0 at which the committed JAX curve reaches `bler`."""
+    return float(np.interp(-np.log10(bler), -np.log10(JAX_CURVE),
+                           JAX_CURVE_DB))
+
+
+def block_counts(b, b_hat):
+    """(bit errors, block errors) of one Monte-Carlo batch."""
+    errs = (b != b_hat).sum(dim=-1)
+    return int(errs.sum()), int((errs > 0).sum())
+
+
 def rates(rec):
     """A timing record with its achieved TFLOP/s and its share of the
     bound (bound_ms / kernel_ms, in %)."""
@@ -274,14 +326,21 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from torch.profiler import ProfilerActivity, profile
+    from neural_rx_tpu_torch import weights
+    from neural_rx_tpu_torch.channel.apply import apply_ofdm_channel
     from neural_rx_tpu_torch.entry import (entry, eval_entry, eval_example,
-                                           load_params, make_receiver)
+                                           load_params, make_receiver,
+                                           mc_entry)
     from neural_rx_tpu_torch.kernels import _build, cgnn_iter, sepconv
     from neural_rx_tpu_torch.kernels import ldpc as k5
     from neural_rx_tpu_torch.phy.nr import ldpc, tb
     from neural_rx_tpu_torch.phy.nr.tb import tb_decode
     from neural_rx_tpu_torch.rx.cgnn import count_params
     from neural_rx_tpu_torch.sim.config import Parameters
+    from neural_rx_tpu_torch.sim.e2e import E2EModel
+    from neural_rx_tpu_torch.sim.simber import (bler_confidence_interval,
+                                                sim_ber)
 
     # the plain version is the oracle: full float32 products, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -391,6 +450,28 @@ def main() -> int:
                 checks.append({"kernel": "cgnn_full", "sc_valid": scv,
                                "active": active, **rec})
                 assert rec["ok"], checks[-1]
+    # the readout mode with the LLR readouts of the other nrx_rt MCS
+    act = torch.ones((1, N_TX), device=dev)
+    for label, bits in (("nrx_rt_qpsk", 2), ("nrx_rt_64qam", 6)):
+        cgnn_l = load_params(device=dev,
+                             path=weights.ema_weights(label))["cgnn"]
+        ro_l = (cgnn_l["readout_llrs"][0], cgnn_l["readout_chest"])
+        assert ro_l[0]["out"]["w"].shape[1] == bits
+        for dtype, tol in dtypes:
+            s, pe = s32.to(dtype), pe32.to(dtype)
+            got = cgnn_iter.fused_iteration(cgnn_l["iterations"][1], s, pe,
+                                            act, None, *ro_l)
+            ref = cgnn_iter.fused_iteration_reference(
+                cgnn_l["iterations"][1], s, pe, act, None, *ro_l)
+            torch.cuda.synchronize()
+            rec = compare(got, ref, dtype, tol)
+            rec["ok"] = rec["ok"] and rec["differing_share"] == 0 \
+                and got[0].shape[-1] == bits
+            checks.append({"kernel": "cgnn_iter", "mode": f"readout_{bits}",
+                           "config": label, "sc_valid": None,
+                           "active": (1.0, 1.0), **rec})
+            assert rec["ok"], checks[-1]
+        del cgnn_l, ro_l
     emit({"phase": "kernel_check", "checks": checks,
           "seconds": time.perf_counter() - t0})
 
@@ -426,6 +507,25 @@ def main() -> int:
     cw80, llr80 = tb_case(cfg132, 16, 10.0)
     noiseless = (1.0 - 2.0 * cw80) * 8.0
     noiseless[:, :2 * cfg132.z] = 0.0
+    # the receiver's LLRs of user 0 of one Monte-Carlo step: 150 codewords
+    p_mc = Parameters("nrx_rt", training=False)
+    params_mc = load_params(dtype=p_mc.nrx_dtype, device=dev)
+    mc_model = E2EModel(p_mc, device=dev)
+    rx_mc = mc_model.receiver
+    bits_mc, h_mc, noise_mc = mc_model.draw(
+        torch.Generator(device=dev).manual_seed(MC_SEED), MC_BATCH,
+        MC_EBNO_DB)
+    y_mc = apply_ofdm_channel(mc_model.transmitter(bits_mc), h_mc, None,
+                              noise=noise_mc)
+    llr_mc, _ = rx_mc.serve(params_mc, torch.stack([y_mc.real, y_mc.imag],
+                                                   dim=-1))
+    cfg_u0 = rx_mc.rg.configs[0].tb
+    llr150 = tb.codeword_llrs(cfg_u0, rx_mc.rg.demap_data(llr_mc).reshape(
+        MC_BATCH, N_TX, -1)[:, 0]).reshape(-1, cfg_u0.code.n_full)
+    cw150 = tb.tb_codewords(cfg_u0, bits_mc[:, 0]).reshape(
+        -1, cfg_u0.code.n_full)
+    assert llr150.shape[0] == 150
+    del h_mc, noise_mc, y_mc, llr_mc
     ldpc_cases = {
         "bg1_z384_10dB": (cfg132.code, cw80, llr80),
         "bg1_z384_1.7dB": (cfg132.code, *tb_case(cfg132, 16, 1.7)),
@@ -433,7 +533,8 @@ def main() -> int:
         "bg1_z384_odd7": (cfg132.code, cw80[:7], llr80[:7].contiguous()),
         "bg2_z128_2dB": (cfg4.code, *tb_case(cfg4, 16, 2.0)),
         "bg1_z352_0dB": (ldpc.get_code(1, 352), *code_case(1, 352, 9, 0.0)),
-        "bg2_z52_0dB": (ldpc.get_code(2, 52), *code_case(2, 52, 9, 0.0))}
+        "bg2_z52_0dB": (ldpc.get_code(2, 52), *code_case(2, 52, 9, 0.0)),
+        "bg1_z384_mc_step_150": (cfg_u0.code, cw150, llr150.contiguous())}
     ldpc_checks = []
     for cname, (code, cw, llr) in ldpc_cases.items():
         got = k5.layered_decode(code, llr, LDPC_ITER)
@@ -571,7 +672,151 @@ def main() -> int:
     assert eval_rec["eval_fast_b16"]["equals_plain_route"]
     del b_plain, rx_eval_plain
 
-    # 7. times (bf16, as served), at the shapes the main path gives each
+    # 7. the Monte-Carlo BLER evaluation at 132 PRB, batch 30, float32
+    t0 = time.perf_counter()
+    mc_routes = {"mc_fast_b30": True, "mc_flooding_b30": False}
+    expected_mc = {
+        "mc_fast_b30": {"sepconv_stack": 1, "cgnn_iter": 2, "cgnn_full": 0,
+                        "ldpc_decode": 2},
+        "mc_flooding_b30": {"sepconv_stack": 1, "cgnn_iter": 2,
+                            "cgnn_full": 0, "ldpc_decode": 0}}
+    mc_fns = {}
+    for route, fast in mc_routes.items():
+        fn_m, (params_m, gen_m) = mc_entry(device="cuda", batch=MC_BATCH,
+                                           ebno_db=MC_EBNO_DB,
+                                           fast_ldpc=fast, seed=MC_SEED)
+        reset()
+        step_counts = fn_m(params_m, gen_m)
+        torch.cuda.synchronize()
+        launches[route] = counts()
+        mc_fns[route] = (fn_m, params_m, gen_m)
+        assert step_counts[1] == MC_BATCH * N_TX * p_mc.transmitters[
+            0].tb_size and step_counts[3] == MC_BATCH * N_TX, step_counts
+    reset()
+
+    def run_steps(model, params, fast, steps):
+        gen = torch.Generator(device=dev).manual_seed(MC_SEED)
+        return [model(params, gen, MC_BATCH, MC_EBNO_DB, fast_ldpc=fast)
+                for _ in range(steps)]
+
+    mc_plain = {}
+    for label, cases in (("nrx_rt", ((True, 2), (False, 2))),
+                         ("nrx_rt_qpsk", ((True, 1),)),
+                         ("nrx_rt_64qam", ((True, 1),))):
+        p_l = Parameters(label, training=False)
+        params_l = load_params(dtype=p_l.nrx_dtype, device=dev,
+                               path=weights.ema_weights(label))
+        models = [E2EModel(p_l, kernels=k, device=dev) for k in (True, False)]
+        for fast, steps in cases:
+            got, ref = (run_steps(m, params_l, fast, steps) for m in models)
+            torch.cuda.synchronize()
+            mc_plain[f"{label}_{'fast' if fast else 'flooding'}"] = {
+                "steps": steps,
+                "bits_per_symbol": p_l.transmitters[0].num_bits_per_symbol,
+                "counters": [block_counts(b, bh) for b, bh, _ in got],
+                "counters_plain": [block_counts(b, bh) for b, bh, _ in ref],
+                "equals_plain_route": all(
+                    torch.equal(x, y) for g, r in zip(got, ref)
+                    for x, y in zip(g, r))}
+        del models, params_l
+    reset()
+
+    sweep = {}
+    for decoder, fast, dbs in (("fast", True, MC_SWEEP_DB),
+                            ("flooding", False, (MC_EBNO_DB,))):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bers, blers, n_err, n_blk = sim_ber(
+            mc_model, params_mc, dbs, MC_BATCH, max_mc_iter=MC_MAX_ITER,
+            num_target_block_errors=MC_TARGET_BLOCK_ERRORS, seed=MC_SEED,
+            verbose=False, fast_ldpc=fast, return_counts=True)
+        wall = time.perf_counter() - t1
+        points = []
+        for e, ber, bler, errs, blocks in zip(dbs, bers, blers, n_err,
+                                              n_blk):
+            points.append({
+                "ebno_db": e, "ber": float(ber), "bler": float(bler),
+                "block_errors": int(errs), "blocks": int(blocks),
+                "wilson95": bler_confidence_interval(int(errs), int(blocks)),
+                "jax_bler": jax_bler(e),
+                "band": (jax_bler(e + 1.0), jax_bler(e - 1.0)),
+                "db_behind_jax": (e - jax_ebno(float(bler))
+                                  if bler > 0 else None)})
+        steps = int(n_blk.sum()) // (MC_BATCH * N_TX)
+        sweep[decoder] = {"points": points, "steps": steps, "wall_s": wall,
+                       "slots_per_s_wall": steps * MC_BATCH / wall}
+
+    # device time of a step, split: draws + transmitter + channel,
+    # receiver, decode (both users); host time of a whole step
+    gen_t = torch.Generator(device=dev).manual_seed(MC_SEED + 1)
+    rg_mc = rx_mc.rg
+
+    def front():
+        b_, h_, n_ = mc_model.draw(gen_t, MC_BATCH, MC_EBNO_DB)
+        return apply_ofdm_channel(mc_model.transmitter(b_), h_, None,
+                                  noise=n_)
+    y_t = front()
+    y_tp = torch.stack([y_t.real, y_t.imag], dim=-1)
+    llr_t, _ = rx_mc.serve(params_mc, y_tp)
+    mc_times = {"batch": MC_BATCH, "front_ms": cuda_ms(front, 5),
+                "receiver_ms": cuda_ms(lambda: rx_mc.serve(params_mc, y_tp),
+                                       5)}
+    for decoder, route in (("fast", "mc_fast_b30"),
+                        ("flooding", "mc_flooding_b30")):
+        dec = k5.tb_decode_fast if mc_routes[route] else tb_decode
+
+        def decode_both():
+            flat = rg_mc.demap_data(llr_t).reshape(MC_BATCH, N_TX, -1)
+            return [dec(cfg.tb, flat[:, ue])
+                    for ue, cfg in enumerate(rg_mc.configs)]
+        decode_ms = cuda_ms(decode_both, 3, warmup=1)
+        step_ms = mc_times["front_ms"] + mc_times["receiver_ms"] + decode_ms
+        fn_m, params_m, gen_m = mc_fns[route]
+        host_ms = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            fn_m(params_m, gen_m)
+            host_ms.append((time.perf_counter() - t1) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                fn_m(params_m, gen_m)
+            torch.cuda.synchronize()
+        copies = {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA \
+                    and "Memcpy" in ev.name:
+                copies[ev.name] = copies.get(ev.name, 0) + 0.5
+        sw = sweep[decoder]
+        mc_times[decoder] = {
+            "decode_ms": decode_ms, "device_step_ms": step_ms,
+            "slots_per_s_device": MC_BATCH / step_ms * 1e3,
+            "step_host_ms_median": float(np.median(host_ms)),
+            "sweep_slots_per_s_wall": sw["slots_per_s_wall"],
+            "sweep_slots_per_s_device": MC_BATCH / step_ms * 1e3,
+            "sweep_host_share": 1.0 - sw["steps"] * step_ms / 1e3
+            / sw["wall_s"],
+            "copies_per_step": copies}
+    del y_t, y_tp, llr_t
+    emit({"phase": "mc_path", "batch": MC_BATCH, "ebno_db": MC_EBNO_DB,
+          "launches": {r: launches[r] for r in mc_routes},
+          "expected": expected_mc, "kernel_vs_plain": mc_plain,
+          "sweep": sweep, "times": mc_times, "card": card,
+          "seconds": time.perf_counter() - t0})
+    for route in mc_routes:
+        assert launches[route] == expected_mc[route], (route,
+                                                       launches[route])
+    for key, rec in mc_plain.items():
+        assert rec["equals_plain_route"], (key, rec)
+    fast_blers = [pt["bler"] for pt in sweep["fast"]["points"]]
+    assert all(a > b for a, b in zip(fast_blers, fast_blers[1:])), \
+        fast_blers
+    for decoder in sweep:
+        for pt in sweep[decoder]["points"]:
+            lo, hi = pt["band"]
+            assert lo <= pt["bler"] <= hi, (decoder, pt)
+
+    # 8. times (bf16, as served), at the shapes the main path gives each
     # kernel: stacks at N = 2 (batch 1), the iteration at batch 16, the
     # whole CGNN at batch 1
     t0 = time.perf_counter()
@@ -663,6 +908,43 @@ def main() -> int:
             code132, llr80, LDPC_ITER), 2, warmup=1),
         **bound(*ldpc_work(code132, llr80.shape[0]), peaks,
                 rate="f32_flops")})
+    # each kernel at the mc path's launch (float32, batch 30): the init
+    # stack on 60 images, one iteration, 150 codewords of one user
+    cgnn_mc = params_mc["cgnn"]
+    x60 = torch.randn((MC_BATCH * N_TX, h, w, 18), generator=gen,
+                      device=dev)
+    p_init32 = cgnn_mc["s_init"][0]
+    mc_kernels = {"sepconv_stack": rates({
+        "shape": list(x60.shape),
+        "kernel_ms": cuda_ms(lambda: sepconv.fused_conv_stack(p_init32, x60),
+                             5),
+        "plain_ms": cuda_ms(lambda: sepconv.sepconv_stack_reference(
+            p_init32, x60), 2, warmup=1),
+        **bound(*stack_work(widths_of(p_init32), MC_BATCH * N_TX, h, w, 4),
+                peaks, rate="f32_flops")})}
+    del x60
+    s30 = 4.0 * torch.randn((MC_BATCH, N_TX, h, w, d_s), generator=gen,
+                            device=dev)
+    act30 = torch.ones((MC_BATCH, N_TX), device=dev)
+    it0_32 = cgnn_mc["iterations"][0]
+    mc_kernels["cgnn_iter"] = rates({
+        "shape": list(s30.shape),
+        "kernel_ms": cuda_ms(lambda: cgnn_iter.fused_iteration(
+            it0_32, s30, pe32, act30), 3),
+        "plain_ms": cuda_ms(lambda: cgnn_iter.fused_iteration_reference(
+            it0_32, s30, pe32, act30), 2, warmup=1),
+        **bound(*iteration_work(it0_32, MC_BATCH, pe32.shape[-1], 4), peaks,
+                rate="f32_flops")})
+    del s30
+    llr150 = llr150.contiguous()
+    mc_kernels["ldpc_decode"] = rates({
+        "codewords": int(llr150.shape[0]),
+        "kernel_ms": cuda_ms(
+            lambda: k5.layered_decode(code132, llr150, LDPC_ITER), 10),
+        "plain_ms": cuda_ms(lambda: k5.layered_decode_reference(
+            code132, llr150, LDPC_ITER), 2, warmup=1),
+        **bound(*ldpc_work(code132, llr150.shape[0]), peaks,
+                rate="f32_flops")})
     # the eval path per decoder, split into receiver and decode
     rx_e = make_receiver(nrx_dtype=p_eval.nrx_dtype, device=dev)
     y_planar = torch.stack([y_eval.real, y_eval.imag], dim=-1)
@@ -689,6 +971,7 @@ def main() -> int:
           "cgnn_full": full,
           "cgnn_full_b16": full16, "paths": paths,
           "ldpc_decode": ldpc_time, "eval_path": eval_times,
+          "mc_path_kernels": mc_kernels,
           "seconds": time.perf_counter() - t0})
 
     def max_abs(kernel):
@@ -697,6 +980,11 @@ def main() -> int:
 
     def total(kernel):
         return sum(launches[r][kernel] for r in launches)
+
+    def mc_keys(kernel):
+        rec = mc_kernels[kernel]
+        return {"ms_mc": rec["kernel_ms"], "plain_ms_mc": rec["plain_ms"],
+                "bound_ms_mc": rec["bound_ms"]}
 
     st_bytes = sum(s["bytes_ms"] for s in per_stack)
     st_ops = sum(s["ops_ms"] for s in per_stack)
@@ -718,10 +1006,12 @@ def main() -> int:
          "library_ms": None, "ms_n32": stack_n32["kernel_ms"],
          "plain_ms_n32": stack_n32["plain_ms"],
          "bound_ms_n32": stack_n32["bound_ms"],
+         **mc_keys("sepconv_stack"),
          "note": "ms/plain_ms/bound_ms: sum over the 3 launches of one "
                  "batch-1 slot (init, update0, update1), bf16, N=2, "
                  "14x1584; *_n32: the batch-16 route's launch (init stack, "
-                 "N=32); library: no PyTorch call computes a separable "
+                 "N=32); *_mc: the mc path's launch (init stack, float32, "
+                 "N=60); library: no PyTorch call computes a separable "
                  "stack"},
         {"name": "cgnn_iter", "route": "cuda",
          "source": "neural_rx_tpu_torch/csrc/cgnn_iter.cu",
@@ -733,8 +1023,10 @@ def main() -> int:
          "ms": iteration["kernel_ms"], "plain_ms": iteration["plain_ms"],
          "bound_ms": iteration["bound_ms"],
          "bound_by": iteration["bound_by"], "library_ms": None,
+         **mc_keys("cgnn_iter"),
          "note": "one launch in state mode at batch 16 (b=16, T=2, "
-                 "14x1584), bf16; library: no PyTorch call computes the "
+                 "14x1584), bf16; *_mc: the mc path's launch (float32, "
+                 "b=30); library: no PyTorch call computes the "
                  "aggregation MLP, user sum and separable stack"},
         {"name": "cgnn_full", "route": "cuda",
          "source": "neural_rx_tpu_torch/csrc/cgnn_iter.cu",
@@ -763,8 +1055,11 @@ def main() -> int:
          "ms": ldpc_time["kernel_ms"], "plain_ms": ldpc_time["plain_ms"],
          "bound_ms": ldpc_time["bound_ms"],
          "bound_by": ldpc_time["bound_by"], "library_ms": None,
+         **mc_keys("ldpc_decode"),
          "note": "ms/plain_ms/bound_ms: one launch of 80 codewords (one "
                  "user of a batch-16 slot: 16 TBs x 5 code blocks), BG1, "
+                 "*_mc: 150 codewords (one user of a batch-30 Monte-Carlo "
+                 "step), "
                  "Z=384, 20 iterations, float32; max_abs_err on hard bits "
                  "(0 or 1); bound: 10 f32 operations per edge, lane and "
                  "iteration at the card's f32 rate, LLRs read and bits "

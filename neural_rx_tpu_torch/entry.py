@@ -16,6 +16,12 @@ layered min-sum kernel (`fast_ldpc=True`) or the flooding decoder. Its
 example input is a slot of seeded random transport blocks through the
 port's transmitter, a seeded flat Rayleigh channel (`flat_channel`) and
 seeded noise at the given Eb/N0.
+
+`mc_entry()` is one Monte-Carlo step of the BLER evaluation at the same
+width: `sim.e2e.E2EModel` of nrx_rt (eval: 132 PRB, float32, its
+DoubleTDLlow channel) draws the bits, the channel and the noise from a
+`torch.Generator` on the device, transmits, receives and decodes, and the
+step returns the error counters (`sim.simber.make_eval_step`).
 """
 
 from __future__ import annotations
@@ -28,8 +34,10 @@ from .kernels.cgnn_iter import pack_mlp
 from .kernels.sepconv import pack_stack
 from .channel.apply import apply_ofdm_channel
 from .phy.misc import binary_source
-from .rx.neural_rx import NeuralPUSCHReceiver, resolve_device
+from .rx.neural_rx import NeuralPUSCHReceiver, receiver_for, resolve_device
 from .sim.config import Parameters
+from .sim.e2e import E2EModel
+from .sim.simber import make_eval_step
 
 NRX_DTYPE = torch.bfloat16
 
@@ -82,23 +90,16 @@ def make_receiver(training: bool = False, nrx_dtype=NRX_DTYPE,
     """The nrx_rt receiver: 132 PRB (eval grid) or, with training=True,
     the 4-PRB training grid. fused_full: the whole-CGNN kernel route;
     kernels=False: the kernels' plain versions on the same route."""
-    p = Parameters("nrx_rt", training=training)
-    return NeuralPUSCHReceiver(
-        p.resource_grid, [c[0].num_bits_per_symbol for c in p.pusch_configs],
-        num_rx_ant=p.num_rx_antennas,
-        max_num_tx=p.max_num_tx, num_it=p.num_nrx_iter, d_s=p.d_s,
-        num_units_init=p.num_units_init, num_units_agg=p.num_units_agg,
-        num_units_state=p.num_units_state,
-        num_units_readout=p.num_units_readout,
-        layer_type_conv=p.layer_type_conv,
-        var_mcs_masking=p.mcs_var_mcs_masking, nrx_dtype=nrx_dtype,
-        fused_full=fused_full, kernels=kernels, device=device)
+    return receiver_for(Parameters("nrx_rt", training=training), nrx_dtype,
+                        fused_full=fused_full, kernels=kernels, device=device)
 
 
-def load_params(dtype=NRX_DTYPE, device="cuda") -> dict:
-    """{"cgnn": tree} of the committed nrx_rt EMA weights on `device`, with
-    every conv stack and MLP packed once for the kernels."""
-    cgnn = weights.load(weights.NRX_RT_EMA, device=device)
+def load_params(dtype=NRX_DTYPE, device="cuda",
+                path: str = weights.NRX_RT_EMA) -> dict:
+    """{"cgnn": tree} of the weights in `path` (default: the committed
+    nrx_rt EMA weights) on `device`, with every conv stack and MLP packed
+    once for the kernels."""
+    cgnn = weights.load(path, device=device)
     for stack in cgnn["s_init"] + [it["update"] for it in cgnn["iterations"]]:
         pack_stack(stack, dtype)
     for mlp in [it["agg"] for it in cgnn["iterations"]] + [
@@ -140,3 +141,24 @@ def eval_entry(device="cuda", batch: int = 16, ebno_db: float = 10.0,
         return b_hat, crc
 
     return fn, (params, y, active_tx)
+
+
+def mc_entry(device="cuda", batch: int = 30, ebno_db: float = 3.0,
+             fast_ldpc: bool = True, seed: int = 0):
+    """Returns (fn, example_args): fn(params, generator) -> int64 [4]
+    counters (bit errors, bits, block errors, blocks) of one Monte-Carlo
+    step of nrx_rt in eval mode (132 PRB, float32, DoubleTDLlow) at
+    `batch` slots and `ebno_db`, decoding with the layered min-sum kernel
+    (fast_ldpc=True) or the flooding decoder, with the committed EMA
+    weights; example_args = (params, a generator on `device` seeded with
+    `seed`)."""
+    device = resolve_device(device)
+    p = Parameters("nrx_rt", training=False)
+    model = E2EModel(p, device=device)
+    params = load_params(dtype=p.nrx_dtype, device=device)
+    step = make_eval_step(model, fast_ldpc=fast_ldpc)
+
+    def fn(params, generator):
+        return step(params, generator, batch, ebno_db)
+
+    return fn, (params, torch.Generator(device=device).manual_seed(seed))

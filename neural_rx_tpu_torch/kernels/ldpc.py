@@ -27,8 +27,10 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
+from .. import tables
 from ..phy.nr.ldpc import LDPCCode
 from ..phy.nr.tb import tb_decode
 from . import _build
@@ -52,15 +54,20 @@ def _row_plan(code: LDPCCode) -> list[list[tuple[int, int, int]]]:
     return plan
 
 
-@functools.lru_cache(maxsize=16)
+def _plan_arrays(code: LDPCCode) -> dict:
+    flat = [entry for row in _row_plan(code) for entry in row]
+    cols, shifts, _ = zip(*flat)
+    return {"row_ptr": code.row_ptr, "cols": np.asarray(cols),
+            "shifts": np.asarray(shifts)}
+
+
 def _plan_tensors(code: LDPCCode, device: torch.device) -> dict:
     """The row plan as int32 tensors on `device`: row_ptr [R + 1] and cols,
     shifts [E] in row order. Built once per (code, device)."""
-    flat = [entry for row in _row_plan(code) for entry in row]
-    cols, shifts, _ = zip(*flat)
-    as_i32 = functools.partial(torch.tensor, dtype=torch.int32, device=device)
-    return {"row_ptr": as_i32(code.row_ptr.tolist()), "cols": as_i32(cols),
-            "shifts": as_i32(shifts)}
+    return {name: tables.on_device(
+        ("ldpc_plan", code.bg, code.z, name), device,
+        lambda name=name: _plan_arrays(code)[name], torch.int32)
+        for name in ("row_ptr", "cols", "shifts")}
 
 
 @functools.lru_cache(maxsize=16)

@@ -12,8 +12,12 @@ are effective.
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import torch
+
+from .. import tables
 
 
 class ResourceGrid:
@@ -61,10 +65,13 @@ class ResourceGrid:
         pm = self.pilot_mask.reshape(-1)
         self.pilots = self.dmrs_grids.reshape(
             self.num_slots_per_frame, self.num_tx, -1)[..., pm]
+        # content key of the tables above, for `tables.on_device`
+        self._key = hashlib.sha1(self.data_ind.tobytes()
+                                 + self.dmrs_grids.tobytes()).hexdigest()
 
     def _data_index(self, device) -> torch.Tensor:
-        return torch.as_tensor(self.data_ind, dtype=torch.int64,
-                               device=device)
+        return tables.on_device(("data_ind", self._key), device,
+                                lambda: self.data_ind, torch.int64)
 
     def map_data(self, symbols: torch.Tensor) -> torch.Tensor:
         """Scatter data symbols into an empty grid:
@@ -92,4 +99,5 @@ class ResourceGrid:
 
     def dmrs_grid_slot(self, slot_idx: int, device=None) -> torch.Tensor:
         """DMRS grid of one slot: [num_tx, 14, sc] complex64."""
-        return torch.as_tensor(self.dmrs_grids[slot_idx], device=device)
+        return tables.on_device(("dmrs_grid", self._key, slot_idx), device,
+                                lambda: self.dmrs_grids[slot_idx])

@@ -15,6 +15,8 @@ import functools
 import numpy as np
 import torch
 
+from ... import tables
+
 # Generator polynomials, MSB-first coefficient lists excluding the leading 1.
 CRC_POLYS = {
     "CRC24A": (24, 0x864CFB),
@@ -50,8 +52,9 @@ def crc_generator_matrix(num_bits: int, crc_type: str) -> np.ndarray:
 
 
 def _parity(bits: torch.Tensor, crc_type: str) -> torch.Tensor:
-    g = torch.as_tensor(crc_generator_matrix(bits.shape[-1], crc_type),
-                        device=bits.device)
+    key = (bits.shape[-1], crc_type)
+    g = tables.on_device(("crc",) + key, bits.device,
+                         lambda: crc_generator_matrix(*key))
     return torch.remainder(torch.round(bits.float() @ g), 2.0)
 
 

@@ -26,6 +26,7 @@ import functools
 import numpy as np
 import torch
 
+from ... import tables
 from .ldpc_tables import BG_PARAMS, SPECIAL_ROWS, base_graph
 
 
@@ -161,14 +162,17 @@ def _phi(x):
     return torch.log((torch.exp(x) + 1.0) / (torch.exp(x) - 1.0))
 
 
-@functools.lru_cache(maxsize=16)
 def _decoder_tables(code: LDPCCode, device: torch.device) -> dict:
-    t = {name: torch.as_tensor(getattr(code, name), device=device)
-         for name in ("row_onehot", "col_onehot", "row_edge_mask")}
-    for name in ("to_check_idx", "to_var_idx", "edge_row", "edge_col",
-                 "row_edges", "row_edge_inv"):
-        t[name] = torch.as_tensor(getattr(code, name), dtype=torch.int64,
-                                  device=device)
+    t = {}
+    for names, dtype in ((("row_onehot", "col_onehot", "row_edge_mask"),
+                          None),
+                         (("to_check_idx", "to_var_idx", "edge_row",
+                           "edge_col", "row_edges", "row_edge_inv"),
+                          torch.int64)):
+        for name in names:
+            t[name] = tables.on_device(
+                ("ldpc", code.bg, code.z, name), device,
+                lambda name=name: getattr(code, name), dtype)
     return t
 
 

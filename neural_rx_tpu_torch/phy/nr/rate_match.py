@@ -16,6 +16,7 @@ import functools
 import numpy as np
 import torch
 
+from ... import tables
 from .ldpc import LDPCCode
 from .ldpc_tables import BG_PARAMS
 
@@ -62,9 +63,11 @@ def rate_match_indices(bg: int, z: int, k: int, k_prime: int, e: int,
 
 def _indices(code: LDPCCode, k_prime: int, e: int, qm: int, rv: int,
              device) -> list[torch.Tensor]:
-    return [torch.as_tensor(a, dtype=torch.int64, device=device)
-            for a in rate_match_indices(code.bg, code.z, code.k, k_prime, e,
-                                        qm, rv)]
+    key = (code.bg, code.z, code.k, k_prime, e, qm, rv)
+    return [tables.on_device(("rate_match", i) + key, device,
+                             lambda i=i: rate_match_indices(*key)[i],
+                             torch.int64)
+            for i in range(3)]
 
 
 def rate_match(code: LDPCCode, codeword: torch.Tensor, k_prime: int, e: int,

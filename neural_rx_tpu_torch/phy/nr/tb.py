@@ -20,6 +20,7 @@ import math
 import numpy as np
 import torch
 
+from ... import tables
 from . import crc as crc_mod
 from .ldpc import decode as ldpc_decode
 from .ldpc import encode as ldpc_encode
@@ -90,7 +91,9 @@ class TBConfig:
 
 
 def _scrambling(cfg: TBConfig, device) -> torch.Tensor:
-    return torch.as_tensor(cfg.scramb_seq, device=device)
+    return tables.on_device(("scrambling", cfg.n_rnti, cfg.n_id,
+                             cfg.num_coded_bits), device,
+                            lambda: cfg.scramb_seq)
 
 
 def tb_codewords(cfg: TBConfig, bits: torch.Tensor) -> torch.Tensor:

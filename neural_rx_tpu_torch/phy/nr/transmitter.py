@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ... import tables
 from ..constellation import Constellation
 from ..grid import ResourceGrid
 from ..mapping import map_bits
@@ -46,8 +47,9 @@ class PUSCHTransmitter:
         dev = bits.device
         if slot_idx is None:
             slot_idx = self.configs[0].carrier.slot_number
-        points = Constellation.points(
-            torch.as_tensor(self.constellation._init_points, device=dev))
+        points = Constellation.points(tables.on_device(
+            ("constellation", self.num_bits_per_symbol), dev,
+            lambda: self.constellation._init_points))
 
         # Per-UE TB encode (different scrambling per UE) -> data symbols
         grids = []
@@ -61,5 +63,6 @@ class PUSCHTransmitter:
         x = x + rg.dmrs_grid_slot(slot_idx, dev)[None]
 
         # Codebook precoding: port p carries w[tx, p] * layer signal
-        w = torch.as_tensor(self.w[..., 0], device=dev)  # [num_tx, ports]
+        w = tables.on_device(("precoders", self.w.tobytes()), dev,
+                             lambda: self.w[..., 0])  # [num_tx, ports]
         return x[:, :, None] * w[None, :, :, None, None]

@@ -5,7 +5,9 @@ Counterpart of `neural_rx_tpu/rx/neural_rx.py:NeuralPUSCHReceiver`
 plus `serve`, which returns what the JAX package's
 `__graft_entry__.entry()` function returns: the final-iteration LLR grid
 and the refined channel estimate, by the same batch-adaptive route. `apply`
-takes that route too and decodes each user's transport block.
+takes that route too and decodes each user's transport block;
+`preprocess_channel_ground_truth` puts a true channel into the layout of
+the channel estimates.
 """
 
 from __future__ import annotations
@@ -13,8 +15,10 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
+from .. import tables
 from ..kernels.ldpc import tb_decode_fast
 from ..phy.chest import LSChannelEstimator
 from ..phy.nr.tb import tb_decode
@@ -28,6 +32,25 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run on the CPU")
     return device
+
+
+def receiver_for(p, nrx_dtype=None, fused_full: bool = False,
+                 kernels: bool = True, device="cuda"
+                 ) -> "NeuralPUSCHReceiver":
+    """The neural receiver of a `sim.config.Parameters` (its resource grid,
+    MCS list and [neural_receiver] widths), in `nrx_dtype` (default: the
+    configuration's)."""
+    return NeuralPUSCHReceiver(
+        p.resource_grid, [c[0].num_bits_per_symbol for c in p.pusch_configs],
+        num_rx_ant=p.num_rx_antennas,
+        max_num_tx=p.max_num_tx, num_it=p.num_nrx_iter, d_s=p.d_s,
+        num_units_init=p.num_units_init, num_units_agg=p.num_units_agg,
+        num_units_state=p.num_units_state,
+        num_units_readout=p.num_units_readout,
+        layer_type_conv=p.layer_type_conv,
+        var_mcs_masking=p.mcs_var_mcs_masking,
+        nrx_dtype=p.nrx_dtype if nrx_dtype is None else nrx_dtype,
+        fused_full=fused_full, kernels=kernels, device=device)
 
 
 class NeuralPUSCHReceiver:
@@ -77,6 +100,20 @@ class NeuralPUSCHReceiver:
                                        self.rg.pilot_mask)[:max_num_tx]
         self.pe = torch.as_tensor(pe, device=self.device)
         self._ls = LSChannelEstimator(self.rg)
+        # precoders [T, ports] of the users
+        self.w = np.stack([c.precoding_matrix()[:, 0]
+                           for c in self.rg.configs])[:max_num_tx]
+
+    def preprocess_channel_ground_truth(self, h: torch.Tensor
+                                        ) -> torch.Tensor:
+        """h [b, rx_ant, T, ports, sym, sc] complex -> the effective
+        (precoded) channel of each user [b, T, sym, sc, 2*rx_ant] float32,
+        channel order [re a0.., im a0..] as the channel estimates."""
+        w = tables.on_device(("precoders", self.w.tobytes()), h.device,
+                             lambda: self.w)
+        h_eff = torch.einsum("batpsc,tp->batsc", h, w)
+        return torch.cat([h_eff.real.movedim(1, -1),
+                          h_eff.imag.movedim(1, -1)], dim=-1)
 
     def _prepare_inputs(self, y_planar: torch.Tensor, slot_idx=None):
         """y_planar [b, rx_ant, sym, sc, 2] float32 (re/im planes) ->

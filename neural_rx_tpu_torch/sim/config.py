@@ -2,9 +2,13 @@
 
 The port's counterpart of `neural_rx_tpu/sim/config.py:Parameters`, cut to
 what the serving and eval paths read: the config fields, the per-(MCS, UE)
-`PUSCHConfig`s, the shared resource grid, one `PUSCHTransmitter` per MCS
-and the noise-variance rule of the JAX package's `sim/e2e.py`. Channel
-models and CFO wait for the next eval slice.
+`PUSCHConfig`s, the shared resource grid, one `PUSCHTransmitter` per MCS,
+the noise-variance rule of the JAX package's `sim/e2e.py`, and the channel
+model: TDL-B100, TDL-C300, DoubleTDL{low,medium,high} and AWGN. UMi, UMa
+(training) and Dataset channels are recorded by name with
+`channel_model = None`; `sim.e2e.E2EModel` refuses them, as it refuses a
+carrier frequency offset (`frequency_offset`, None when
+`cfo_offset_ppm` is 0, else the offset relative to the bandwidth).
 
 Values are parsed with `ast.literal_eval`. `X_eval` keys override `X` when
 training=False, so `nrx_rt` serves 132 PRB (1584 subcarriers) in eval mode
@@ -19,6 +23,8 @@ import os
 
 import torch
 
+from ..channel.double_tdl import DoubleTDLChannel
+from ..channel.tdl import TDLChannel
 from ..phy.nr.dmrs import DMRSConfig
 from ..phy.misc import ebnodb2no
 from ..phy.nr.pusch import CarrierConfig, PUSCHConfig
@@ -119,6 +125,40 @@ class Parameters:
         self.transmitters = [PUSCHTransmitter(per_ue)
                              for per_ue in self.pusch_configs]
         self.resource_grid = self.transmitters[0].resource_grid
+        self._channel(carrier)
+
+    def _channel(self, carrier):
+        """channel_model, channel_num_tx, channel_type_name and
+        frequency_offset (JAX `Parameters.__init__`'s channel section)."""
+        ct = self.channel_type
+        ports = self.pusch_configs[0][0].num_antenna_ports
+        self.channel_model = None
+        self.channel_num_tx = None
+        if ct in ("TDL-B100", "TDL-C300"):
+            model, spread = ("B", 100e-9) if ct == "TDL-B100" else ("C",
+                                                                    300e-9)
+            self.channel_model = TDLChannel(
+                model, spread, carrier.carrier_frequency,
+                min_speed=self.min_ut_velocity,
+                max_speed=self.max_ut_velocity,
+                num_rx_ant=self.num_rx_antennas, num_tx_ant=ports,
+                normalize=self.channel_norm)
+            self.channel_num_tx = 1
+        elif ct.startswith("DoubleTDL"):
+            self.channel_model = DoubleTDLChannel(
+                carrier.carrier_frequency, num_rx_ant=self.num_rx_antennas,
+                num_tx_ant=ports, norm_channel=self.channel_norm,
+                correlation=ct[len("DoubleTDL"):])
+            self.channel_num_tx = 2
+        elif ct not in ("UMi", "UMa", "AWGN", "Dataset"):
+            raise ValueError(f"Unknown channel type {ct}")
+        self.channel_type_name = ct
+        self.frequency_offset = None
+        if self.cfo_offset_ppm > 0:
+            offset = carrier.carrier_frequency / 1e6 * self.cfo_offset_ppm
+            self.frequency_offset = offset / (
+                self.resource_grid.num_subcarriers
+                * carrier.subcarrier_spacing)
 
     def noise_variance(self, ebno_db: float, mcs_idx: int = 0) -> float:
         """N0 for an Eb/N0 (or, with ebno=False, an SNR) in dB, for the

@@ -18,7 +18,14 @@ from .rx.neural_rx import resolve_device
 
 WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "weights")
-NRX_RT_EMA = os.path.join(WEIGHTS_DIR, "nrx_rt_ema_weights.npz")
+
+
+def ema_weights(label: str) -> str:
+    """Path of the committed EMA weights of configuration `label`."""
+    return os.path.join(WEIGHTS_DIR, f"{label}_ema_weights.npz")
+
+
+NRX_RT_EMA = ema_weights("nrx_rt")
 
 
 def flatten(tree, prefix: str = "") -> dict:

@@ -4,13 +4,17 @@ Runs `neural_rx_tpu_torch.entry.entry()` (132 PRB, bf16, committed
 weights; the batch-adaptive route, or with --mega the whole-CGNN kernel),
 or with --eval the eval path `entry.eval_entry()` (132 PRB, float32, its
 example slot at 10 dB; the layered LDPC kernel, or with --flooding the
-flooding decoder), under `torch.profiler` for a few calls after a warm-up
-and prints one JSON line: device time per kernel name (summed over the
-window, per call), the device-busy share of the window, and the host time
-per call. With --trace, the Chrome trace is written to that path.
+flooding decoder), or with --mc one Monte-Carlo step `entry.mc_entry()`
+(132 PRB, float32, DoubleTDLlow, 3 dB; --flooding as for --eval), under
+`torch.profiler` for a few calls after a warm-up and prints one JSON line:
+device time per kernel name (summed over the window, per call), the
+device-busy share of the window, the host time per call and the memory
+copies per call by kind (pageable host-to-device among them). With
+--trace, the Chrome trace is written to that path.
 
     python3 scripts/torch_port_profile_slot.py [--batch 1] [--slots 10] \
-        [--mega | --eval [--flooding]] [--trace slot_trace.json]
+        [--mega | --eval [--flooding] | --mc [--flooding]] \
+        [--trace slot_trace.json]
 """
 
 import argparse
@@ -29,6 +33,7 @@ def main() -> int:
     ap.add_argument("--slots", type=int, default=10)
     ap.add_argument("--mega", action="store_true")
     ap.add_argument("--eval", action="store_true")
+    ap.add_argument("--mc", action="store_true")
     ap.add_argument("--flooding", action="store_true")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
@@ -38,17 +43,21 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from torch.profiler import ProfilerActivity, profile
-    from neural_rx_tpu_torch.entry import entry, eval_entry
+    from neural_rx_tpu_torch import entry as entries
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    if args.eval:
-        fn, fn_args = eval_entry(device="cuda", batch=args.batch,
-                                 fast_ldpc=not args.flooding)
+    if args.mc:
+        fn, fn_args = entries.mc_entry(device="cuda", batch=args.batch,
+                                       fast_ldpc=not args.flooding)
+    elif args.eval:
+        fn, fn_args = entries.eval_entry(device="cuda", batch=args.batch,
+                                         fast_ldpc=not args.flooding)
     else:
-        fn, fn_args = entry(device="cuda", batch=args.batch, mega=args.mega)
+        fn, fn_args = entries.entry(device="cuda", batch=args.batch,
+                                    mega=args.mega)
     for _ in range(5):
         fn(*fn_args)
     torch.cuda.synchronize()
@@ -66,17 +75,20 @@ def main() -> int:
             kernels[ev.name][0] += ev.time_range.elapsed_us() / 1e3
             kernels[ev.name][1] += 1
     busy_ms = sum(v[0] for v in kernels.values())
+    copies = {k: v[1] / args.slots for k, v in kernels.items()
+              if "Memcpy" in k}
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     if args.trace:
         prof.export_chrome_trace(args.trace)
     print(json.dumps({
         "card": card, "batch": args.batch, "mega": args.mega,
-        "eval": args.eval, "flooding": args.flooding,
+        "eval": args.eval, "mc": args.mc, "flooding": args.flooding,
         "slots": args.slots,
         "window_ms_per_slot": window_ms / args.slots,
         "device_busy_ms_per_slot": busy_ms / args.slots,
         "device_busy_share": busy_ms / window_ms,
         "kernels_per_slot": sum(v[1] for v in kernels.values()) / args.slots,
+        "copies_per_slot": copies,
         "top": [{"name": k[:90], "ms_per_slot": v[0] / args.slots,
                  "calls_per_slot": v[1] / args.slots} for k, v in top[:25]],
     }), flush=True)

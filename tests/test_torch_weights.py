@@ -1,6 +1,6 @@
-"""Weights bridge: the committed `weights/nrx_rt_ema_weights.npz` read by
-the PyTorch port equals the JAX package's pickled tree leaf for leaf, and
-`from_jax_numpy` round-trips a JAX parameter tree exactly."""
+"""Weights bridge: the committed `weights/nrx_rt{,_qpsk,_64qam}_ema_weights.npz`
+read by the PyTorch port equal the JAX package's pickled trees leaf for
+leaf, and `from_jax_numpy` round-trips a JAX parameter tree exactly."""
 
 import jax
 import numpy as np
@@ -40,6 +40,20 @@ def test_every_leaf_equals_jax(port_tree):
     for k, v in want.items():
         assert got[k].dtype == np.float32 and got[k].shape == v.shape, k
         np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+@pytest.mark.parametrize("label,bits", [("nrx_rt_qpsk", 2),
+                                        ("nrx_rt_64qam", 6)])
+def test_other_mcs_weights_equal_jax(label, bits):
+    tree = weights.load(weights.ema_weights(label), device="cpu")
+    want = _jax_leaves(load_weights(f"weights/{label}_ema_weights.pkl")[
+        "cgnn"])
+    got = {k: v.numpy() for k, v in weights.flatten(tree).items()}
+    assert len(got) == 43 and set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].dtype == np.float32 and got[k].shape == v.shape, k
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    assert tuple(tree["readout_llrs"][0]["out"]["w"].shape) == (128, bits)
 
 
 def test_depthwise_layout_kept(port_tree):
