@@ -55,12 +55,26 @@ Phases, each printing one JSON line with its seconds:
      ms of a step split into draws + transmitter + channel, receiver and
      decode, the sweep's slots/s by wall clock and by device time, and
      the host-device copies of a step (profiler);
-  8. times: CUDA-event device time per kernel launch (kernel and plain) at
+  8. baseline_path: the classical baselines (`BaselineE2EModel`) at 132
+     PRB, batch 30, with the layered kernel: the six systems on nrx_rt (2
+     users, DoubleTDLlow) and the two K-Best systems on e2e_baseline (1
+     user, TDL-B100), their covariances computed on the card into a
+     temporary directory (seconds recorded); one step of each, counts set
+     to 0 before and read after (2 LDPC launches at 2 users, 1 at 1 user,
+     nothing else), against the plain route from the same seed (counters,
+     b_hat, crc equal; the CRC passes exactly where b_hat is right); short
+     `sim_ber` points (BASE_SWEEP) inside the band of their JAX curve
+     (BASE_CURVES, BASE_CURVE_FILES) 1 dB to either side, and the neural receiver's 4 dB
+     point of `mc_path` below LS/lin + LMMSE's; per system the device ms
+     of a step split into draws + transmitter + channel, estimation,
+     detection and decode, and slots/s by wall clock and by device time;
+  9. times: CUDA-event device time per kernel launch (kernel and plain) at
      the shapes the main path gives it, with its bound, achieved TFLOP/s
      and share of the bound (the sepconv stack at N = 2 and on the batch-16
      route's init stack at N = 32, the whole-CGNN kernel at batch 1 and
-     16), per call and slot on each route, and the eval path's call split
-     into receiver and decode for each decoder.
+     16, the LDPC kernel at the baseline path's 1-user launch), per call
+     and slot on each route, and the eval path's call split into receiver
+     and decode for each decoder.
 Every kernel_check record carries the share of output elements that differ
 from the plain version and, in bfloat16, the largest difference in ulps.
 Then the `kernels` line, and last `{"ok": true, "device": {...}}`. Any
@@ -72,6 +86,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -106,6 +121,50 @@ JAX_CURVE_DB = tuple(float(e) for e in range(-2, 8))
 JAX_CURVE = (1.0, 0.9916666666666667, 0.8916666666666667, 0.6833333333333333,
              0.37962962962962965, 0.14444444444444443, 0.04065040650406504,
              0.007541666666666667, 0.00125, 8.333333333333333e-05)
+BASE_BATCH = 30  # batch_size_eval of nrx_rt and e2e_baseline
+BASE_SEED = 0
+BASE_SYSTEMS = ("baseline_lslin_lmmse", "baseline_lsnn_lmmse",
+                "baseline_lmmse_lmmse", "baseline_lmmse_kbest",
+                "baseline_perf_csi_lmmse", "baseline_perf_csi_kbest")
+# (configuration, users (None: all), Eb/N0 of the kernel-vs-plain step,
+# systems): nrx_rt with 2 users on DoubleTDLlow, e2e_baseline with 1 user on
+# TDL-B100
+BASE_CASES = (("nrx_rt", None, 4.0, BASE_SYSTEMS),
+              ("e2e_baseline", 1, 2.0, ("baseline_lmmse_kbest",
+                                        "baseline_perf_csi_kbest")))
+# The JAX package's baseline BLER curves (132 PRB, flooding decoder, first
+# Eb/N0 and one point a dB), up to the last nonzero point. Committed:
+# results/nrx_rt_results.pkl keys ('Baseline - LS/lin+LMMSE', 2, 0) and
+# ('Baseline - LS/nn+LMMSE', 2, 0), results/e2e_baseline_results.pkl key
+# ('Baseline - Perf. CSI & K-Best', 1, 0). results/ is not in the card's
+# copy, hence the constants.
+BASE_CURVES = {
+    ("nrx_rt", "baseline_lslin_lmmse"): (-2.0, (
+        1.0, 1.0, 0.9916666666666667, 0.9166666666666666,
+        0.7333333333333333, 0.3287878787878788, 0.11333333333333333,
+        0.01565891472868217, 0.00038333333333333334)),
+    ("nrx_rt", "baseline_lsnn_lmmse"): (-2.0, (
+        1.0, 1.0, 0.9875, 0.9125, 0.7233333333333334, 0.33636363636363636,
+        0.1388888888888889, 0.022945205479452054)),
+    ("e2e_baseline", "baseline_perf_csi_kbest"): (-1.0, (
+        0.5234375, 0.13333333333333333, 0.01, 0.0008333333333333334))}
+# The committed LMMSE+K-Best curve (results/e2e_baseline_results.pkl, key
+# ('Baseline - LMMSE+K-Best', 1, 0); BASE_COMMITTED) lies 1.5-1.8 dB left
+# of what the JAX package's BaselineE2EModel computes. That system is held
+# to the curve of the JAX code instead, measured on the CPU with the
+# committed covariances by scripts/torch_port_jax_baseline_curve.py (its
+# docstring has the command) and committed as this file of the port; the
+# committed curve is shown beside the points.
+BASE_CURVE_FILES = {("e2e_baseline", "baseline_lmmse_kbest"): os.path.join(
+    "neural_rx_tpu_torch", "curves",
+    "jax_e2e_baseline_baseline_lmmse_kbest.json")}
+BASE_COMMITTED = {("e2e_baseline", "baseline_lmmse_kbest"): (-1.0, (
+    0.7481481481481481, 0.29777777777777775, 0.05416666666666667, 0.0025))}
+# the short sim_ber points of each curve, on its waterfall
+BASE_SWEEP = {("nrx_rt", "baseline_lslin_lmmse"): (3.0, 4.0),
+              ("nrx_rt", "baseline_lsnn_lmmse"): (3.0, 4.0),
+              ("e2e_baseline", "baseline_lmmse_kbest"): (1.0, 2.0, 3.0),
+              ("e2e_baseline", "baseline_perf_csi_kbest"): (0.0,)}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_SYM, N_SC, N_TX = 14, 1584, 2
 
@@ -294,16 +353,52 @@ def compare(got, ref, dtype, tol):
             "max_ulps": ulps, "tol": tol, "ok": ok and max(errs) <= tol}
 
 
-def jax_bler(ebno_db: float) -> float:
-    """The committed JAX curve at ebno_db, interpolated in log10 BLER."""
-    return float(10.0 ** np.interp(ebno_db, JAX_CURVE_DB,
-                                   np.log10(JAX_CURVE)))
+def curve_of(first_db, blers):
+    """(Eb/N0s, BLERs) of a curve that starts at first_db, a point a dB."""
+    return (tuple(first_db + i for i in range(len(blers))), blers)
 
 
-def jax_ebno(bler: float) -> float:
-    """The Eb/N0 at which the committed JAX curve reaches `bler`."""
-    return float(np.interp(-np.log10(bler), -np.log10(JAX_CURVE),
-                           JAX_CURVE_DB))
+def base_curve(label: str, system: str):
+    """(Eb/N0s, BLERs) of a baseline's JAX curve, up to its last nonzero
+    point: the constants of BASE_CURVES or the committed file of
+    BASE_CURVE_FILES."""
+    path = BASE_CURVE_FILES.get((label, system))
+    if path is None:
+        return curve_of(*BASE_CURVES[(label, system)])
+    with open(os.path.join(ROOT, path)) as f:
+        pts = json.load(f)["curve"]
+    while pts and pts[-1]["block_errors"] == 0:
+        pts = pts[:-1]
+    return (tuple(float(pt["ebno_db"]) for pt in pts),
+            tuple(float(pt["bler"]) for pt in pts))
+
+
+def jax_bler(ebno_db: float, curve=(JAX_CURVE_DB, JAX_CURVE)) -> float:
+    """A committed JAX curve (default: the neural receiver's) at ebno_db,
+    interpolated in log10 BLER."""
+    dbs, blers = curve
+    return float(10.0 ** np.interp(ebno_db, dbs, np.log10(blers)))
+
+
+def jax_ebno(bler: float, curve=(JAX_CURVE_DB, JAX_CURVE)) -> float:
+    """The Eb/N0 at which a committed JAX curve reaches `bler`."""
+    dbs, blers = curve
+    return float(np.interp(-np.log10(bler), -np.log10(blers), dbs))
+
+
+def curve_point(e, ber, bler, errs, blocks, curve):
+    """A sim_ber point with its Wilson interval beside a committed JAX
+    curve and that curve's band, 1 dB to either side."""
+    from neural_rx_tpu_torch.sim.simber import bler_confidence_interval
+    return {"ebno_db": e, "ber": float(ber), "bler": float(bler),
+            "block_errors": int(errs), "blocks": int(blocks),
+            "wilson95": bler_confidence_interval(int(errs), int(blocks)),
+            "jax_bler": jax_bler(e, curve),
+            # past the curve's last nonzero point the JAX run saw no error
+            "band": (jax_bler(e + 1.0, curve) if e + 1.0 <= curve[0][-1]
+                     else 0.0, jax_bler(e - 1.0, curve)),
+            "db_behind_jax": (e - jax_ebno(float(bler), curve)
+                              if bler > 0 else None)}
 
 
 def block_counts(b, b_hat):
@@ -317,6 +412,155 @@ def rates(rec):
     bound (bound_ms / kernel_ms, in %)."""
     return {**rec, "tflops": rec["flops"] / rec["kernel_ms"] / 1e9,
             "pct_of_bound": 100.0 * rec["bound_ms"] / rec["kernel_ms"]}
+
+
+def baseline_path(dev, card, counts, reset, nrx_points):
+    """Phase 8: the classical baselines (`BaselineE2EModel`) with K5 on the
+    configurations of BASE_CASES in eval mode (132 PRB), BASE_BATCH slots a
+    step. Emits the phase's record, asserts it, and returns the K5
+    launches of one step per system.
+    nrx_points: the mc path's sweep points with K5 (the neural receiver at
+    4 dB is held to beat LS/lin + LMMSE)."""
+    import torch
+    from neural_rx_tpu_torch.channel.apply import apply_ofdm_channel
+    from neural_rx_tpu_torch.sim.baseline_e2e import (
+        BaselineE2EModel, load_or_compute_covariances)
+    from neural_rx_tpu_torch.sim.config import Parameters
+    from neural_rx_tpu_torch.sim.simber import make_eval_step, sim_ber
+
+    t0 = time.perf_counter()
+    base_launches, base_plain, base_models, cov_seconds = {}, {}, {}, {}
+    expected_base = {}
+    with tempfile.TemporaryDirectory() as cov_dir:
+        for label, users, ebno, systems in BASE_CASES:
+            p_b = Parameters(label, training=False, num_tx_eval=users)
+            if any("_lmmse_" in s_ for s_ in systems):
+                # the LMMSE estimate's covariances, on the card
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                load_or_compute_covariances(p_b, cov_dir, dev)
+                torch.cuda.synchronize()
+                cov_seconds[label] = time.perf_counter() - t1
+            for system in systems:
+                key = f"{label}_{system}"
+                models = [BaselineE2EModel(p_b, system, cov_dir=cov_dir,
+                                           kernels=k, device=dev)
+                          for k in (True, False)]
+                base_models[(label, system)] = models[0]
+                outs = []
+                for m in models:
+                    gen_b = torch.Generator(device=dev).manual_seed(BASE_SEED)
+                    reset()
+                    outs.append(m({}, gen_b, BASE_BATCH, ebno,
+                                  fast_ldpc=True))
+                    torch.cuda.synchronize()
+                    if m.kernels:
+                        base_launches[key] = counts()
+                reset()
+                (b, b_hat, crc), ref = outs
+                expected_base[key] = {"sepconv_stack": 0, "cgnn_iter": 0,
+                                      "cgnn_full": 0,
+                                      "ldpc_decode": p_b.max_num_tx}
+                base_plain[key] = {
+                    "ebno_db": ebno, "users": p_b.max_num_tx,
+                    "counters": block_counts(b, b_hat),
+                    "counters_plain": block_counts(ref[0], ref[1]),
+                    "b_hat_shape": list(b_hat.shape),
+                    "crc_truthful": bool(torch.equal(
+                        (b_hat == b).all(dim=-1), crc)),
+                    "equals_plain_route": all(
+                        torch.equal(x, y) for x, y in zip(outs[0], ref))}
+                del models, outs, ref
+
+        base_sweep = {}
+        for (label, system), dbs in BASE_SWEEP.items():
+            model = base_models[(label, system)]
+            curve = base_curve(label, system)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            bers, blers, n_err, n_blk = sim_ber(
+                model, {}, dbs, BASE_BATCH, max_mc_iter=MC_MAX_ITER,
+                num_target_block_errors=MC_TARGET_BLOCK_ERRORS,
+                seed=BASE_SEED, verbose=False, fast_ldpc=True,
+                return_counts=True)
+            wall = time.perf_counter() - t1
+            steps = int(n_blk.sum()) // (BASE_BATCH * model.p.max_num_tx)
+            points = [curve_point(*pt, curve) for pt in zip(
+                dbs, bers, blers, n_err, n_blk)]
+            if (label, system) in BASE_COMMITTED:
+                committed = curve_of(*BASE_COMMITTED[(label, system)])
+                for pt in points:
+                    pt["committed_jax_bler"] = jax_bler(pt["ebno_db"],
+                                                        committed)
+            base_sweep[f"{label}_{system}"] = {
+                "points": points, "steps": steps, "wall_s": wall,
+                "slots_per_s_wall": steps * BASE_BATCH / wall}
+
+        # device ms of a step: draws + transmitter + channel, estimation,
+        # detection, decode (K5); host ms of whole steps
+        base_times = {}
+        for (label, system), model in base_models.items():
+            ebno = {c[0]: c[2] for c in BASE_CASES}[label]
+            no = model.p.noise_variance(ebno)
+            gen_t = torch.Generator(device=dev).manual_seed(BASE_SEED + 1)
+
+            def front(model=model, gen_t=gen_t, ebno=ebno):
+                b_, h_, n_ = model.draw(gen_t, BASE_BATCH, ebno)
+                return apply_ofdm_channel(model.transmitter(b_), h_, None,
+                                          noise=n_), h_
+            y_b, h_b = front()
+            h_hat = model.estimate(y_b, h_b, no)
+            llr_b = model.detect(y_b, h_hat, no)
+            rec = {"batch": BASE_BATCH, "users": model.p.max_num_tx,
+                   "ebno_db": ebno,
+                   "front_ms": cuda_ms(front, 3, warmup=1),
+                   "estimate_ms": cuda_ms(
+                       lambda: model.estimate(y_b, h_b, no), 3, warmup=1),
+                   "detect_ms": cuda_ms(
+                       lambda: model.detect(y_b, h_hat, no), 3, warmup=1),
+                   "decode_ms": cuda_ms(
+                       lambda: model.decode(llr_b, True), 3, warmup=1)}
+            rec["device_step_ms"] = sum(rec[k] for k in (
+                "front_ms", "estimate_ms", "detect_ms", "decode_ms"))
+            rec["slots_per_s_device"] = BASE_BATCH / rec[
+                "device_step_ms"] * 1e3
+            step = make_eval_step(model, fast_ldpc=True)
+            host_ms = []
+            for _ in range(3):
+                t1 = time.perf_counter()
+                step({}, gen_t, BASE_BATCH, ebno)
+                host_ms.append((time.perf_counter() - t1) * 1e3)
+            rec["step_host_ms_median"] = float(np.median(host_ms))
+            rec["slots_per_s_wall"] = BASE_BATCH / rec[
+                "step_host_ms_median"] * 1e3
+            sw = base_sweep.get(f"{label}_{system}")
+            if sw is not None:
+                rec["sweep_slots_per_s_wall"] = sw["slots_per_s_wall"]
+            base_times[f"{label}_{system}"] = rec
+            del y_b, h_b, h_hat, llr_b
+        del base_models
+    nrx_4db = next(pt for pt in nrx_points if pt["ebno_db"] == 4.0)
+    lslin_4db = next(pt for pt in base_sweep[
+        "nrx_rt_baseline_lslin_lmmse"]["points"] if pt["ebno_db"] == 4.0)
+    ordering = {"nrx_bler_4db": nrx_4db["bler"],
+                "lslin_bler_4db": lslin_4db["bler"],
+                "wilson_disjoint": bool(nrx_4db["wilson95"][1]
+                                        < lslin_4db["wilson95"][0])}
+    emit({"phase": "baseline_path", "batch": BASE_BATCH,
+          "covariance_seconds": cov_seconds, "launches": base_launches,
+          "expected": expected_base, "kernel_vs_plain": base_plain,
+          "sweep": base_sweep, "nrx_vs_lslin": ordering,
+          "times": base_times, "card": card,
+          "seconds": time.perf_counter() - t0})
+    for key, rec in base_plain.items():
+        assert base_launches[key] == expected_base[key], (key, base_launches)
+        assert rec["equals_plain_route"] and rec["crc_truthful"], (key, rec)
+    for key, sw in base_sweep.items():
+        for pt in sw["points"]:
+            lo, hi = pt["band"]
+            assert lo <= pt["bler"] <= hi, (key, pt)
+    assert ordering["nrx_bler_4db"] < ordering["lslin_bler_4db"], ordering
+    return base_launches
 
 
 def main() -> int:
@@ -339,8 +583,7 @@ def main() -> int:
     from neural_rx_tpu_torch.rx.cgnn import count_params
     from neural_rx_tpu_torch.sim.config import Parameters
     from neural_rx_tpu_torch.sim.e2e import E2EModel
-    from neural_rx_tpu_torch.sim.simber import (bler_confidence_interval,
-                                                sim_ber)
+    from neural_rx_tpu_torch.sim.simber import sim_ber
 
     # the plain version is the oracle: full float32 products, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -731,17 +974,8 @@ def main() -> int:
             num_target_block_errors=MC_TARGET_BLOCK_ERRORS, seed=MC_SEED,
             verbose=False, fast_ldpc=fast, return_counts=True)
         wall = time.perf_counter() - t1
-        points = []
-        for e, ber, bler, errs, blocks in zip(dbs, bers, blers, n_err,
-                                              n_blk):
-            points.append({
-                "ebno_db": e, "ber": float(ber), "bler": float(bler),
-                "block_errors": int(errs), "blocks": int(blocks),
-                "wilson95": bler_confidence_interval(int(errs), int(blocks)),
-                "jax_bler": jax_bler(e),
-                "band": (jax_bler(e + 1.0), jax_bler(e - 1.0)),
-                "db_behind_jax": (e - jax_ebno(float(bler))
-                                  if bler > 0 else None)})
+        points = [curve_point(*pt, (JAX_CURVE_DB, JAX_CURVE))
+                  for pt in zip(dbs, bers, blers, n_err, n_blk)]
         steps = int(n_blk.sum()) // (MC_BATCH * N_TX)
         sweep[decoder] = {"points": points, "steps": steps, "wall_s": wall,
                        "slots_per_s_wall": steps * MC_BATCH / wall}
@@ -816,7 +1050,11 @@ def main() -> int:
             lo, hi = pt["band"]
             assert lo <= pt["bler"] <= hi, (decoder, pt)
 
-    # 8. times (bf16, as served), at the shapes the main path gives each
+    # 8. the classical baselines at 132 PRB, batch 30, with K5
+    launches.update(baseline_path(dev, card, counts, reset,
+                                  sweep["fast"]["points"]))
+
+    # 9. times (bf16, as served), at the shapes the main path gives each
     # kernel: stacks at N = 2 (batch 1), the iteration at batch 16, the
     # whole CGNN at batch 1
     t0 = time.perf_counter()
@@ -945,6 +1183,18 @@ def main() -> int:
             code132, llr150, LDPC_ITER), 2, warmup=1),
         **bound(*ldpc_work(code132, llr150.shape[0]), peaks,
                 rate="f32_flops")})
+    # K5 at the 1-user baseline path's launch: e2e_baseline's 30 TBs x 6
+    # code blocks of BG1, Z = 352 (20 iterations, no early stop, so random
+    # LLRs take the time of real ones)
+    code352, (_, llr180) = ldpc.get_code(1, 352), code_case(1, 352, 180, 0.0)
+    base_ldpc_1ue = rates({
+        "codewords": int(llr180.shape[0]),
+        "kernel_ms": cuda_ms(
+            lambda: k5.layered_decode(code352, llr180, LDPC_ITER), 10),
+        "plain_ms": cuda_ms(lambda: k5.layered_decode_reference(
+            code352, llr180, LDPC_ITER), 2, warmup=1),
+        **bound(*ldpc_work(code352, llr180.shape[0]), peaks,
+                rate="f32_flops")})
     # the eval path per decoder, split into receiver and decode
     rx_e = make_receiver(nrx_dtype=p_eval.nrx_dtype, device=dev)
     y_planar = torch.stack([y_eval.real, y_eval.imag], dim=-1)
@@ -972,6 +1222,7 @@ def main() -> int:
           "cgnn_full_b16": full16, "paths": paths,
           "ldpc_decode": ldpc_time, "eval_path": eval_times,
           "mc_path_kernels": mc_kernels,
+          "baseline_path_ldpc_1ue": base_ldpc_1ue,
           "seconds": time.perf_counter() - t0})
 
     def max_abs(kernel):
@@ -1056,11 +1307,16 @@ def main() -> int:
          "bound_ms": ldpc_time["bound_ms"],
          "bound_by": ldpc_time["bound_by"], "library_ms": None,
          **mc_keys("ldpc_decode"),
+         "ms_base_1ue": base_ldpc_1ue["kernel_ms"],
+         "plain_ms_base_1ue": base_ldpc_1ue["plain_ms"],
+         "bound_ms_base_1ue": base_ldpc_1ue["bound_ms"],
          "note": "ms/plain_ms/bound_ms: one launch of 80 codewords (one "
                  "user of a batch-16 slot: 16 TBs x 5 code blocks), BG1, "
-                 "*_mc: 150 codewords (one user of a batch-30 Monte-Carlo "
-                 "step), "
-                 "Z=384, 20 iterations, float32; max_abs_err on hard bits "
+                 "Z=384; *_mc: 150 codewords (one user of a batch-30 "
+                 "Monte-Carlo step, also each user's launch on the 2-user "
+                 "baseline path); *_base_1ue: 180 codewords of BG1, Z=352 "
+                 "(the 1-user baseline path's launch, e2e_baseline); "
+                 "20 iterations, float32; max_abs_err on hard bits "
                  "(0 or 1); bound: 10 f32 operations per edge, lane and "
                  "iteration at the card's f32 rate, LLRs read and bits "
                  "written once; library: no PyTorch call decodes LDPC"}]})

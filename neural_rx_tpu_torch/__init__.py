@@ -18,4 +18,10 @@ LS estimate and CGNN, then a per-user transport-block decode
 (`phy/nr/tb.py`) by the flooding decoder (`phy/nr/ldpc.py`) or the
 hand-written CUDA layered min-sum decoder `csrc/ldpc_decode.cu`
 (`kernels/ldpc.py`).
+
+Monte-Carlo evaluation (`entry.mc_entry`, `sim/simber.py`): the eval path
+behind the configuration's channel model (`channel/`), drawn on the device;
+with a classical receiver in place of the neural one
+(`sim/baseline_e2e.py`, `rx/baselines.py`, `entry.baseline_entry`) for the
+baselines the BLER curves compare against, decoded by the same decoders.
 """

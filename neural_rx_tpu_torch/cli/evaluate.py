@@ -1,16 +1,26 @@
-"""BLER evaluation of the neural receiver (Monte Carlo).
+"""BLER evaluation of the neural receiver or a classical baseline (Monte
+Carlo).
 
     python -m neural_rx_tpu_torch.cli.evaluate --config nrx_rt \
-        [--snr 2 3 4] [--max-iter N] [--batch-size B] [--fast-ldpc] \
-        [--target-block-errors K] [--target-bler X] [--weights PATH] \
-        [--results-dir DIR] [--device cuda|cpu]
+        [--system nrx|baseline_lslin_lmmse|baseline_lsnn_lmmse|
+                  baseline_lmmse_lmmse|baseline_lmmse_kbest|
+                  baseline_perf_csi_lmmse|baseline_perf_csi_kbest] \
+        [--snr 2 3 4] [--max-iter N] [--batch-size B] [--num-tx-eval T] \
+        [--mcs-idx 0] [--fast-ldpc] [--target-block-errors K] \
+        [--target-bler X] [--weights PATH] [--results-dir DIR] \
+        [--device cuda|cpu]
 
 Sweeps Eb/N0 over the configuration's [evaluation] grid unless --snr is
-given, with `sim.simber.sim_ber` on `sim.e2e.E2EModel` over the
-configuration's eval channel, and merges (Eb/N0, BER, BLER) into
-DIR/{label}_results.pkl keyed ("Neural Receiver", num_tx, 0), the JAX
-package's format. Weights default to weights/{label}_ema_weights.npz; a
-missing file is an error. The device defaults to cuda, which needs a GPU.
+given, with `sim.simber.sim_ber` on `sim.e2e.E2EModel` (system nrx) or
+`sim.baseline_e2e.BaselineE2EModel` over the configuration's eval channel,
+and merges (Eb/N0, BER, BLER) into DIR/{label}_results.pkl keyed
+(name, num_tx, mcs_idx), the JAX package's format: name is "Neural
+Receiver" for nrx and the system name for a baseline. The neural
+receiver's weights default to weights/{label}_ema_weights.npz; a missing
+file is an error. A baseline with the LMMSE channel estimate reads the
+covariances weights/{label}_{freq,time,space}_cov_mat.npy, and computes
+and writes them there if they are missing. Only single-MCS evaluation is
+ported (--mcs-idx 0). The device defaults to cuda, which needs a GPU.
 """
 
 from __future__ import annotations
@@ -22,6 +32,8 @@ import numpy as np
 
 
 def main(argv=None):
+    from ..sim.baseline_e2e import SYSTEMS
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", required=True)
     ap.add_argument("--system", default="nrx")
@@ -29,6 +41,8 @@ def main(argv=None):
     ap.add_argument("--max-iter", type=int, default=100,
                     help="max Monte-Carlo steps per SNR point")
     ap.add_argument("--batch-size", type=int, default=None)
+    ap.add_argument("--num-tx-eval", type=int, default=None)
+    ap.add_argument("--mcs-idx", type=int, default=0)
     ap.add_argument("--target-block-errors", type=int, default=200)
     ap.add_argument("--target-bler", type=float, default=None)
     ap.add_argument("--fast-ldpc", action="store_true",
@@ -37,40 +51,49 @@ def main(argv=None):
     ap.add_argument("--results-dir", default="results")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
-    if args.system != "nrx":
+    if args.system != "nrx" and args.system not in SYSTEMS:
+        raise ValueError(f"unknown system {args.system!r}: nrx or one of "
+                         f"{', '.join(SYSTEMS)}")
+    if args.mcs_idx != 0:
         raise NotImplementedError(
-            f"system {args.system!r}: the baselines are the baseline "
-            "slice's (ROADMAP A3)")
+            "several MCS are the training slice's (ROADMAP A4)")
 
     from .. import weights
     from ..entry import load_params
     from ..rx.neural_rx import resolve_device
+    from ..sim.baseline_e2e import BaselineE2EModel
     from ..sim.config import Parameters
     from ..sim.e2e import E2EModel
     from ..sim.simber import save_results, sim_ber
 
     device = resolve_device(args.device)
-    p = Parameters(args.config, training=False)
-    wpath = args.weights or weights.ema_weights(p.label)
-    if not os.path.exists(wpath):
-        raise FileNotFoundError(
-            f"no weights at {wpath}: convert them with "
-            "scripts/torch_port_export_weights.py")
+    p = Parameters(args.config, system=args.system, training=False,
+                   num_tx_eval=args.num_tx_eval)
     if args.snr:
         ebno_dbs = np.asarray(args.snr, np.float32)
     else:
         ebno_dbs = np.arange(p.snr_db_eval_min, p.snr_db_eval_max,
                              p.snr_db_eval_stepsize, dtype=np.float32)
-    model = E2EModel(p, device=device)
-    params = load_params(dtype=p.nrx_dtype, device=device, path=wpath)
+    if args.system == "nrx":
+        wpath = args.weights or weights.ema_weights(p.label)
+        if not os.path.exists(wpath):
+            raise FileNotFoundError(
+                f"no weights at {wpath}: convert them with "
+                "scripts/torch_port_export_weights.py")
+        model = E2EModel(p, device=device)
+        params = load_params(dtype=p.nrx_dtype, device=device, path=wpath)
+        name, num_it = "Neural Receiver", p.num_nrx_iter_eval
+    else:
+        model = BaselineE2EModel(p, args.system, device=device)
+        params, name, num_it = {}, args.system, None
     ber, bler = sim_ber(
         model, params, ebno_dbs, batch_size=args.batch_size
         or p.batch_size_eval, max_mc_iter=args.max_iter,
         num_target_block_errors=args.target_block_errors,
-        target_bler=args.target_bler, num_it=p.num_nrx_iter_eval,
+        target_bler=args.target_bler, num_it=num_it,
         fast_ldpc=args.fast_ldpc)
     path = os.path.join(args.results_dir, f"{p.label}_results.pkl")
-    save_results(path, p.label, "Neural Receiver", p.max_num_tx, 0,
+    save_results(path, p.label, name, p.max_num_tx, args.mcs_idx,
                  ebno_dbs, ber, bler)
     print(f"saved {path}")
 

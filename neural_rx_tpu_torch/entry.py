@@ -22,6 +22,10 @@ width: `sim.e2e.E2EModel` of nrx_rt (eval: 132 PRB, float32, its
 DoubleTDLlow channel) draws the bits, the channel and the noise from a
 `torch.Generator` on the device, transmits, receives and decodes, and the
 step returns the error counters (`sim.simber.make_eval_step`).
+
+`baseline_entry()` is the same step with a classical receiver
+(`sim.baseline_e2e.BaselineE2EModel`: LS, LMMSE or perfect-CSI channel
+estimate, LMMSE or K-Best detection) of any configuration in eval mode.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from .kernels.sepconv import pack_stack
 from .channel.apply import apply_ofdm_channel
 from .phy.misc import binary_source
 from .rx.neural_rx import NeuralPUSCHReceiver, receiver_for, resolve_device
+from .sim.baseline_e2e import BaselineE2EModel
 from .sim.config import Parameters
 from .sim.e2e import E2EModel
 from .sim.simber import make_eval_step
@@ -162,3 +167,28 @@ def mc_entry(device="cuda", batch: int = 30, ebno_db: float = 3.0,
         return step(params, generator, batch, ebno_db)
 
     return fn, (params, torch.Generator(device=device).manual_seed(seed))
+
+
+def baseline_entry(system: str, config: str = "nrx_rt", device="cuda",
+                   batch: int = 30, ebno_db: float = 4.0,
+                   num_tx_eval: int | None = None, fast_ldpc: bool = True,
+                   seed: int = 0, cov_dir: str | None = None):
+    """Returns (fn, example_args): fn(params, generator) -> int64 [4]
+    counters of one Monte-Carlo step of the baseline `system` (one of
+    `sim.baseline_e2e.SYSTEMS`) on `config` in eval mode (132 PRB for every
+    shipped configuration) with `num_tx_eval` users (default: all of the
+    configuration's), at `batch` slots and `ebno_db`, decoding with the
+    layered min-sum kernel (fast_ldpc=True) or the flooding decoder;
+    example_args = ({}, a generator on `device` seeded with `seed`). The
+    LMMSE estimate reads its covariances from `cov_dir` (default:
+    weights/), or computes them there on `device` when they are missing."""
+    device = resolve_device(device)
+    p = Parameters(config, system=system, training=False,
+                   num_tx_eval=num_tx_eval)
+    model = BaselineE2EModel(p, system, cov_dir=cov_dir, device=device)
+    step = make_eval_step(model, fast_ldpc=fast_ldpc)
+
+    def fn(params, generator):
+        return step(params, generator, batch, ebno_db)
+
+    return fn, ({}, torch.Generator(device=device).manual_seed(seed))

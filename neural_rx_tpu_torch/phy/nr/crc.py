@@ -36,18 +36,13 @@ def crc_generator_matrix(num_bits: int, crc_type: str) -> np.ndarray:
     x^(L + num_bits - 1 - i) mod the polynomial, filled from the last row
     up by repeated multiplication by x."""
     length, poly = CRC_POLYS[crc_type]
-    g = np.zeros((num_bits, length), np.int8)
-    poly_bits = np.array([(poly >> (length - 1 - i)) & 1
-                          for i in range(length)], np.int8)
-    rem = poly_bits.copy()  # remainder of x^L
-    g[num_bits - 1] = rem
-    for k in range(1, num_bits):
-        msb = rem[0]
-        rem = np.roll(rem, -1)
-        rem[-1] = 0
-        if msb:
-            rem ^= poly_bits
-        g[num_bits - 1 - k] = rem
+    top, mask = 1 << (length - 1), (1 << length) - 1
+    rems = [poly]  # remainder of x^L, then times x, as integers
+    for _ in range(1, num_bits):
+        rem = rems[-1]
+        rems.append(((rem << 1) & mask) ^ (poly if rem & top else 0))
+    rems = np.asarray(rems[::-1], np.int64)[:, None]
+    g = (rems >> np.arange(length - 1, -1, -1)) & 1  # MSB first
     return g.astype(np.float32)
 
 

@@ -128,7 +128,7 @@ class NeuralPUSCHReceiver:
         y_t = y_planar.to(self.nrx_dtype) if bf16 else y_planar
         y_in = y_t.permute(0, 2, 3, 4, 1).reshape(
             b, y_planar.shape[2], y_planar.shape[3], 2 * ant)
-        h_in = self._ls.estimate_planar_dense(
+        h_in = self._ls.estimate_planar(
             y_planar, slot_idx=slot_idx,
             out_dtype=self.nrx_dtype if bf16 else None)
         return y_in, h_in[:, :self.max_num_tx]

@@ -12,7 +12,8 @@ carrier frequency offset (`frequency_offset`, None when
 
 Values are parsed with `ast.literal_eval`. `X_eval` keys override `X` when
 training=False, so `nrx_rt` serves 132 PRB (1584 subcarriers) in eval mode
-and trains on 4 PRB (48 subcarriers).
+and trains on 4 PRB (48 subcarriers); the caller's `overrides` come after
+them (the JAX package's 1-UE TDL evaluation slices set `channel_type` so).
 """
 
 from __future__ import annotations
@@ -55,13 +56,17 @@ def _parse_value(raw: str):
 class Parameters:
     """Parsed configuration plus the PUSCH configs and resource grid.
 
-    pusch_configs: [mcs][ue] PUSCHConfig; transmitters: one per MCS;
-    resource_grid: the grid of the first MCS (identical across MCS).
+    system: 'nrx', 'baseline_*', or 'dummy' (parse only: no component is
+    built). overrides: {key: value} set after the file is parsed and
+    before any component is built; a key the configuration lacks raises
+    KeyError. pusch_configs: [mcs][ue] PUSCHConfig; transmitters: one per
+    MCS; resource_grid: the grid of the first MCS (identical across MCS).
     """
 
-    def __init__(self, config_name: str, training: bool = False,
-                 num_tx_eval: int | None = None,
-                 config_dir: str | None = None):
+    def __init__(self, config_name: str, system: str = "nrx",
+                 training: bool = False, num_tx_eval: int | None = None,
+                 config_dir: str | None = None,
+                 overrides: dict | None = None):
         if not config_name.endswith(".cfg"):
             config_name += ".cfg"
         path = os.path.join(config_dir or CONFIG_DIR, config_name)
@@ -69,6 +74,7 @@ class Parameters:
         with open(path) as f:
             cp.read_string(f.read())
 
+        self.system = system
         self.training = training
         for section in cp.sections():
             for key, raw in cp[section].items():
@@ -79,8 +85,14 @@ class Parameters:
                 ev = name + "_eval"
                 if hasattr(self, ev):
                     setattr(self, name, getattr(self, ev))
+        for key, value in (overrides or {}).items():
+            if not hasattr(self, key):
+                raise KeyError(f"unknown Parameters override: {key}")
+            setattr(self, key, value)
         if not hasattr(self, "mcs_var_mcs_masking"):
             self.mcs_var_mcs_masking = False
+        if system == "dummy":
+            return
 
         carrier = CarrierConfig(
             n_cell_id=self.n_cell_id, cyclic_prefix=self.cyclic_prefix,

@@ -25,8 +25,9 @@ from ..phy.misc import binary_source, complex_awgn
 from ..rx.neural_rx import receiver_for, resolve_device
 
 
-def _refuse(p, training: bool, mesh):
-    """NotImplementedError for what this eval model does not port."""
+def refuse_unported(p, training: bool = False, mesh=None):
+    """NotImplementedError for what the eval models' transmitter and
+    channel do not port."""
     why = None
     ct = p.channel_type_name
     if training:
@@ -39,9 +40,9 @@ def _refuse(p, training: bool, mesh):
         why = "the Dataset channel is the dataset slice's (ROADMAP A5)"
     elif p.frequency_offset is not None:
         why = "a carrier frequency offset is the training slice's (A4)"
-    elif p.custom_constellation or p.mask_pilots or p.initial_chest != "ls":
-        why = ("trainable constellations, masked pilots and the NN "
-               "initial estimate are the training slice's (ROADMAP A4)")
+    elif p.custom_constellation or p.mask_pilots:
+        why = ("trainable constellations and masked pilots are the "
+               "training slice's (ROADMAP A4)")
     elif len(p.mcs_index) != 1:
         why = "several MCS are the training slice's (ROADMAP A4)"
     if why is not None:
@@ -52,20 +53,15 @@ def _refuse(p, training: bool, mesh):
                          f"configuration has {p.max_num_tx} users")
 
 
-class E2EModel:
-    """TX -> channel -> RX of one `sim.config.Parameters`, eval only.
+class EvalLink:
+    """The transmitter (first MCS) and channel of one
+    `sim.config.Parameters` in eval mode, and the draws of a Monte-Carlo
+    batch; the eval models add a receiver."""
 
-    kernels=False: the receiver takes its kernels' plain versions on the
-    same route (the kernels' oracle on the card)."""
-
-    def __init__(self, sys_parameters, training: bool = False, mesh=None,
-                 kernels: bool = True, device="cuda"):
-        _refuse(sys_parameters, training, mesh)
+    def __init__(self, sys_parameters, device="cuda"):
         self.p = sys_parameters
         self.device = resolve_device(device)
         self.transmitter = self.p.transmitters[0]
-        self.receiver = receiver_for(self.p, kernels=kernels,
-                                     device=self.device)
 
     def _channel(self, generator: torch.Generator, batch_size: int
                  ) -> torch.Tensor:
@@ -99,6 +95,23 @@ class E2EModel:
             (batch_size, p.num_rx_antennas, rg.num_ofdm_symbols,
              rg.num_subcarriers), p.noise_variance(ebno_db), generator)
         return bits, h, noise
+
+
+class E2EModel(EvalLink):
+    """TX -> channel -> neural RX of one `sim.config.Parameters`, eval only.
+
+    kernels=False: the receiver takes its kernels' plain versions on the
+    same route (the kernels' oracle on the card)."""
+
+    def __init__(self, sys_parameters, training: bool = False, mesh=None,
+                 kernels: bool = True, device="cuda"):
+        refuse_unported(sys_parameters, training, mesh)
+        if sys_parameters.initial_chest != "ls":
+            raise NotImplementedError(
+                "the NN initial estimate is the training slice's (ROADMAP A4)")
+        super().__init__(sys_parameters, device)
+        self.receiver = receiver_for(self.p, kernels=kernels,
+                                     device=self.device)
 
     def forward(self, params, bits: torch.Tensor, h: torch.Tensor,
                 noise: torch.Tensor, active_dmrs: torch.Tensor | None = None,

@@ -26,12 +26,15 @@ import torch
 
 def make_eval_step(model, fast_ldpc: bool = False, num_it: int | None = None):
     """step(params, generator, batch_size, ebno_db) -> int64 [4] array
-    (bit errors, bits, block errors, blocks) of one batch of `model`; the
-    two error counts come to the host in one copy."""
+    (bit errors, bits, block errors, blocks) of one batch of `model` (an
+    `E2EModel`, or a `BaselineE2EModel` with params {} and num_it None);
+    the two error counts come to the host in one copy."""
+    kwargs = {"fast_ldpc": fast_ldpc}
+    if num_it is not None:
+        kwargs["num_it"] = num_it
 
     def step(params, generator, batch_size, ebno_db):
-        b, b_hat, _ = model(params, generator, batch_size, ebno_db,
-                            fast_ldpc=fast_ldpc, num_it=num_it)
+        b, b_hat, _ = model(params, generator, batch_size, ebno_db, **kwargs)
         # one transport block per leading element
         errs = (b != b_hat).sum(dim=-1)
         bit_errs, blk_errs = torch.stack([errs.sum(),

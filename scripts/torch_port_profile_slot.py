@@ -5,7 +5,11 @@ weights; the batch-adaptive route, or with --mega the whole-CGNN kernel),
 or with --eval the eval path `entry.eval_entry()` (132 PRB, float32, its
 example slot at 10 dB; the layered LDPC kernel, or with --flooding the
 flooding decoder), or with --mc one Monte-Carlo step `entry.mc_entry()`
-(132 PRB, float32, DoubleTDLlow, 3 dB; --flooding as for --eval), under
+(132 PRB, float32, DoubleTDLlow, 3 dB; --flooding as for --eval), or with
+--baseline SYSTEM one Monte-Carlo step of a classical baseline
+`entry.baseline_entry()` (--config, default nrx_rt, with --num-tx-eval
+users at --ebno dB, default 4; its covariances computed on the card into a
+temporary directory; --flooding as for --eval), under
 `torch.profiler` for a few calls after a warm-up and prints one JSON line:
 device time per kernel name (summed over the window, per call), the
 device-busy share of the window, the host time per call and the memory
@@ -13,8 +17,9 @@ copies per call by kind (pageable host-to-device among them). With
 --trace, the Chrome trace is written to that path.
 
     python3 scripts/torch_port_profile_slot.py [--batch 1] [--slots 10] \
-        [--mega | --eval [--flooding] | --mc [--flooding]] \
-        [--trace slot_trace.json]
+        [--mega | --eval [--flooding] | --mc [--flooding] \
+         | --baseline SYSTEM [--config nrx_rt] [--num-tx-eval T] \
+           [--ebno 4] [--flooding]] [--trace slot_trace.json]
 """
 
 import argparse
@@ -22,6 +27,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -34,6 +40,10 @@ def main() -> int:
     ap.add_argument("--mega", action="store_true")
     ap.add_argument("--eval", action="store_true")
     ap.add_argument("--mc", action="store_true")
+    ap.add_argument("--baseline", default=None)
+    ap.add_argument("--config", default="nrx_rt")
+    ap.add_argument("--num-tx-eval", type=int, default=None)
+    ap.add_argument("--ebno", type=float, default=4.0)
     ap.add_argument("--flooding", action="store_true")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
@@ -49,7 +59,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    if args.mc:
+    if args.baseline:
+        with tempfile.TemporaryDirectory() as cov_dir:
+            fn, fn_args = entries.baseline_entry(
+                args.baseline, config=args.config, device="cuda",
+                batch=args.batch, ebno_db=args.ebno,
+                num_tx_eval=args.num_tx_eval, fast_ldpc=not args.flooding,
+                cov_dir=cov_dir)
+    elif args.mc:
         fn, fn_args = entries.mc_entry(device="cuda", batch=args.batch,
                                        fast_ldpc=not args.flooding)
     elif args.eval:
@@ -82,7 +99,9 @@ def main() -> int:
         prof.export_chrome_trace(args.trace)
     print(json.dumps({
         "card": card, "batch": args.batch, "mega": args.mega,
-        "eval": args.eval, "mc": args.mc, "flooding": args.flooding,
+        "eval": args.eval, "mc": args.mc, "baseline": args.baseline,
+        "config": args.config if args.baseline else "nrx_rt",
+        "flooding": args.flooding,
         "slots": args.slots,
         "window_ms_per_slot": window_ms / args.slots,
         "device_busy_ms_per_slot": busy_ms / args.slots,

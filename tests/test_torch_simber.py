@@ -11,8 +11,8 @@
   decoder, 300 blocks a side at a waterfall point: the two-proportion z
   statistic within +-3.
 - The evaluate CLI runs on the CPU at 132 PRB and writes a pickle JAX
-  reads; without a GPU, with a baseline system or without weights it
-  raises.
+  reads; without a GPU, with an unknown system, with another MCS than the
+  first or without weights it raises.
 """
 
 import os
@@ -185,9 +185,12 @@ def test_evaluate_cli_refuses(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_cli.main(["--config", "nrx_rt", "--results-dir",
                        str(tmp_path)])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown system"):
         port_cli.main(["--config", "nrx_rt", "--system",
-                       "baseline_lmmse_kbest", "--device", "cpu"])
+                       "baseline_lmmse_qr", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="several MCS"):
+        port_cli.main(["--config", "nrx_rt", "--mcs-idx", "1", "--device",
+                       "cpu"])
     with pytest.raises(FileNotFoundError):
         port_cli.main(["--config", "nrx_rt", "--device", "cpu", "--weights",
                        str(tmp_path / "missing.npz")])
