@@ -68,7 +68,23 @@ Phases, each printing one JSON line with its seconds:
      point of `mc_path` below LS/lin + LMMSE's; per system the device ms
      of a step split into draws + transmitter + channel, estimation,
      detection and decode, and slots/s by wall clock and by device time;
-  9. times: CUDA-event device time per kernel launch (kernel and plain) at
+  9. var_mcs_path: several MCS at eval (`mc_entry(config=..., mcs_idx=)`,
+     `mixed_mcs_entry`, `sim.mixed_mcs`) on nrx_rt_var_mcs at 132 PRB,
+     batch 30, float32, with K5: launches of a step on MCS 0 and 1 and in
+     a mixed slot (2 sepconv: one init stack per MCS, 2 iteration, 2 LDPC;
+     LS/lin in the mixed slot 1 LDPC), counts set to 0 before and read
+     after; kernel route = plain route (counters, b_hat, crc) on MCS 0,
+     MCS 1, the mixed slot, one iteration, and nrx_rt with a 0.1 ppm
+     frequency offset; `sim_ber` points per MCS inside the band of the
+     committed curve the converted weights reproduce (VAR_CURVE_FILE, the
+     imported weights' curve beside) and in both mixed slots for the NRX
+     and LS/lin inside their JAX curves' bands (MIXED_CURVE), the NRX
+     below LS/lin; the masking configuration (3 MCS, 8 iterations,
+     seed-made parameters) one step per MCS against its plain route (1
+     sepconv, 8 iteration launches); the whole-CGNN kernel at 8 iterations
+     against its plain version and route (bf16 and float32); the evaluate
+     CLI on MCS 1; a step's device ms by stage and slots/s;
+ 10. times: CUDA-event device time per kernel launch (kernel and plain) at
      the shapes the main path gives it, with its bound, achieved TFLOP/s
      and share of the bound (the sepconv stack at N = 2 and on the batch-16
      route's init stack at N = 32, the whole-CGNN kernel at batch 1 and
@@ -84,6 +100,7 @@ non-zero before printing anything.
 
 import json
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -165,6 +182,33 @@ BASE_SWEEP = {("nrx_rt", "baseline_lslin_lmmse"): (3.0, 4.0),
               ("nrx_rt", "baseline_lsnn_lmmse"): (3.0, 4.0),
               ("e2e_baseline", "baseline_lmmse_kbest"): (1.0, 2.0, 3.0),
               ("e2e_baseline", "baseline_perf_csi_kbest"): (0.0,)}
+# Several MCS at eval (var_mcs_path): nrx_rt_var_mcs (MCS 9 QPSK and 14
+# 16-QAM, one init stack and one LLR readout per MCS), batch 30, with the
+# committed weights/nrx_rt_var_mcs_weights.npz, which reproduce the
+# own-trained curves of results/nrx_rt_var_mcs_results.pkl (ROADMAP.md C4;
+# copied into VAR_CURVE_FILE by scripts/torch_port_export_curves.py, beside
+# the imported weights' curves, shown, not asserted)
+VAR_LABEL = "nrx_rt_var_mcs"
+VAR_BATCH = 30
+VAR_SEED = 0
+VAR_STEP_DB = {0: 1.0, 1: 2.0}  # Eb/N0 of the kernel-vs-plain step per MCS
+VAR_SWEEP = {0: (1.0, 2.0), 1: (2.0, 3.0)}
+VAR_CURVE_FILE = os.path.join("neural_rx_tpu_torch", "curves",
+                              "nrx_rt_var_mcs.json")
+# mixed slots: (MCS evaluation order, one-hot MCS rows of users 0 and 1,
+# Eb/N0); user 0's blocks are counted. The committed mixed curves
+# (results/mixed_mcs_results.pkl) were made with weights that are not in
+# the repository, so both systems are held to the JAX code's curves with
+# the committed weights, measured on the CPU by
+# scripts/torch_port_jax_baseline_curve.py --mixed-order (its docstring)
+MIXED_CASES = {"ue0_qpsk": ((0, 1), ((1.0, 0.0), (0.0, 1.0)), 1.0),
+               "ue0_16qam": ((1, 0), ((0.0, 1.0), (1.0, 0.0)), 2.0)}
+MIXED_CURVE = os.path.join("neural_rx_tpu_torch", "curves",
+                           "jax_mixed_mcs_{system}_{mix}.json")
+MASKING_LABEL = "nrx_large_var_mcs_64qam_masking"  # 3 MCS, 8 iterations
+MASKING_BATCH = 8  # > 4: the iteration kernel's route
+MASKING_SEED = 0
+CFO_PPM = 0.1  # the frequency offset of the kernel-vs-plain CFO step
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_SYM, N_SC, N_TX = 14, 1584, 2
 
@@ -358,6 +402,24 @@ def curve_of(first_db, blers):
     return (tuple(first_db + i for i in range(len(blers))), blers)
 
 
+def json_curve(path, key=None):
+    """(Eb/N0s, BLERs) of a committed curve file: a curve-script record
+    (its points up to the last with an error), or `key`'s curve of a
+    {"ebno_db": [...], "bler": [...]} record."""
+    with open(os.path.join(ROOT, path)) as f:
+        rec = json.load(f)
+    if key is None:
+        pts = rec["curve"]
+        while pts and pts[-1]["block_errors"] == 0:
+            pts = pts[:-1]
+        return (tuple(float(pt["ebno_db"]) for pt in pts),
+                tuple(float(pt["bler"]) for pt in pts))
+    for part in key:
+        rec = rec[part]
+    pts = [(e, b) for e, b in zip(rec["ebno_db"], rec["bler"]) if b > 0]
+    return tuple(e for e, _ in pts), tuple(b for _, b in pts)
+
+
 def base_curve(label: str, system: str):
     """(Eb/N0s, BLERs) of a baseline's JAX curve, up to its last nonzero
     point: the constants of BASE_CURVES or the committed file of
@@ -365,12 +427,7 @@ def base_curve(label: str, system: str):
     path = BASE_CURVE_FILES.get((label, system))
     if path is None:
         return curve_of(*BASE_CURVES[(label, system)])
-    with open(os.path.join(ROOT, path)) as f:
-        pts = json.load(f)["curve"]
-    while pts and pts[-1]["block_errors"] == 0:
-        pts = pts[:-1]
-    return (tuple(float(pt["ebno_db"]) for pt in pts),
-            tuple(float(pt["bler"]) for pt in pts))
+    return json_curve(path)
 
 
 def jax_bler(ebno_db: float, curve=(JAX_CURVE_DB, JAX_CURVE)) -> float:
@@ -505,7 +562,7 @@ def baseline_path(dev, card, counts, reset, nrx_points):
             gen_t = torch.Generator(device=dev).manual_seed(BASE_SEED + 1)
 
             def front(model=model, gen_t=gen_t, ebno=ebno):
-                b_, h_, n_ = model.draw(gen_t, BASE_BATCH, ebno)
+                (b_,), h_, n_ = model.draw(gen_t, BASE_BATCH, ebno)
                 return apply_ofdm_channel(model.transmitter(b_), h_, None,
                                           noise=n_), h_
             y_b, h_b = front()
@@ -561,6 +618,334 @@ def baseline_path(dev, card, counts, reset, nrx_points):
             assert lo <= pt["bler"] <= hi, (key, pt)
     assert ordering["nrx_bler_4db"] < ordering["lslin_bler_4db"], ordering
     return base_launches
+
+
+def var_mcs_path(dev, card, peaks, counts, reset):
+    """Phase 9: several MCS at eval, 132 PRB, float32, with K5: launches
+    of a step on each MCS and in a mixed slot; kernel route = plain route
+    on MCS 0, MCS 1, the mixed slot, one iteration, and a frequency offset
+    on nrx_rt; BLER points per MCS and in the mixed slots inside their
+    curves' bands; the masking configuration (3 MCS, 8 iterations, seed-made
+    parameters) and K4 at 8 iterations against their plain routes; the
+    evaluate CLI on MCS 1; a step's device ms by stage. Emits the phase's
+    record, asserts it, and returns (launches by path, timing records for
+    the kernels line)."""
+    import torch
+    from neural_rx_tpu_torch import weights
+    from neural_rx_tpu_torch.channel.apply import apply_ofdm_channel
+    from neural_rx_tpu_torch.cli import evaluate as cli_evaluate
+    from neural_rx_tpu_torch.entry import (load_params, mc_entry,
+                                           mixed_mcs_entry)
+    from neural_rx_tpu_torch.kernels import cgnn_iter
+    from neural_rx_tpu_torch.kernels import ldpc as k5
+    from neural_rx_tpu_torch.phy.nr import tb
+    from neural_rx_tpu_torch.rx.neural_rx import mcs_mask, receiver_for
+    from neural_rx_tpu_torch.sim.config import Parameters
+    from neural_rx_tpu_torch.sim.e2e import E2EModel
+    from neural_rx_tpu_torch.sim.mixed_mcs import (MixedMCSBaselineModel,
+                                                   MixedMCSE2EModel)
+    from neural_rx_tpu_torch.sim.simber import sim_ber
+
+    t0 = time.perf_counter()
+    launches = {}
+    k_all = {"sepconv_stack": 2, "cgnn_iter": 2, "cgnn_full": 0,
+             "ldpc_decode": 2}
+    expected = {"var_mcs0_b30": k_all, "var_mcs1_b30": k_all,
+                "var_mixed_b30": k_all,
+                "var_mixed_lslin_b30": {"sepconv_stack": 0, "cgnn_iter": 0,
+                                        "cgnn_full": 0, "ldpc_decode": 1}}
+
+    # (a) launches of one step through the entry points
+    runs = {"var_mcs0_b30": lambda: mc_entry(
+                device=dev, batch=VAR_BATCH, ebno_db=VAR_STEP_DB[0],
+                seed=VAR_SEED, config=VAR_LABEL, mcs_idx=0),
+            "var_mcs1_b30": lambda: mc_entry(
+                device=dev, batch=VAR_BATCH, ebno_db=VAR_STEP_DB[1],
+                seed=VAR_SEED, config=VAR_LABEL, mcs_idx=1),
+            "var_mixed_b30": lambda: mixed_mcs_entry(
+                VAR_LABEL, *MIXED_CASES["ue0_qpsk"][:2], system="nrx",
+                device=dev, batch=VAR_BATCH, seed=VAR_SEED),
+            "var_mixed_lslin_b30": lambda: mixed_mcs_entry(
+                VAR_LABEL, *MIXED_CASES["ue0_qpsk"][:2], system="lslin",
+                device=dev, batch=VAR_BATCH, seed=VAR_SEED)}
+    step_counts = {}
+    for route, make in runs.items():
+        fn, args = make()
+        reset()
+        step_counts[route] = fn(*args).tolist()
+        torch.cuda.synchronize()
+        launches[route] = counts()
+    reset()
+
+    # (b) kernel route = plain route on the same draws
+    p_v = Parameters(VAR_LABEL, training=False)
+    params_v = load_params(dtype=p_v.nrx_dtype, device=dev,
+                           path=weights.committed_weights(VAR_LABEL))
+    models_v = [E2EModel(p_v, kernels=k, device=dev) for k in (True, False)]
+    mixed_models = {
+        mix: [MixedMCSE2EModel(p_v, order, mcs_ue_mask=torch.tensor([rows]),
+                               kernels=k, device=dev) for k in (True, False)]
+        for mix, (order, rows, _) in MIXED_CASES.items()}
+    p_cfo = Parameters("nrx_rt", training=False,
+                       overrides={"cfo_offset_ppm": CFO_PPM})
+    params_rt = load_params(dtype=p_cfo.nrx_dtype, device=dev)
+    models_cfo = [E2EModel(p_cfo, kernels=k, device=dev)
+                  for k in (True, False)]
+    cases = {
+        "mcs0": (models_v, params_v, VAR_STEP_DB[0], {"mcs_arr_eval_idx": 0}),
+        "mcs1": (models_v, params_v, VAR_STEP_DB[1], {"mcs_arr_eval_idx": 1}),
+        "mixed_ue0_qpsk": (mixed_models["ue0_qpsk"], params_v,
+                           MIXED_CASES["ue0_qpsk"][2], {}),
+        "mcs0_num_it_1": (models_v, params_v, VAR_STEP_DB[0],
+                          {"mcs_arr_eval_idx": 0, "num_it": 1}),
+        "nrx_rt_cfo": (models_cfo, params_rt, 4.0, {})}
+    plain = {}
+    for case, (models, params, ebno, kw) in cases.items():
+        outs = []
+        for m in models:
+            gen = torch.Generator(device=dev).manual_seed(VAR_SEED)
+            outs.append(m(params, gen, VAR_BATCH, ebno, fast_ldpc=True, **kw))
+        torch.cuda.synchronize()
+        (b, b_hat, crc), ref = outs
+        plain[case] = {
+            "ebno_db": ebno, "counters": block_counts(b, b_hat),
+            "counters_plain": block_counts(ref[0], ref[1]),
+            "crc_truthful": bool(torch.equal((b_hat == b).all(dim=-1), crc)),
+            "equals_plain_route": all(torch.equal(x, y)
+                                      for x, y in zip(outs[0], ref))}
+    reset()
+    del models_cfo, params_rt
+
+    # (c) BLER per MCS, (d) in the mixed slots, with K5
+    with open(os.path.join(ROOT, VAR_CURVE_FILE)) as f:
+        assert json.load(f)["config"] == VAR_LABEL
+    sweep = {}
+    for mcs, dbs in VAR_SWEEP.items():
+        curve = json_curve(VAR_CURVE_FILE, ("own", str(mcs)))
+        other = json_curve(VAR_CURVE_FILE, ("ref", str(mcs)))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bers, blers, n_err, n_blk = sim_ber(
+            models_v[0], params_v, dbs, VAR_BATCH, max_mc_iter=MC_MAX_ITER,
+            num_target_block_errors=MC_TARGET_BLOCK_ERRORS, seed=VAR_SEED,
+            verbose=False, fast_ldpc=True, return_counts=True,
+            mcs_arr_eval_idx=mcs)
+        wall = time.perf_counter() - t1
+        points = [curve_point(*pt, curve) for pt in zip(
+            dbs, bers, blers, n_err, n_blk)]
+        for pt in points:
+            pt["imported_weights_bler"] = jax_bler(pt["ebno_db"], other)
+        steps = int(n_blk.sum()) // (VAR_BATCH * N_TX)
+        sweep[f"mcs{mcs}"] = {"points": points, "steps": steps,
+                              "wall_s": wall,
+                              "slots_per_s_wall": steps * VAR_BATCH / wall}
+    mixed = {}
+    for mix, (order, rows, ebno) in MIXED_CASES.items():
+        mask = torch.tensor([rows])
+        committed = json_curve(VAR_CURVE_FILE, (
+            "mixed", f"nrx_ue0_mcs{order[0]}"))
+        for system, cls in (("nrx", MixedMCSE2EModel),
+                            ("lslin", MixedMCSBaselineModel)):
+            model = cls(p_v, order, mcs_ue_mask=mask, device=dev)
+            curve = json_curve(MIXED_CURVE.format(system=system, mix=mix))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            bers, blers, n_err, n_blk = sim_ber(
+                model, params_v if system == "nrx" else {}, [ebno],
+                VAR_BATCH, max_mc_iter=MC_MAX_ITER,
+                num_target_block_errors=MC_TARGET_BLOCK_ERRORS,
+                seed=VAR_SEED, verbose=False, fast_ldpc=True,
+                return_counts=True)
+            wall = time.perf_counter() - t1
+            pt = curve_point(ebno, bers[0], blers[0], n_err[0], n_blk[0],
+                             curve)
+            if system == "nrx":
+                pt["imported_weights_bler"] = jax_bler(ebno, committed)
+            mixed[f"{system}_{mix}"] = {
+                "point": pt, "steps": int(n_blk[0]) // VAR_BATCH,
+                "wall_s": wall,
+                "slots_per_s_wall": int(n_blk[0]) / wall}
+            del model
+    del mixed_models
+
+    # (e) the masking configuration: seed-made parameters, each MCS
+    p_m = Parameters(MASKING_LABEL, training=False)
+    models_m = [E2EModel(p_m, kernels=k, device=dev) for k in (True, False)]
+    params_m = models_m[0].receiver.init_params(
+        torch.Generator(device=dev).manual_seed(MASKING_SEED))
+    masking = {}
+    for mcs in range(len(p_m.mcs_index)):
+        outs = []
+        for m in models_m:
+            gen = torch.Generator(device=dev).manual_seed(MASKING_SEED)
+            reset()
+            outs.append(m(params_m, gen, MASKING_BATCH, 4.0, fast_ldpc=True,
+                          mcs_arr_eval_idx=mcs))
+            torch.cuda.synchronize()
+            if m.receiver.cgnn_cfg.kernels:
+                launches[f"masking_mcs{mcs}_b{MASKING_BATCH}"] = counts()
+        (b, b_hat, crc), ref = outs
+        masking[f"mcs{mcs}"] = {
+            "bits_per_symbol": p_m.transmitters[mcs].num_bits_per_symbol,
+            "b_hat_shape": list(b_hat.shape),
+            "equals_plain_route": all(torch.equal(x, y)
+                                      for x, y in zip(outs[0], ref))}
+        expected[f"masking_mcs{mcs}_b{MASKING_BATCH}"] = {
+            "sepconv_stack": 1, "cgnn_iter": 8, "cgnn_full": 0,
+            "ldpc_decode": 2}
+    reset()
+    del models_m, params_m
+
+    # K4 at 8 iterations (nrx_large widths, seed-made), the mega route at
+    # batch 1 against its plain route, bf16 as served and float32
+    p_l = Parameters("nrx_large", training=False)
+    k4 = {}
+    y1 = torch.as_tensor(np.random.default_rng(2).normal(
+        size=(1, 4, N_SYM, N_SC, 2)), dtype=torch.float32, device=dev)
+    for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        rxs = [receiver_for(p_l, nrx_dtype=dtype, fused_full=True, kernels=k,
+                            device=dev) for k in (True, False)]
+        params_l = rxs[0].init_params(
+            torch.Generator(device=dev).manual_seed(MASKING_SEED))
+        assert len(params_l["cgnn"]["iterations"]) == 8
+        reset()
+        got = rxs[0].serve(params_l, y1)
+        torch.cuda.synchronize()
+        launches[f"mega_8it_b1_{str(dtype)[6:]}"] = counts()
+        expected[f"mega_8it_b1_{str(dtype)[6:]}"] = {
+            "sepconv_stack": 0, "cgnn_iter": 0, "cgnn_full": 1,
+            "ldpc_decode": 0}
+        ref = rxs[1].serve(params_l, y1)
+        torch.cuda.synchronize()
+        k4[str(dtype)] = {"llr": rel_err(got[0], ref[0]),
+                          "h_hat": rel_err(got[1], ref[1]), "tol": tol,
+                          "finite": bool(torch.isfinite(got[0]).all())}
+    reset()
+    # K4's time alone at 8 iterations, bf16, batch 1
+    cgnn_l = params_l["cgnn"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    z1 = torch.randn((1, N_TX, N_SYM, N_SC, 18), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    pe = rxs[0].pe.to(torch.bfloat16)
+    act1 = torch.ones((1, N_TX), device=dev)
+    got = cgnn_iter.fused_cgnn_full(cgnn_l, z1, pe, act1)
+    ref = cgnn_iter.fused_cgnn_full_reference(cgnn_l, z1, pe, act1)
+    torch.cuda.synchronize()
+    k4_check = compare(got, ref, torch.bfloat16, TOL_BF16)
+    k4_time = rates({
+        "iterations": 8, "shape": list(z1.shape),
+        "kernel_ms": cuda_ms(
+            lambda: cgnn_iter.fused_cgnn_full(cgnn_l, z1, pe, act1), 10),
+        "plain_ms": cuda_ms(lambda: cgnn_iter.fused_cgnn_full_reference(
+            cgnn_l, z1, pe, act1), 3, warmup=1),
+        **bound(*full_work(cgnn_l, 1, pe.shape[-1], 2), peaks)})
+    reset()
+    del rxs, params_l, cgnn_l
+
+    # (f) the evaluate CLI on MCS 1
+    with tempfile.TemporaryDirectory() as results:
+        t1 = time.perf_counter()
+        cli_evaluate.main(["--config", VAR_LABEL, "--mcs-idx", "1", "--snr",
+                           "3", "--max-iter", "2", "--fast-ldpc",
+                           "--results-dir", results])
+        cli_seconds = time.perf_counter() - t1
+        path = os.path.join(results, f"{VAR_LABEL}_results.pkl")
+        with open(path, "rb") as f:
+            ebno_cli, _, bler_cli = pickle.load(f)
+        cli = {"seconds": cli_seconds, "ebno_db": list(map(float, ebno_cli)),
+               "keys": [list(k) for k in bler_cli],
+               "bler": [float(v[0]) for v in bler_cli.values()]}
+    reset()
+
+    # (g) device ms of a step by stage: draws + transmitter + channel,
+    # receiver, decode (both users, K5); one MCS and the mixed slot
+    model = models_v[0]
+    rx = model.receiver
+    gen_t = torch.Generator(device=dev).manual_seed(VAR_SEED + 1)
+    order, rows, _ = MIXED_CASES["ue0_qpsk"]
+    mask_mixed = torch.tensor([rows], device=dev).expand(VAR_BATCH, -1, -1)
+
+    def front(order, mask):
+        bits, h_, n_ = model.draw(gen_t, VAR_BATCH, 1.0, order)
+        x = model.transmit(bits, order, mask)
+        return apply_ofdm_channel(x, h_, None, noise=n_)
+    mask0 = mcs_mask((VAR_BATCH, N_TX), 0, model.num_mcs, dev)
+    y_t = front([0], mask0)
+    y_tp = torch.stack([y_t.real, y_t.imag], dim=-1)
+    ones = torch.ones((VAR_BATCH, N_TX), device=dev)
+    llrs, _, _ = rx._cgnn(params_v, y_tp, ones, None, None, mask0)
+    times = {"batch": VAR_BATCH,
+             "front_ms": cuda_ms(lambda: front([0], mask0), 3, warmup=1),
+             "front_mixed_ms": cuda_ms(lambda: front(list(order),
+                                                     mask_mixed), 3,
+                                       warmup=1),
+             "receiver_ms": cuda_ms(lambda: rx._cgnn(
+                 params_v, y_tp, ones, None, None, mask0), 3, warmup=1)}
+    for mcs in (0, 1):
+        tbs = rx.tb_configs[mcs]
+
+        def decode_both(mcs=mcs, tbs=tbs):
+            flat = rx.rg.demap_data(llrs[mcs]).reshape(VAR_BATCH, N_TX, -1)
+            return [k5.tb_decode_fast(cfg, flat[:, ue])
+                    for ue, cfg in enumerate(tbs)]
+        decode_ms = cuda_ms(decode_both, 3, warmup=1)
+        step_ms = times["front_ms"] + times["receiver_ms"] + decode_ms
+        sw = sweep[f"mcs{mcs}"]
+        times[f"mcs{mcs}"] = {
+            "decode_ms": decode_ms, "device_step_ms": step_ms,
+            "slots_per_s_device": VAR_BATCH / step_ms * 1e3,
+            "sweep_slots_per_s_wall": sw["slots_per_s_wall"],
+            "sweep_host_share": 1.0 - sw["steps"] * step_ms / 1e3
+            / sw["wall_s"]}
+    mixed_ms = times["front_mixed_ms"] + times["receiver_ms"] + times[
+        "mcs0"]["decode_ms"]
+    times["mixed"] = {"device_step_ms": mixed_ms,
+                      "slots_per_s_device": VAR_BATCH / mixed_ms * 1e3,
+                      "sweep_slots_per_s_wall": mixed["nrx_ue0_qpsk"][
+                          "slots_per_s_wall"]}
+    # K5 at the MCS-9 (QPSK) launch: one user's codewords of the step
+    cfg_q = rx.tb_configs[0][0]
+    llr_q = tb.codeword_llrs(cfg_q, rx.rg.demap_data(llrs[0]).reshape(
+        VAR_BATCH, N_TX, -1)[:, 0]).reshape(-1, cfg_q.code.n_full)
+    llr_q = llr_q.contiguous()
+    k5_qpsk = rates({
+        "codewords": int(llr_q.shape[0]), "bg": cfg_q.code.bg,
+        "z": cfg_q.code.z,
+        "kernel_ms": cuda_ms(
+            lambda: k5.layered_decode(cfg_q.code, llr_q, LDPC_ITER), 10),
+        "plain_ms": cuda_ms(lambda: k5.layered_decode_reference(
+            cfg_q.code, llr_q, LDPC_ITER), 2, warmup=1),
+        **bound(*ldpc_work(cfg_q.code, llr_q.shape[0]), peaks,
+                rate="f32_flops")})
+    reset()
+    del models_v, y_t, y_tp, llrs
+
+    emit({"phase": "var_mcs_path", "config": VAR_LABEL, "batch": VAR_BATCH,
+          "launches": launches, "expected": expected,
+          "step_counts": step_counts, "kernel_vs_plain": plain,
+          "sweep": sweep, "mixed": mixed, "masking": masking,
+          "mega_8it": k4, "k4_8it_check": k4_check, "k4_8it_time": k4_time,
+          "cli": cli, "times": times, "k5_qpsk": k5_qpsk, "card": card,
+          "seconds": time.perf_counter() - t0})
+    for route, want in expected.items():
+        assert launches[route] == want, (route, launches[route])
+    for case, rec in {**plain, **masking}.items():
+        assert rec["equals_plain_route"], (case, rec)
+    for case, rec in plain.items():
+        assert rec["crc_truthful"], (case, rec)
+    points = [pt for sw in sweep.values() for pt in sw["points"]] + [
+        rec["point"] for rec in mixed.values()]
+    for pt in points:
+        lo, hi = pt["band"]
+        assert lo <= pt["bler"] <= hi, pt
+    for mix in MIXED_CASES:
+        assert mixed[f"nrx_{mix}"]["point"]["bler"] < mixed[
+            f"lslin_{mix}"]["point"]["bler"], (mix, mixed)
+    for rec in k4.values():
+        assert rec["finite"] and max(rec["llr"], rec["h_hat"]) <= rec["tol"]
+    assert k4_check["ok"], k4_check
+    assert cli["keys"] == [["Neural Receiver", 2, 1]], cli
+    return launches, {"k4_8it": k4_time, "k5_qpsk": k5_qpsk}
 
 
 def main() -> int:
@@ -755,7 +1140,7 @@ def main() -> int:
     params_mc = load_params(dtype=p_mc.nrx_dtype, device=dev)
     mc_model = E2EModel(p_mc, device=dev)
     rx_mc = mc_model.receiver
-    bits_mc, h_mc, noise_mc = mc_model.draw(
+    (bits_mc,), h_mc, noise_mc = mc_model.draw(
         torch.Generator(device=dev).manual_seed(MC_SEED), MC_BATCH,
         MC_EBNO_DB)
     y_mc = apply_ofdm_channel(mc_model.transmitter(bits_mc), h_mc, None,
@@ -986,7 +1371,7 @@ def main() -> int:
     rg_mc = rx_mc.rg
 
     def front():
-        b_, h_, n_ = mc_model.draw(gen_t, MC_BATCH, MC_EBNO_DB)
+        (b_,), h_, n_ = mc_model.draw(gen_t, MC_BATCH, MC_EBNO_DB)
         return apply_ofdm_channel(mc_model.transmitter(b_), h_, None,
                                   noise=n_)
     y_t = front()
@@ -1054,7 +1439,12 @@ def main() -> int:
     launches.update(baseline_path(dev, card, counts, reset,
                                   sweep["fast"]["points"]))
 
-    # 9. times (bf16, as served), at the shapes the main path gives each
+    # 9. several MCS at eval: nrx_rt_var_mcs, the masking configuration,
+    # K4 at 8 iterations
+    var_launches, var_times = var_mcs_path(dev, card, peaks, counts, reset)
+    launches.update(var_launches)
+
+    # 10. times (bf16, as served), at the shapes the main path gives each
     # kernel: stacks at N = 2 (batch 1), the iteration at batch 16, the
     # whole CGNN at batch 1
     t0 = time.perf_counter()
@@ -1291,9 +1681,14 @@ def main() -> int:
          "library_ms": None, "ms_b16": full16["kernel_ms"],
          "plain_ms_b16": full16["plain_ms"],
          "bound_ms_b16": full16["bound_ms"],
+         "ms_8it": var_times["k4_8it"]["kernel_ms"],
+         "plain_ms_8it": var_times["k4_8it"]["plain_ms"],
+         "bound_ms_8it": var_times["k4_8it"]["bound_ms"],
          "note": "ms/plain_ms/bound_ms: one launch at batch 1 (b=1, T=2, "
                  "14x1584), bf16; *_b16: the mega route's launch at batch "
-                 "16; library: no PyTorch call computes the whole CGNN"},
+                 "16; *_8it: batch 1 with 8 seed-made iterations of "
+                 "nrx_large's widths; library: no PyTorch call computes "
+                 "the whole CGNN"},
         {"name": "ldpc_decode", "route": "cuda",
          "source": "neural_rx_tpu_torch/csrc/ldpc_decode.cu",
          "replaces": "neural_rx_tpu/kernels/ldpc_pallas.py:81",
@@ -1310,13 +1705,17 @@ def main() -> int:
          "ms_base_1ue": base_ldpc_1ue["kernel_ms"],
          "plain_ms_base_1ue": base_ldpc_1ue["plain_ms"],
          "bound_ms_base_1ue": base_ldpc_1ue["bound_ms"],
+         "ms_var_qpsk": var_times["k5_qpsk"]["kernel_ms"],
+         "plain_ms_var_qpsk": var_times["k5_qpsk"]["plain_ms"],
+         "bound_ms_var_qpsk": var_times["k5_qpsk"]["bound_ms"],
          "note": "ms/plain_ms/bound_ms: one launch of 80 codewords (one "
                  "user of a batch-16 slot: 16 TBs x 5 code blocks), BG1, "
                  "Z=384; *_mc: 150 codewords (one user of a batch-30 "
                  "Monte-Carlo step, also each user's launch on the 2-user "
                  "baseline path); *_base_1ue: 180 codewords of BG1, Z=352 "
                  "(the 1-user baseline path's launch, e2e_baseline); "
-                 "20 iterations, float32; max_abs_err on hard bits "
+                 "*_var_qpsk: one user's MCS-9 (QPSK) codewords of a "
+                 "batch-30 nrx_rt_var_mcs step; 20 iterations, float32; max_abs_err on hard bits "
                  "(0 or 1); bound: 10 f32 operations per edge, lane and "
                  "iteration at the card's f32 rate, LLRs read and bits "
                  "written once; library: no PyTorch call decodes LDPC"}]})

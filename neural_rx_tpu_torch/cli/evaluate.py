@@ -15,12 +15,14 @@ given, with `sim.simber.sim_ber` on `sim.e2e.E2EModel` (system nrx) or
 `sim.baseline_e2e.BaselineE2EModel` over the configuration's eval channel,
 and merges (Eb/N0, BER, BLER) into DIR/{label}_results.pkl keyed
 (name, num_tx, mcs_idx), the JAX package's format: name is "Neural
-Receiver" for nrx and the system name for a baseline. The neural
-receiver's weights default to weights/{label}_ema_weights.npz; a missing
-file is an error. A baseline with the LMMSE channel estimate reads the
-covariances weights/{label}_{freq,time,space}_cov_mat.npy, and computes
-and writes them there if they are missing. Only single-MCS evaluation is
-ported (--mcs-idx 0). The device defaults to cuda, which needs a GPU.
+Receiver" for nrx and the system name for a baseline. --mcs-idx picks
+the evaluated MCS of a configuration with several (every user on it); an
+index out of range raises ValueError. The neural receiver runs the
+configuration's num_nrx_iter_eval iterations; its weights default to the
+committed weights (`weights.committed_weights`); a missing file is an error.
+A baseline with the LMMSE channel estimate reads the covariances
+weights/{label}_{freq,time,space}_cov_mat.npy, and computes and writes them
+there if they are missing. The device defaults to cuda, which needs a GPU.
 """
 
 from __future__ import annotations
@@ -54,9 +56,6 @@ def main(argv=None):
     if args.system != "nrx" and args.system not in SYSTEMS:
         raise ValueError(f"unknown system {args.system!r}: nrx or one of "
                          f"{', '.join(SYSTEMS)}")
-    if args.mcs_idx != 0:
-        raise NotImplementedError(
-            "several MCS are the training slice's (ROADMAP A4)")
 
     from .. import weights
     from ..entry import load_params
@@ -69,13 +68,16 @@ def main(argv=None):
     device = resolve_device(args.device)
     p = Parameters(args.config, system=args.system, training=False,
                    num_tx_eval=args.num_tx_eval)
+    if not 0 <= args.mcs_idx < len(p.mcs_index):
+        raise ValueError(f"MCS index {args.mcs_idx} out of range: "
+                         f"{args.config} has {len(p.mcs_index)} MCS")
     if args.snr:
         ebno_dbs = np.asarray(args.snr, np.float32)
     else:
         ebno_dbs = np.arange(p.snr_db_eval_min, p.snr_db_eval_max,
                              p.snr_db_eval_stepsize, dtype=np.float32)
     if args.system == "nrx":
-        wpath = args.weights or weights.ema_weights(p.label)
+        wpath = args.weights or weights.committed_weights(p.label)
         if not os.path.exists(wpath):
             raise FileNotFoundError(
                 f"no weights at {wpath}: convert them with "
@@ -91,7 +93,7 @@ def main(argv=None):
         or p.batch_size_eval, max_mc_iter=args.max_iter,
         num_target_block_errors=args.target_block_errors,
         target_bler=args.target_bler, num_it=num_it,
-        fast_ldpc=args.fast_ldpc)
+        fast_ldpc=args.fast_ldpc, mcs_arr_eval_idx=args.mcs_idx)
     path = os.path.join(args.results_dir, f"{p.label}_results.pkl")
     save_results(path, p.label, name, p.max_num_tx, args.mcs_idx,
                  ebno_dbs, ber, bler)

@@ -114,7 +114,7 @@ using nrx::setup_mutex;
 using nrx::StackDesc;
 using nrx::to_f;
 
-constexpr int kMaxIt = 4;
+constexpr int kMaxIt = 8;  // the most of any shipped configuration (nrx_large*)
 constexpr int kMaxUsers = 8;
 constexpr int kMinChunk = 64;
 
@@ -612,6 +612,10 @@ struct FullArgs {
   IterDesc it[kMaxIt];
   int num_it, b, H, W, lo, hi;
 };
+
+// The arguments travel as one kernel parameter: within the 4 KB every
+// toolkit accepts.
+static_assert(sizeof(FullArgs<float>) <= 4096, "FullArgs exceeds 4 KB");
 
 template <typename T>
 __global__ void __launch_bounds__(nrx::kThreads) cgnn_full_kernel(FullArgs<T> a) {

@@ -19,9 +19,13 @@ seeded noise at the given Eb/N0.
 
 `mc_entry()` is one Monte-Carlo step of the BLER evaluation at the same
 width: `sim.e2e.E2EModel` of nrx_rt (eval: 132 PRB, float32, its
-DoubleTDLlow channel) draws the bits, the channel and the noise from a
+DoubleTDLlow channel), or of another configuration on one of its MCS and
+a cut iteration count, draws the bits, the channel and the noise from a
 `torch.Generator` on the device, transmits, receives and decodes, and the
 step returns the error counters (`sim.simber.make_eval_step`).
+`mixed_mcs_entry()` is the same step in a mixed-MCS slot
+(`sim.mixed_mcs`): users on different MCS, user 0's blocks counted, with
+the neural receiver or LS/lin.
 
 `baseline_entry()` is the same step with a classical receiver
 (`sim.baseline_e2e.BaselineE2EModel`: LS, LMMSE or perfect-CSI channel
@@ -42,6 +46,7 @@ from .rx.neural_rx import NeuralPUSCHReceiver, receiver_for, resolve_device
 from .sim.baseline_e2e import BaselineE2EModel
 from .sim.config import Parameters
 from .sim.e2e import E2EModel
+from .sim.mixed_mcs import MixedMCSBaselineModel, MixedMCSE2EModel
 from .sim.simber import make_eval_step
 
 NRX_DTYPE = torch.bfloat16
@@ -107,8 +112,8 @@ def load_params(dtype=NRX_DTYPE, device="cuda",
     cgnn = weights.load(path, device=device)
     for stack in cgnn["s_init"] + [it["update"] for it in cgnn["iterations"]]:
         pack_stack(stack, dtype)
-    for mlp in [it["agg"] for it in cgnn["iterations"]] + [
-            cgnn["readout_llrs"][0], cgnn["readout_chest"]]:
+    for mlp in [it["agg"] for it in cgnn["iterations"]] + cgnn[
+            "readout_llrs"] + [cgnn["readout_chest"]]:
         pack_mlp(mlp, dtype)
     return {"cgnn": cgnn}
 
@@ -149,19 +154,23 @@ def eval_entry(device="cuda", batch: int = 16, ebno_db: float = 10.0,
 
 
 def mc_entry(device="cuda", batch: int = 30, ebno_db: float = 3.0,
-             fast_ldpc: bool = True, seed: int = 0):
+             fast_ldpc: bool = True, seed: int = 0, config: str = "nrx_rt",
+             mcs_idx: int = 0, num_it: int | None = None):
     """Returns (fn, example_args): fn(params, generator) -> int64 [4]
     counters (bit errors, bits, block errors, blocks) of one Monte-Carlo
-    step of nrx_rt in eval mode (132 PRB, float32, DoubleTDLlow) at
-    `batch` slots and `ebno_db`, decoding with the layered min-sum kernel
-    (fast_ldpc=True) or the flooding decoder, with the committed EMA
-    weights; example_args = (params, a generator on `device` seeded with
-    `seed`)."""
+    step of `config` in eval mode (nrx_rt: 132 PRB, float32, DoubleTDLlow)
+    on its MCS mcs_idx, with the CGNN cut to num_it iterations (default:
+    all), at `batch` slots and `ebno_db`, decoding with the layered min-sum
+    kernel (fast_ldpc=True) or the flooding decoder, with the committed
+    weights (`weights.committed_weights`); example_args = (params, a
+    generator on `device` seeded with `seed`)."""
     device = resolve_device(device)
-    p = Parameters("nrx_rt", training=False)
+    p = Parameters(config, training=False)
     model = E2EModel(p, device=device)
-    params = load_params(dtype=p.nrx_dtype, device=device)
-    step = make_eval_step(model, fast_ldpc=fast_ldpc)
+    params = load_params(dtype=p.nrx_dtype, device=device,
+                         path=weights.committed_weights(p.label))
+    step = make_eval_step(model, fast_ldpc=fast_ldpc, num_it=num_it,
+                          mcs_arr_eval_idx=mcs_idx)
 
     def fn(params, generator):
         return step(params, generator, batch, ebno_db)
@@ -192,3 +201,38 @@ def baseline_entry(system: str, config: str = "nrx_rt", device="cuda",
         return step(params, generator, batch, ebno_db)
 
     return fn, ({}, torch.Generator(device=device).manual_seed(seed))
+
+
+def mixed_mcs_entry(config: str = "nrx_rt_var_mcs", mcs_order=(0, 1),
+                    mask_rows=((1, 0), (0, 1)), system: str = "nrx",
+                    device="cuda", batch: int = 30, ebno_db: float = 1.0,
+                    fast_ldpc: bool = True, seed: int = 0):
+    """Returns (fn, example_args): fn(params, generator) -> int64 [4]
+    counters of one Monte-Carlo step of a mixed-MCS slot of `config` in
+    eval mode: user u on the MCS of the one-hot row mask_rows[u], the
+    evaluation order mcs_order (user 0's MCS first: its noise variance and
+    decode chain), user 0's transport blocks counted; system "nrx" (the
+    committed weights) or "lslin" (LS/lin + LMMSE, params {});
+    example_args = (params, a generator on `device` seeded with `seed`).
+    The default is the reference's mix: user 0 on QPSK (MCS 9), user 1 on
+    16-QAM (MCS 14)."""
+    device = resolve_device(device)
+    p = Parameters(config, training=False)
+    mask = torch.tensor([mask_rows], dtype=torch.float32)
+    if system == "nrx":
+        model = MixedMCSE2EModel(p, mcs_order, mcs_ue_mask=mask,
+                                 device=device)
+        params = load_params(dtype=p.nrx_dtype, device=device,
+                             path=weights.committed_weights(p.label))
+    elif system == "lslin":
+        model = MixedMCSBaselineModel(p, mcs_order, mcs_ue_mask=mask,
+                                      device=device)
+        params = {}
+    else:
+        raise ValueError(f"system nrx or lslin, not {system!r}")
+    step = make_eval_step(model, fast_ldpc=fast_ldpc)
+
+    def fn(params, generator):
+        return step(params, generator, batch, ebno_db)
+
+    return fn, (params, torch.Generator(device=device).manual_seed(seed))

@@ -37,7 +37,7 @@ from . import _build
 from .sepconv import (_DTYPE_CODES, _layers, _valid_range, with_fragments,
                       sepconv_stack_reference, stack_weights)
 
-MAX_ITERATIONS = 4
+MAX_ITERATIONS = 8  # K4: csrc/cgnn_iter.cu kMaxIt
 MAX_USERS = 8
 
 # Kernel launches since the last reset; each wrapper adds one per launch.

@@ -1,11 +1,14 @@
-"""CGNN neural-receiver core (serving path) in PyTorch.
+"""CGNN neural-receiver core (serving and eval paths) in PyTorch.
 
 Counterpart of `neural_rx_tpu/rx/cgnn.py`. Parameters are the JAX package's
-tree with torch tensors as leaves: {"s_init": [stack], "iterations":
-[{"agg": mlp, "update": stack}], "readout_llrs": [mlp], "readout_chest":
-mlp}; a stack is {"hidden": [...], "out": {"dw", "pw", "b"}}, an MLP
-{"hidden": [...], "out": {"w", "b"}}. Layout is channels-last
-[batch*num_tx, sym, sc, ch] as in the JAX package.
+tree with torch tensors as leaves: {"s_init": [stack per MCS, or one with
+var-MCS masking], "iterations": [{"agg": mlp, "update": stack}],
+"readout_llrs": [mlp per MCS, or one with masking], "readout_chest": mlp};
+a stack is {"hidden": [...], "out": {"dw", "pw", "b"}} (a full 3x3 conv
+layer {"w", "b"} for layer type "conv"), an MLP {"hidden": [...], "out":
+{"w", "b"}}. `init_cgnn_params` draws such a tree from a
+`torch.Generator`. Layout is channels-last [batch*num_tx, sym, sc, ch] as
+in the JAX package.
 
 Computation dtype follows the `dtype` argument (float32 or bfloat16 with
 float32 parameters cast at each use), with the JAX package's rounding
@@ -41,6 +44,7 @@ class CGNNConfig:
     num_units_readout: tuple
     layer_type_conv: str = "sepconv"
     var_mcs_masking: bool = False
+    initial_chest: bool = True  # the LS estimate is an input
     fused_convs: bool = False   # conv stacks through the stack kernel
     fused_iteration: bool = False  # each iteration in the iteration kernel
     fused_readout: bool = False  # with fused_iteration: the last iteration
@@ -52,6 +56,71 @@ class CGNNConfig:
     @property
     def num_mcs(self):
         return len(self.num_bits_per_symbol)
+
+    @property
+    def in_channels(self):
+        """y (re/im per antenna), pe (2) and the LS estimate if an input."""
+        return (4 if self.initial_chest else 2) * self.num_rx_ant + 2
+
+
+def _glorot(shape, fan_in: int, fan_out: int, gen: torch.Generator):
+    """Keras' glorot_uniform: U(-l, l), l = sqrt(6 / (fan_in + fan_out))."""
+    limit = float(np.sqrt(6.0 / (fan_in + fan_out)))
+    u = torch.rand(shape, generator=gen, device=gen.device)
+    return (2.0 * u - 1.0) * limit
+
+
+def _init_conv_layer(c_in: int, c_out: int, layer_type: str, gen):
+    if layer_type == "sepconv":
+        return {"dw": _glorot((3, 3, 1, c_in), 9, 9, gen),
+                "pw": _glorot((c_in, c_out), c_in, c_out, gen),
+                "b": torch.zeros(c_out, device=gen.device)}
+    return {"w": _glorot((3, 3, c_in, c_out), 9 * c_in, 9 * c_out, gen),
+            "b": torch.zeros(c_out, device=gen.device)}
+
+
+def _init_conv_stack(c_in: int, hidden, c_out: int, layer_type: str, gen):
+    layers, c = [], c_in
+    for n in hidden:
+        layers.append(_init_conv_layer(c, n, layer_type, gen))
+        c = n
+    return {"hidden": layers,
+            "out": _init_conv_layer(c, c_out, layer_type, gen)}
+
+
+def _init_mlp(d_in: int, hidden, d_out: int, gen):
+    def dense(i, o):
+        return {"w": _glorot((i, o), i, o, gen),
+                "b": torch.zeros(o, device=gen.device)}
+    layers, d = [], d_in
+    for n in hidden:
+        layers.append(dense(d, n))
+        d = n
+    return {"hidden": layers, "out": dense(d, d_out)}
+
+
+def init_cgnn_params(cfg: CGNNConfig, generator: torch.Generator) -> dict:
+    """A CGNN tree of `cfg`, float32 on the generator's device: the JAX
+    package's `init_cgnn_params` tree (same leaves, names and shapes) and
+    distributions (glorot-uniform kernels, zero biases), with values drawn
+    from `generator` in tree order."""
+    gen, lt = generator, cfg.layer_type_conv
+    n_init = 1 if cfg.var_mcs_masking else cfg.num_mcs
+    params = {"s_init": [
+        _init_conv_stack(cfg.in_channels, cfg.num_units_init, cfg.d_s, lt,
+                         gen) for _ in range(n_init)]}
+    params["iterations"] = [
+        {"agg": _init_mlp(cfg.d_s, cfg.num_units_agg[i], cfg.d_s, gen),
+         "update": _init_conv_stack(2 * cfg.d_s + 2, cfg.num_units_state[i],
+                                    cfg.d_s, lt, gen)}
+        for i in range(cfg.num_it)]
+    heads = ([max(cfg.num_bits_per_symbol)] if cfg.var_mcs_masking
+             else cfg.num_bits_per_symbol)
+    params["readout_llrs"] = [
+        _init_mlp(cfg.d_s, cfg.num_units_readout, nb, gen) for nb in heads]
+    params["readout_chest"] = _init_mlp(cfg.d_s, cfg.num_units_readout,
+                                        2 * cfg.num_rx_ant, gen)
+    return params
 
 
 def count_params(params) -> int:
@@ -105,32 +174,48 @@ def _update_state(p, s, a, pe, fused: bool = False, sc_valid=None):
 
 
 def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
-               mcs_ue_mask, dtype=torch.float32, sc_valid=None):
-    """Inference forward for one MCS, final readout only.
+               mcs_ue_mask, num_it: int | None = None, dtype=torch.float32,
+               sc_valid=None):
+    """Inference forward, readout after iteration `num_it` (default
+    cfg.num_it, 1 <= num_it <= cfg.num_it).
 
     y: [b, sym, sc, 2*rx_ant]; pe: [T, sym, sc, 2];
     h_hat: [b, T, sym, sc, 2*rx_ant] (LS estimate); active_tx: [b, T];
-    mcs_ue_mask: [b, T, 1]. sc_valid (optional int): number of valid
-    leading subcarriers of a bucket-padded grid; the power norm then
-    averages over valid REs and every conv layer re-zeros the padding.
+    mcs_ue_mask: [b, T, num_mcs] one-hot. sc_valid (optional int): number
+    of valid leading subcarriers of a bucket-padded grid; the power norm
+    then averages over valid REs and every conv layer re-zeros the padding.
 
-    Routes as in the JAX package: `fused_full` runs the whole CGNN in one
-    kernel from the stacked inputs (without `mcs_ue_mask`, as there);
-    `fused_iteration` runs each iteration in the iteration kernel, and with
-    `fused_readout` the last one returns both readouts. A fused route takes
-    only one-hidden-layer aggregation and readout MLPs and raises otherwise.
+    The initial state is one init stack per MCS, each times its column of
+    mcs_ue_mask and summed in MCS order, or with `var_mcs_masking` one
+    shared init stack without the mask. Routes and their MCS gates are the
+    JAX package's: `fused_full` runs the whole CGNN in one kernel from the
+    stacked inputs (without `mcs_ue_mask`, as there) for one MCS without
+    masking; `fused_iteration` runs each iteration in the iteration kernel,
+    and with `fused_readout` (one MCS, no masking) the last one returns
+    both readouts. Otherwise the readouts are plain: one LLR readout per
+    MCS, or with masking the single readout cut to each MCS's bits. A
+    fused route takes only one-hidden-layer aggregation and readout MLPs
+    (those of every shipped configuration) and raises otherwise, where the
+    JAX package falls back to its plain layers.
 
-    Returns (llrs, h_hats) shaped like the JAX package's: [[llr]] with llr
-    [b, T, sym, sc, num_bits] and [h_hat] [b, T, sym, sc, 2*rx_ant], float32.
+    Returns (llrs, h_hats) shaped like the JAX package's: [[llr per MCS]]
+    with llr [b, T, sym, sc, num_bits] and [h_hat] [b, T, sym, sc,
+    2*rx_ant], float32.
     """
-    if cfg.num_mcs != 1 or cfg.var_mcs_masking:
-        raise NotImplementedError("the serving path is single-MCS")
+    num_it = cfg.num_it if num_it is None else num_it
+    if not 1 <= num_it <= cfg.num_it:
+        raise ValueError(f"num_it must lie in 1..{cfg.num_it}, got {num_it}")
     if cfg.layer_type_conv != "sepconv":
         raise NotImplementedError(
             f"layer type {cfg.layer_type_conv!r} is not ported")
+    if not cfg.initial_chest:
+        raise NotImplementedError("a CGNN without the LS estimate is not "
+                                  "ported")
     b = y.shape[0]
     t = pe.shape[0]
     n_sc = y.shape[2]
+    its = params["iterations"][:num_it]
+    single = cfg.num_mcs == 1 and not cfg.var_mcs_masking
 
     sc_mask = None
     if sc_valid is not None:
@@ -155,23 +240,31 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
     z0 = torch.cat([y_b, pe_b, h_hat], dim=-1)
     z0_flat = z0.reshape((b * t,) + z0.shape[2:])
 
-    if cfg.fused_full:
+    if cfg.fused_full and single:
         full = (cgnn_iter.fused_cgnn_full if cfg.kernels
                 else cgnn_iter.fused_cgnn_full_reference)
-        llr, h_out = full(params, z0, pe, active_tx, sc_valid, cfg.num_it)
+        llr, h_out = full(params, z0, pe, active_tx, sc_valid, num_it)
         return [[llr.float()]], [h_out.float()]
 
-    s = _apply_conv_stack(params["s_init"][0], z0_flat,
-                          cfg.fused_convs and cfg.kernels, sc_valid)
-    s = s.reshape((b, t) + s.shape[1:])
-    s = s * mcs_ue_mask.to(dtype)[:, :, 0:1][..., None, None]
+    def run_init(p):
+        s = _apply_conv_stack(p, z0_flat, cfg.fused_convs and cfg.kernels,
+                              sc_valid)
+        return s.reshape((b, t) + s.shape[1:])
+
+    if cfg.var_mcs_masking:
+        s = run_init(params["s_init"][0])
+    else:
+        mm = mcs_ue_mask.to(dtype)
+        s = run_init(params["s_init"][0]) * mm[:, :, 0:1][..., None, None]
+        for idx in range(1, cfg.num_mcs):
+            s = s + (run_init(params["s_init"][idx])
+                     * mm[:, :, idx:idx + 1][..., None, None])
 
     iterate = (cgnn_iter.fused_iteration if cfg.kernels
                else cgnn_iter.fused_iteration_reference)
-    for i in range(cfg.num_it):
-        it_p = params["iterations"][i]
+    for i, it_p in enumerate(its):
         if cfg.fused_iteration:
-            if cfg.fused_readout and i == cfg.num_it - 1:
+            if cfg.fused_readout and i == num_it - 1 and single:
                 llr, h_out = iterate(it_p, s, pe, active_tx, sc_valid,
                                      params["readout_llrs"][0],
                                      params["readout_chest"])
@@ -185,9 +278,12 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
             a = a * sc_mask[None].to(a.dtype)
         s = _update_state(it_p["update"], s, a, pe,
                           cfg.fused_convs and cfg.kernels, sc_valid)
-    llr = _apply_mlp(params["readout_llrs"][0], s).float()
-    h_out = _apply_mlp(params["readout_chest"], s).float()
-    return [[llr]], [h_out]
+    if cfg.var_mcs_masking:
+        out = _apply_mlp(params["readout_llrs"][0], s).float()
+        llrs = [out[..., :nb] for nb in cfg.num_bits_per_symbol]
+    else:
+        llrs = [_apply_mlp(p, s).float() for p in params["readout_llrs"]]
+    return [llrs], [_apply_mlp(params["readout_chest"], s).float()]
 
 
 def pilot_positional_encoding(dmrs_grids: np.ndarray,

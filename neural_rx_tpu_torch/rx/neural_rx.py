@@ -7,7 +7,7 @@ plus `serve`, which returns what the JAX package's
 and the refined channel estimate, by the same batch-adaptive route. `apply`
 takes that route too and decodes each user's transport block;
 `preprocess_channel_ground_truth` puts a true channel into the layout of
-the channel estimates.
+the channel estimates; `init_params` makes seed-made parameters.
 """
 
 from __future__ import annotations
@@ -22,7 +22,8 @@ from .. import tables
 from ..kernels.ldpc import tb_decode_fast
 from ..phy.chest import LSChannelEstimator
 from ..phy.nr.tb import tb_decode
-from .cgnn import CGNNConfig, cgnn_apply, pilot_positional_encoding
+from .cgnn import (CGNNConfig, cgnn_apply, init_cgnn_params,
+                   pilot_positional_encoding)
 
 
 def resolve_device(device) -> torch.device:
@@ -34,6 +35,13 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def mcs_mask(shape, mcs_idx: int, num_mcs: int, device) -> torch.Tensor:
+    """[*shape, num_mcs] float32 one-hot: every user on MCS mcs_idx."""
+    mask = torch.zeros(tuple(shape) + (num_mcs,), device=device)
+    mask[..., mcs_idx] = 1.0
+    return mask
+
+
 def receiver_for(p, nrx_dtype=None, fused_full: bool = False,
                  kernels: bool = True, device="cuda"
                  ) -> "NeuralPUSCHReceiver":
@@ -42,6 +50,7 @@ def receiver_for(p, nrx_dtype=None, fused_full: bool = False,
     configuration's)."""
     return NeuralPUSCHReceiver(
         p.resource_grid, [c[0].num_bits_per_symbol for c in p.pusch_configs],
+        tb_configs=[[c.tb for c in tx.configs] for tx in p.transmitters],
         num_rx_ant=p.num_rx_antennas,
         max_num_tx=p.max_num_tx, num_it=p.num_nrx_iter, d_s=p.d_s,
         num_units_init=p.num_units_init, num_units_agg=p.num_units_agg,
@@ -49,6 +58,7 @@ def receiver_for(p, nrx_dtype=None, fused_full: bool = False,
         num_units_readout=p.num_units_readout,
         layer_type_conv=p.layer_type_conv,
         var_mcs_masking=p.mcs_var_mcs_masking,
+        initial_chest=p.initial_chest in ("ls", "nn"),
         nrx_dtype=p.nrx_dtype if nrx_dtype is None else nrx_dtype,
         fused_full=fused_full, kernels=kernels, device=device)
 
@@ -56,9 +66,12 @@ def receiver_for(p, nrx_dtype=None, fused_full: bool = False,
 class NeuralPUSCHReceiver:
     """Static configuration + functional apply for the neural receiver.
 
-    resource_grid: the PUSCH `ResourceGrid` of the UEs (its configs carry
-    each UE's transport-block chain for `apply`);
-    num_bits_per_symbol: one entry per MCS (`sim.config.Parameters`).
+    resource_grid: the PUSCH `ResourceGrid` of the UEs (the same for every
+    MCS); num_bits_per_symbol: one entry per MCS (`sim.config.Parameters`);
+    tb_configs: [mcs][ue] transport-block chains for `apply` (default: the
+    grid's configs, one MCS); initial_chest: whether the CGNN takes the LS
+    estimate (the receivers without it only make parameters: `apply` and
+    `serve` raise).
     fused_full: serve through the whole-CGNN kernel (the JAX entry's
     `NRX_DEPLOY_MEGA=1` route); kernels=False: every fused route, and the
     layered LDPC decoder, takes its kernel's plain version.
@@ -70,12 +83,17 @@ class NeuralPUSCHReceiver:
                  num_units_state, num_units_readout,
                  layer_type_conv: str = "sepconv",
                  var_mcs_masking: bool = False,
+                 initial_chest: bool = True,
                  nrx_dtype=torch.float32,
                  fused_full: bool = False,
                  kernels: bool = True,
-                 device="cuda"):
+                 device="cuda", tb_configs=None):
         self.device = resolve_device(device)
         self.rg = resource_grid
+        self.tb_configs = tb_configs or [[c.tb for c in resource_grid.configs]]
+        if len(self.tb_configs) != len(num_bits_per_symbol):
+            raise ValueError(f"{len(self.tb_configs)} MCS of transport-block "
+                             f"chains for {len(num_bits_per_symbol)} MCS")
         self.num_rx_ant = num_rx_ant
         self.max_num_tx = max_num_tx
         self.nrx_dtype = nrx_dtype
@@ -89,6 +107,7 @@ class NeuralPUSCHReceiver:
             num_units_readout=tuple(num_units_readout),
             layer_type_conv=layer_type_conv,
             var_mcs_masking=var_mcs_masking,
+            initial_chest=initial_chest,
             fused_convs=True,
             fused_full=fused_full,
             kernels=kernels)
@@ -103,6 +122,16 @@ class NeuralPUSCHReceiver:
         # precoders [T, ports] of the users
         self.w = np.stack([c.precoding_matrix()[:, 0]
                            for c in self.rg.configs])[:max_num_tx]
+
+    @property
+    def num_mcs(self) -> int:
+        return self.cgnn_cfg.num_mcs
+
+    def init_params(self, generator: torch.Generator) -> dict:
+        """{"cgnn": tree} of seed-made parameters (`init_cgnn_params`) on
+        the receiver's device."""
+        tree = init_cgnn_params(self.cgnn_cfg, generator)
+        return {"cgnn": _to(tree, self.device)}
 
     def preprocess_channel_ground_truth(self, h: torch.Tensor
                                         ) -> torch.Tensor:
@@ -134,33 +163,40 @@ class NeuralPUSCHReceiver:
         return y_in, h_in[:, :self.max_num_tx]
 
     def _cgnn(self, params, y_planar: torch.Tensor, active_tx: torch.Tensor,
-              fused_iteration: bool | None, slot_idx=None):
-        """(llr, h_hat, h_in) of the final iteration, by the route `serve`
-        documents, with the users of active_tx [b, T] active."""
+              fused_iteration: bool | None, slot_idx=None, mcs_ue_mask=None,
+              num_it: int | None = None):
+        """(llrs [per MCS], h_hat, h_in) after iteration num_it (default:
+        all), by the route `serve` documents, with the users of active_tx
+        [b, T] active and on the MCS of mcs_ue_mask [b, T, num_mcs]
+        (default: the first)."""
         if fused_iteration is None:
             fused_iteration = y_planar.shape[0] > 4
         cfg = dataclasses.replace(self.cgnn_cfg,
                                   fused_iteration=fused_iteration)
+        if mcs_ue_mask is None:
+            mcs_ue_mask = mcs_mask(active_tx.shape, 0, self.num_mcs,
+                                   active_tx.device)
         y_in, h_in = self._prepare_inputs(y_planar, slot_idx)
         llrs, h_hats = cgnn_apply(params["cgnn"], cfg, y_in, self.pe, h_in,
-                                  active_tx, torch.ones_like(active_tx)[
-                                      ..., None], dtype=self.nrx_dtype)
-        return llrs[-1][0], h_hats[-1], h_in
+                                  active_tx, mcs_ue_mask, num_it=num_it,
+                                  dtype=self.nrx_dtype)
+        return llrs[-1], h_hats[-1], h_in
 
     def serve(self, params, y_planar: torch.Tensor,
               fused_iteration: bool | None = None):
         """params {"cgnn": tree}; y_planar [b, 4, 14, sc, 2] float32 ->
         (llr [b, T, 14, sc, num_bits], h_hat [b, T, 14, sc, 2*rx_ant]),
-        float32, computed in `nrx_dtype` with all users active.
+        float32, computed in `nrx_dtype` with all users active on the first
+        MCS.
 
         Route, as the JAX entry picks it per call: every iteration in the
         iteration kernel at batch > 4 (fused_iteration=None), else the
         stack kernel alone; the whole-CGNN kernel if the receiver was built
-        with fused_full."""
+        with fused_full (one MCS)."""
         ones = torch.ones((y_planar.shape[0], self.max_num_tx),
                           device=y_planar.device)
-        llr, h_hat, _ = self._cgnn(params, y_planar, ones, fused_iteration)
-        return llr, h_hat
+        llrs, h_hat, _ = self._cgnn(params, y_planar, ones, fused_iteration)
+        return llrs[0], h_hat
 
     def apply(self, params, y: torch.Tensor, active_tx: torch.Tensor,
               mcs_arr_eval=(0,), mcs_ue_mask=None, num_it: int | None = None,
@@ -168,27 +204,43 @@ class NeuralPUSCHReceiver:
         """Eval forward: (b_hat [b, T, tb_size], h_hat [b, T, 14, sc,
         2*rx_ant], h_in (the LS estimate fed to the CGNN), crc [b, T]).
 
-        y: [b, rx_ant, 14, sc] complex64; active_tx: [b, T]. The CGNN takes
-        `serve`'s route in `nrx_dtype`; then each user's transport block is
-        decoded with its own scrambling: by the flooding boxplus decoder
-        (fast_ldpc=False, the reference's), or by the layered min-sum
-        kernel (fast_ldpc=True, one launch per user on the card; its plain
-        version if the receiver was built with kernels=False). Only the
-        single-MCS eval with the configured iteration count is ported."""
-        if tuple(mcs_arr_eval) != (0,) or mcs_ue_mask is not None or \
-                num_it not in (None, self.cgnn_cfg.num_it):
-            raise NotImplementedError(
-                "only the single-MCS eval with the configured iterations is "
-                "ported")
+        y: [b, rx_ant, 14, sc] complex64; active_tx: [b, T]. mcs_ue_mask
+        [b, T, num_mcs] puts each user on one MCS (default: every user on
+        mcs_arr_eval[0]); num_it cuts the CGNN after that many iterations.
+        The CGNN takes `serve`'s route in `nrx_dtype`; then the LLRs of
+        MCS mcs_arr_eval[0] are decoded, each user's transport block with
+        that MCS's chain and the user's scrambling, as the JAX package does
+        (in a mixed slot only the users on that MCS decode meaningfully):
+        by the flooding boxplus decoder (fast_ldpc=False, the reference's),
+        or by the layered min-sum kernel (fast_ldpc=True, one launch per
+        user on the card; its plain version if the receiver was built with
+        kernels=False)."""
         b = y.shape[0]
+        mcs0 = mcs_arr_eval[0]
+        if not 0 <= mcs0 < self.num_mcs:
+            raise ValueError(f"MCS index {mcs0} out of range: the receiver "
+                             f"has {self.num_mcs} MCS")
+        active = active_tx.to(torch.float32)
+        if mcs_ue_mask is None:
+            mcs_ue_mask = mcs_mask(active.shape, mcs0, self.num_mcs, y.device)
         y_planar = torch.stack([y.real, y.imag], dim=-1)
-        llr, h_hat, h_in = self._cgnn(params, y_planar,
-                                      active_tx.to(torch.float32), None,
-                                      slot_idx)
-        llr_flat = self.rg.demap_data(llr).reshape(b, self.max_num_tx, -1)
+        llrs, h_hat, h_in = self._cgnn(params, y_planar, active, None,
+                                       slot_idx, mcs_ue_mask, num_it)
+        llr_flat = self.rg.demap_data(llrs[mcs0]).reshape(
+            b, self.max_num_tx, -1)
         decode = functools.partial(
             tb_decode_fast, kernels=self.cgnn_cfg.kernels) if fast_ldpc \
             else tb_decode
-        b_hats, crcs = zip(*(decode(self.rg.configs[ue].tb, llr_flat[:, ue])
+        b_hats, crcs = zip(*(decode(self.tb_configs[mcs0][ue],
+                                    llr_flat[:, ue])
                              for ue in range(self.max_num_tx)))
         return torch.stack(b_hats, 1), h_hat, h_in, torch.stack(crcs, 1)
+
+
+def _to(tree, device):
+    """A parameter tree with every leaf moved to `device`."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)

@@ -17,7 +17,10 @@ draws, `__call__`. The system names route as the JAX package's:
 
 LMMSE detection is demapped with the max-log demapper. Each user's
 transport block is decoded by the flooding decoder or, with fast_ldpc, by
-the layered min-sum kernel (its plain version with kernels=False).
+the layered min-sum kernel (its plain version with kernels=False). Every
+user is on the evaluated MCS (`mcs_arr_eval_idx`): its bits, transmitter,
+noise variance, constellation and decode chain. As in the JAX package, the
+baselines apply no carrier frequency offset.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from ..rx.baselines import (LMMSEChannelInterpolator, kbest_detect,
                             lmmse_equalize)
 from ..weights import WEIGHTS_DIR
 from . import covariance
-from .e2e import EvalLink, refuse_unported
+from .e2e import EvalLink, eval_order, refuse_unported
 
 SYSTEMS = ("baseline_lslin_lmmse", "baseline_lsnn_lmmse",
            "baseline_lmmse_lmmse", "baseline_lmmse_kbest",
@@ -127,12 +130,13 @@ class BaselineE2EModel(EvalLink):
                 ("pilot_sel", self.rg._key, tx), y.device, lambda s=sel: s)]
         return self.interp(h_pilots, no=no)
 
-    def detect(self, y: torch.Tensor, h_hat: torch.Tensor, no: float
-               ) -> torch.Tensor:
-        """Per-RE MIMO detection -> LLRs [b, 14, sc, T, m]."""
+    def detect(self, y: torch.Tensor, h_hat: torch.Tensor, no: float,
+               mcs_idx: int = 0) -> torch.Tensor:
+        """Per-RE MIMO detection at MCS mcs_idx's constellation -> LLRs
+        [b, 14, sc, T, m]."""
         hh = h_hat.permute(0, 3, 4, 1, 2)  # [b, 14, sc, ant, T]
         yy = y.permute(0, 2, 3, 1)  # [b, 14, sc, ant]
-        m = self.transmitter.num_bits_per_symbol
+        m = self.transmitters[mcs_idx].num_bits_per_symbol
         if self.det_type == "kbest":
             return kbest_detect(yy, hh, no, m, k=64)
         x_hat, no_eff = lmmse_equalize(yy, hh, no)
@@ -140,15 +144,17 @@ class BaselineE2EModel(EvalLink):
                                   lambda: qam_points(m))
         return demap_maxlog(x_hat, points, no_eff)
 
-    def decode(self, llr: torch.Tensor, fast_ldpc: bool = False):
+    def decode(self, llr: torch.Tensor, fast_ldpc: bool = False,
+               mcs_idx: int = 0):
         """LLRs [b, 14, sc, T, m] -> (b_hat [b, T, tb_size], crc [b, T]):
-        each user's data REs, transport block decoded by the flooding
-        decoder or the layered min-sum kernel (one launch a user)."""
+        each user's data REs, transport block of MCS mcs_idx decoded by the
+        flooding decoder or the layered min-sum kernel (one launch a
+        user)."""
         llr = llr.permute(0, 3, 1, 2, 4)  # [b, T, 14, sc, m]
         llr_flat = self.rg.demap_data(llr).reshape(llr.shape[0],
                                                    llr.shape[1], -1)
         b_hats, crcs = [], []
-        for ue, cfg in enumerate(self.transmitter.configs):
+        for ue, cfg in enumerate(self.transmitters[mcs_idx].configs):
             if fast_ldpc:
                 bh, ok = tb_decode_fast(cfg.tb, llr_flat[:, ue],
                                         kernels=self.kernels)
@@ -159,22 +165,27 @@ class BaselineE2EModel(EvalLink):
         return torch.stack(b_hats, 1), torch.stack(crcs, 1)
 
     def forward(self, params, bits: torch.Tensor, h: torch.Tensor,
-                noise: torch.Tensor, no: float, fast_ldpc: bool = False):
-        """Everything after the draws: transmit `bits` in the configured
-        slot, y = sum h x + noise, `estimate`, `detect`, `decode`. no: the
-        noise variance of `noise` (of the evaluated MCS). params is unused
-        (the baselines have no weights). Returns (bits, b_hat [b, T,
-        tb_size], crc [b, T])."""
-        x = self.transmitter(bits)
+                noise: torch.Tensor, no: float, fast_ldpc: bool = False,
+                mcs_arr_eval_idx: int = 0):
+        """Everything after the draws: transmit `bits` with the transmitter
+        of MCS mcs_arr_eval_idx in the configured slot, y = sum h x +
+        noise, `estimate`, `detect`, `decode`. no: the noise variance of
+        `noise` (of the evaluated MCS). params is unused (the baselines
+        have no weights). Returns (bits, b_hat [b, T, tb_size], crc [b,
+        T])."""
+        x = self.transmitters[mcs_arr_eval_idx](bits)
         y = apply_ofdm_channel(x, h, None, noise=noise)
-        llr = self.detect(y, self.estimate(y, h, no), no)
-        return (bits,) + self.decode(llr, fast_ldpc)
+        llr = self.detect(y, self.estimate(y, h, no), no, mcs_arr_eval_idx)
+        return (bits,) + self.decode(llr, fast_ldpc, mcs_arr_eval_idx)
 
     def __call__(self, params, generator: torch.Generator, batch_size: int,
-                 ebno_db: float, fast_ldpc: bool = False):
-        """One Monte-Carlo batch: `draw` from `generator` (on the model's
-        device), then `forward` at the noise variance of `ebno_db`."""
-        bits, h, noise = self.draw(generator, batch_size, ebno_db)
+                 ebno_db: float, fast_ldpc: bool = False,
+                 mcs_arr_eval_idx: int = 0):
+        """One Monte-Carlo batch on MCS mcs_arr_eval_idx: `draw` from
+        `generator` (on the model's device), then `forward` at that MCS's
+        noise variance of `ebno_db`."""
+        order = eval_order(mcs_arr_eval_idx, None, self.num_mcs)
+        (bits,), h, noise = self.draw(generator, batch_size, ebno_db, order)
         return self.forward(params, bits, h, noise,
-                            self.p.noise_variance(ebno_db),
-                            fast_ldpc=fast_ldpc)
+                            self.p.noise_variance(ebno_db, order[0]),
+                            fast_ldpc=fast_ldpc, mcs_arr_eval_idx=order[0])

@@ -6,9 +6,10 @@ what the serving and eval paths read: the config fields, the per-(MCS, UE)
 the noise-variance rule of the JAX package's `sim/e2e.py`, and the channel
 model: TDL-B100, TDL-C300, DoubleTDL{low,medium,high} and AWGN. UMi, UMa
 (training) and Dataset channels are recorded by name with
-`channel_model = None`; `sim.e2e.E2EModel` refuses them, as it refuses a
-carrier frequency offset (`frequency_offset`, None when
-`cfo_offset_ppm` is 0, else the offset relative to the bandwidth).
+`channel_model = None`; `sim.e2e.E2EModel` refuses them. A carrier
+frequency offset (`cfo_offset_ppm` > 0) becomes `frequency_offset`, a
+`channel.cfo.FrequencyOffset` relative to the bandwidth, constant at eval
+and drawn per user in training, as in the JAX package (None without one).
 
 Values are parsed with `ast.literal_eval`. `X_eval` keys override `X` when
 training=False, so `nrx_rt` serves 132 PRB (1584 subcarriers) in eval mode
@@ -24,6 +25,7 @@ import os
 
 import torch
 
+from ..channel.cfo import FrequencyOffset
 from ..channel.double_tdl import DoubleTDLChannel
 from ..channel.tdl import TDLChannel
 from ..phy.nr.dmrs import DMRSConfig
@@ -168,9 +170,10 @@ class Parameters:
         self.frequency_offset = None
         if self.cfo_offset_ppm > 0:
             offset = carrier.carrier_frequency / 1e6 * self.cfo_offset_ppm
-            self.frequency_offset = offset / (
-                self.resource_grid.num_subcarriers
-                * carrier.subcarrier_spacing)
+            self.frequency_offset = FrequencyOffset(
+                offset / (self.resource_grid.num_subcarriers
+                          * carrier.subcarrier_spacing),
+                cp_length=0, constant_offset=not self.training)
 
     def noise_variance(self, ebno_db: float, mcs_idx: int = 0) -> float:
         """N0 for an Eb/N0 (or, with ebno=False, an SNR) in dB, for the

@@ -24,14 +24,19 @@ import numpy as np
 import torch
 
 
-def make_eval_step(model, fast_ldpc: bool = False, num_it: int | None = None):
+def make_eval_step(model, fast_ldpc: bool = False, num_it: int | None = None,
+                   mcs_arr_eval_idx: int | None = None):
     """step(params, generator, batch_size, ebno_db) -> int64 [4] array
     (bit errors, bits, block errors, blocks) of one batch of `model` (an
-    `E2EModel`, or a `BaselineE2EModel` with params {} and num_it None);
-    the two error counts come to the host in one copy."""
+    `E2EModel`, a `BaselineE2EModel` with params {} and num_it None, or a
+    `sim.mixed_mcs` model, whose b is one user's [b, tb_size]) on MCS
+    mcs_arr_eval_idx (default: the model's default, MCS 0); the two error
+    counts come to the host in one copy."""
     kwargs = {"fast_ldpc": fast_ldpc}
     if num_it is not None:
         kwargs["num_it"] = num_it
+    if mcs_arr_eval_idx is not None:
+        kwargs["mcs_arr_eval_idx"] = mcs_arr_eval_idx
 
     def step(params, generator, batch_size, ebno_db):
         b, b_hat, _ = model(params, generator, batch_size, ebno_db, **kwargs)
@@ -49,9 +54,11 @@ def sim_ber(model, params, ebno_dbs, batch_size: int,
             max_mc_iter: int = 100, num_target_block_errors: int = 200,
             target_bler: float | None = None, num_it: int | None = None,
             seed: int = 0, verbose: bool = True, mesh=None,
+            mcs_arr_eval_idx: int | None = None,
             fast_ldpc: bool = False, return_counts: bool = False,
             point_callback=None):
-    """Monte-Carlo sweep. Returns (ber, bler) arrays over ebno_dbs; with
+    """Monte-Carlo sweep of `model` on MCS mcs_arr_eval_idx (see
+    `make_eval_step`). Returns (ber, bler) arrays over ebno_dbs; with
     return_counts=True also the (block_errors, num_blocks) integer arrays
     (see `bler_confidence_interval`).
 
@@ -66,7 +73,8 @@ def sim_ber(model, params, ebno_dbs, batch_size: int,
         raise NotImplementedError(
             "a mesh or several processes are the multi-GPU slice's "
             "(ROADMAP A6)")
-    step = make_eval_step(model, fast_ldpc=fast_ldpc, num_it=num_it)
+    step = make_eval_step(model, fast_ldpc=fast_ldpc, num_it=num_it,
+                          mcs_arr_eval_idx=mcs_arr_eval_idx)
     generator = torch.Generator(device=model.device).manual_seed(seed)
     ebno_dbs = np.asarray(ebno_dbs, np.float32)
     bers = np.full(len(ebno_dbs), np.nan)

@@ -25,6 +25,18 @@ def ema_weights(label: str) -> str:
     return os.path.join(WEIGHTS_DIR, f"{label}_ema_weights.npz")
 
 
+def committed_weights(label: str) -> str:
+    """Path of the committed weights of configuration `label`: its EMA
+    weights, or {label}_weights.npz where only those are committed
+    (nrx_rt_var_mcs: the EMA pickle of that configuration reproduces no
+    committed curve, ROADMAP.md C4). Each `.npz` is named after the JAX
+    pickle it was converted from."""
+    path = ema_weights(label)
+    other = os.path.join(WEIGHTS_DIR, f"{label}_weights.npz")
+    return other if not os.path.exists(path) and os.path.exists(other) \
+        else path
+
+
 NRX_RT_EMA = ema_weights("nrx_rt")
 
 

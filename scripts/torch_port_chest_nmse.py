@@ -47,7 +47,7 @@ def main() -> int:
             for ebno in args.snr:
                 gen = torch.Generator(device=args.device).manual_seed(
                     args.seed)
-                bits, h, noise = truth.draw(gen, args.batch, ebno)
+                (bits,), h, noise = truth.draw(gen, args.batch, ebno)
                 no = p.noise_variance(ebno)
                 y = apply_ofdm_channel(truth.transmitter(bits), h, None,
                                        noise=noise)

@@ -1,0 +1,64 @@
+"""Copy the committed var-MCS BLER curves of the JAX package into the JSON
+file the PyTorch port's `chip_smoke.py` reads (`results/` is not part of
+the copy of the repository that runs on the GPU machine).
+
+    python scripts/torch_port_export_curves.py \
+        [neural_rx_tpu_torch/curves/nrx_rt_var_mcs.json]
+
+Reads, with numpy and pickle alone:
+- results/nrx_rt_var_mcs_results.pkl: the own-trained weights' curves
+  ("own"; reproduced by weights/nrx_rt_var_mcs_weights.pkl, ROADMAP.md C4),
+  key ('Neural Receiver', 2, mcs);
+- results/nrx_rt_var_mcs_ref_results.pkl: the imported reference weights'
+  curves ("ref"; those weights are not in the repository);
+- results/mixed_mcs_results.pkl: the mixed-MCS curves of user 0 ("mixed":
+  [ebno, same-MCS dict, mixed-MCS dict], keys (system name, MCS of user
+  0)), made with the imported weights.
+Each curve is written as {"ebno_db": [...], "bler": [...]} with the points
+the run did not reach (NaN) dropped.
+"""
+
+import json
+import os
+import pickle
+import sys
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SYSTEMS = {"Neural Receiver": "nrx", "Baseline - LS/lin+LMMSE": "lslin"}
+
+
+def _curve(ebno, bler) -> dict:
+    ebno, bler = np.asarray(ebno, float), np.asarray(bler, float)
+    keep = np.isfinite(bler)
+    return {"ebno_db": ebno[keep].tolist(), "bler": bler[keep].tolist()}
+
+
+def _per_mcs(name: str) -> dict:
+    with open(os.path.join(ROOT, "results", name), "rb") as f:
+        ebno, _, bler = pickle.load(f)
+    return {str(key[2]): _curve(ebno, v) for key, v in sorted(bler.items())
+            if key[0] == "Neural Receiver" and key[1] == 2}
+
+
+def main(out=os.path.join(ROOT, "neural_rx_tpu_torch", "curves",
+                          "nrx_rt_var_mcs.json")) -> int:
+    with open(os.path.join(ROOT, "results", "mixed_mcs_results.pkl"),
+              "rb") as f:
+        ebno, _, mixed = pickle.load(f)
+    record = {
+        "config": "nrx_rt_var_mcs", "users": 2,
+        "own": _per_mcs("nrx_rt_var_mcs_results.pkl"),
+        "ref": _per_mcs("nrx_rt_var_mcs_ref_results.pkl"),
+        "mixed": {SYSTEMS[name] + "_ue0_mcs" + str(mcs): _curve(ebno, v)
+                  for (name, mcs), v in sorted(mixed.items())}}
+    with open(out, "w") as f:
+        json.dump(record, f, indent=1)
+        f.write("\n")
+    print(out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(*sys.argv[1:]))

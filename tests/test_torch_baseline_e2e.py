@@ -296,8 +296,8 @@ def test_baseline_entry_on_cpu():
     ({"mesh": object()}, "multi-GPU"),
     ({"channel_type_name": "UMi"}, "UMi"),
     ({"channel_type_name": "Dataset"}, "dataset"),
-    ({"frequency_offset": 1e-3}, "frequency offset"),
-    ({"mcs_index": [14, 19]}, "several MCS")])
+    ({"mask_pilots": True}, "masked pilots"),
+    ({"custom_constellation": True}, "constellation")])
 def test_baseline_refuses_what_is_not_ported(dirs, change, match):
     p = Parameters("nrx_rt", system="baseline_lsnn_lmmse", training=False,
                    config_dir=dirs[0])

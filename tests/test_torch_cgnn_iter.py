@@ -11,7 +11,8 @@ randomized biases (so that MLP(0) on pad columns is not zero):
   None, an int and a (lo, hi) pair: rtol = atol = 2e-5, JAX's own bar
   (measured max 3.5e-7 of max |ref|).
 - K4 float32: rtol = atol = 5e-5, the bar of JAX's own fused_full tests
-  (measured 4.8e-7 of max |ref|).
+  (measured 4.8e-7 of max |ref|); also at 8 iterations of nrx_large's
+  widths, the most K4 takes.
 - bfloat16: the bar of tests/test_torch_sepconv.py for the stack, max abs
   error <= 2**-6 of max |ref| and < 1 % of elements differing (measured:
   bit-identical, both sides round at the same points).
@@ -297,3 +298,32 @@ def test_cgnn_apply_fused_routes_match_jax(params, flags):
     for g, w in ((got[0][-1][0], want[0][-1][0]), (got[1][-1], want[1][-1])):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=5e-5,
                                    atol=5e-5)
+
+
+def test_full_cgnn_reference_8_iterations_matches_jax():
+    """K4's plain version at 8 iterations (the most of any shipped
+    configuration, nrx_large's widths: init 18 -> 128 -> 128 -> 56, update
+    stacks 114 -> 128 -> 128 -> 56, JAX's init) against JAX
+    fused_cgnn_full in interpret mode, float32, rtol = atol = 5e-5; the
+    launch wrapper takes up to 8 iterations and refuses 9."""
+    cfg = CGNNConfig(num_bits_per_symbol=(4,), num_rx_ant=4, num_it=8,
+                     d_s=56, num_units_init=(128, 128),
+                     num_units_agg=((64,),) * 8,
+                     num_units_state=((128, 128),) * 8,
+                     num_units_readout=(128,))
+    jp = jax.jit(lambda k: init_cgnn_params(k, cfg))(jax.random.PRNGKey(4))
+    tp = from_jax_numpy(jp)
+    rng = np.random.default_rng(8)
+    z0 = rng.normal(size=(1, T, H, W, 18)).astype(np.float32)
+    pe = rng.normal(size=(T, H, W, 2)).astype(np.float32)
+    act = np.ones((1, T), np.float32)
+    want = jax_full(jp, *map(jnp.asarray, (z0, pe, act)), interpret=True)
+    got = cgnn_iter.fused_cgnn_full_reference(
+        tp, *map(torch.as_tensor, (z0, pe, act)), num_it=8)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=5e-5,
+                                   atol=5e-5)
+    assert cgnn_iter.MAX_ITERATIONS == 8
+    with pytest.raises(ValueError, match="1 to 8 iterations"):
+        cgnn_iter._launch_full(tp, torch.as_tensor(z0), torch.as_tensor(pe),
+                               torch.as_tensor(act), None, 9)

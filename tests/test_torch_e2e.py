@@ -235,7 +235,7 @@ def test_second_step_builds_no_table(port_side, monkeypatch):
     ({"mesh": object()}, "multi-GPU"),
     ({"channel_type_name": "UMi"}, "UMi"),
     ({"channel_type_name": "Dataset"}, "dataset"),
-    ({"frequency_offset": 1e-3}, "frequency offset"),
+    ({"mask_pilots": True}, "masked pilots"),
     ({"custom_constellation": True}, "constellation")])
 def test_e2e_refuses_what_is_not_ported(cfg_dir, change, match):
     p = Parameters("nrx_rt", training=False, config_dir=cfg_dir)
@@ -276,7 +276,7 @@ def test_draws_of_each_channel(tmp_path, label, channel, users):
             "AWGN", None, None)
     assert p.channel_type_name == channel and p.max_num_tx == users
     model = E2EModel(p, device="cpu")
-    bits, h, noise = model.draw(torch.Generator().manual_seed(0), 3, 4.0)
+    (bits,), h, noise = model.draw(torch.Generator().manual_seed(0), 3, 4.0)
     assert bits.shape == (3, users, model.transmitter.tb_size)
     assert h.shape == (3, 4, users, 2, 14, 48) and h.dtype == torch.complex64
     assert noise.shape == (3, 4, 14, 48)

@@ -171,7 +171,7 @@ def test_apply_refuses_unported_modes():
                                   device="cpu")
     y = torch.zeros((1, 4, 14, 48), dtype=torch.complex64)
     act = torch.ones((1, 2))
-    for kwargs in ({"mcs_arr_eval": (1,)}, {"num_it": 1},
-                   {"mcs_ue_mask": torch.ones((1, 2, 1))}):
-        with pytest.raises(NotImplementedError):
-            rx.apply({}, y, act, **kwargs)
+    params = rx.init_params(torch.Generator().manual_seed(0))
+    for kwargs in ({"mcs_arr_eval": (1,)}, {"num_it": 3}, {"num_it": 0}):
+        with pytest.raises(ValueError):
+            rx.apply(params, y, act, **kwargs)

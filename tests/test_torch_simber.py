@@ -188,7 +188,7 @@ def test_evaluate_cli_refuses(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="unknown system"):
         port_cli.main(["--config", "nrx_rt", "--system",
                        "baseline_lmmse_qr", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="several MCS"):
+    with pytest.raises(ValueError, match="out of range"):
         port_cli.main(["--config", "nrx_rt", "--mcs-idx", "1", "--device",
                        "cpu"])
     with pytest.raises(FileNotFoundError):
