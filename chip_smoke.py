@@ -84,7 +84,26 @@ Phases, each printing one JSON line with its seconds:
      sepconv, 8 iteration launches); the whole-CGNN kernel at 8 iterations
      against its plain version and route (bf16 and float32); the evaluate
      CLI on MCS 1; a step's device ms by stage and slots/s;
- 10. times: CUDA-event device time per kernel launch (kernel and plain) at
+ 10. train_path: training (`sim/training.py`, `cli/train.py`): the UMi
+     channel on the card (finite, mean power, frequency selectivity and
+     user independence at the bars of tests/test_tr38901.py); nrx_rt from a
+     seed-made init at its training width (4 PRB, 4 rx antennas, 2 users,
+     batch 128, UMi, phase 0), TRAIN_STEPS Adam steps with no kernel
+     launched: every loss finite, the data loss's mean over the last
+     TRAIN_WINDOW steps below that of the first by more than twice their
+     combined standard error; WARM_STEPS steps from the committed weights
+     at phase 1's Eb/N0, the data loss below the init's first mean by two
+     standard errors and within three of the JAX package's with the same
+     weights (JAX_WARM_LOSS);
+     e2e_rt phase 0 (TDL-C300, learned constellation, masked pilots, no LS
+     input, float32): the points move and stay centred at unit energy; the
+     train CLI's smoke into a temporary directory and the evaluate CLI on
+     the weights it wrote; the trained parameters through the eval receiver
+     at 132 PRB (one Monte-Carlo step, batch 30: 1 sepconv, 2 iteration, 2
+     LDPC launches, kernel route = plain route); `compute_cov` on UMi at 132
+     PRB (Hermitian, PSD); a step's device ms by stage, steps/s, the
+     device's busy share and the peak memory;
+ 11. times: CUDA-event device time per kernel launch (kernel and plain) at
      the shapes the main path gives it, with its bound, achieved TFLOP/s
      and share of the bound (the sepconv stack at N = 2 and on the batch-16
      route's init stack at N = 32, the whole-CGNN kernel at batch 1 and
@@ -209,6 +228,20 @@ MASKING_LABEL = "nrx_large_var_mcs_64qam_masking"  # 3 MCS, 8 iterations
 MASKING_BATCH = 8  # > 4: the iteration kernel's route
 MASKING_SEED = 0
 CFO_PPM = 0.1  # the frequency offset of the kernel-vs-plain CFO step
+TRAIN_LABEL = "nrx_rt"  # trains at 4 PRB, 2 users, batch 128, UMi
+TRAIN_SEED = 0
+TRAIN_BATCH = 128  # the batch of every phase of nrx_rt and e2e_rt
+TRAIN_STEPS = 400  # Adam steps from the seed-made init
+TRAIN_WINDOW = 50  # steps in each mean of the loss-fall check
+WARM_STEPS = 20  # steps from the committed weights, phase-1 Eb/N0
+# the JAX package's data loss with the committed nrx_rt EMA weights at
+# phase-1 sampling on UMi, batch 128, 16 batches, no update (mean, standard
+# error): scripts/torch_port_jax_train_loss.py on the CPU
+JAX_WARM_LOSS = (0.48769028671085835, 0.019965730458610505)
+E2E_LABEL = "e2e_rt"  # learned constellation, masked pilots, no LS input
+E2E_STEPS = 40
+CLI_SMOKE_ITERS = 200
+TRAIN_EVAL_EBNO_DB = 4.0
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_SYM, N_SC, N_TX = 14, 1584, 2
 
@@ -948,6 +981,300 @@ def var_mcs_path(dev, card, peaks, counts, reset):
     return launches, {"k4_8it": k4_time, "k5_qpsk": k5_qpsk}
 
 
+def train_path(dev, card, counts, reset):
+    """Phase 10: training at nrx_rt's training width on the card, the
+    e2e_rt phase 0, the train CLI's smoke, the trained parameters through
+    the eval receiver with its kernels, covariances on UMi. Emits the
+    phase's record, asserts it, and returns the launches by path."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from neural_rx_tpu_torch import weights
+    from neural_rx_tpu_torch.channel.apply import apply_ofdm_channel
+    from neural_rx_tpu_torch.channel.tr38901 import UMiUMaChannel
+    from neural_rx_tpu_torch.cli import compute_cov
+    from neural_rx_tpu_torch.cli import evaluate as cli_evaluate
+    from neural_rx_tpu_torch.cli import train as cli_train
+    from neural_rx_tpu_torch.entry import pack_params, train_entry
+    from neural_rx_tpu_torch.phy.constellation import Constellation
+    from neural_rx_tpu_torch.sim import training
+    from neural_rx_tpu_torch.sim.config import Parameters
+    from neural_rx_tpu_torch.sim.e2e import E2EModel
+
+    t0 = time.perf_counter()
+    zero = {"sepconv_stack": 0, "cgnn_iter": 0, "cgnn_full": 0,
+            "ldpc_decode": 0}
+    expected = {"train_step_b128": zero,
+                "train_eval_b30": {"sepconv_stack": 1, "cgnn_iter": 2,
+                                   "cgnn_full": 0, "ldpc_decode": 2}}
+    launches = {}
+
+    # (a) the UMi channel on the card, at the bars of tests/test_tr38901.py
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    umi = UMiUMaChannel("umi", 2.14e9, num_rx_ant=4, num_tx_ant=2,
+                        min_speed=0.0, max_speed=56.0)
+    h = umi(gen, 128, 2, 14, 48, 30e3)
+    h_pow = umi(gen, 64, 1, 1, 16, 30e3)
+    h0 = umi(gen, 128, 1, 1, 256, 30e3)[:, 0, 0, 0, 0]
+    hu = umi(gen, 512, 2, 1, 1, 30e3)
+    p0 = (h0.abs() ** 2).mean()
+    u1, u2 = hu[:, 0, 0, 0, 0, 0], hu[:, 0, 1, 0, 0, 0]
+    umi_rec = {
+        "shape": list(h.shape),
+        "finite": bool(torch.isfinite(torch.view_as_real(h)).all()),
+        "mean_power": float((h_pow.abs() ** 2).mean()),
+        "corr_adjacent_sc": float((h0[:, :-1] * h0[:, 1:].conj()).mean()
+                                  .abs() / p0),
+        "corr_128_sc": float((h0[:, :-128] * h0[:, 128:].conj()).mean()
+                             .abs() / p0),
+        "corr_users": float((u1 * u2.conj()).mean().abs() / torch.sqrt(
+            (u1.abs() ** 2).mean() * (u2.abs() ** 2).mean())),
+        "cfr_ms_b128": cuda_ms(lambda: umi(gen, 128, 2, 14, 48, 30e3), 10)}
+    del h, h_pow, h0, hu
+
+    # (b) nrx_rt from a seed-made init, phase 0, TRAIN_STEPS steps
+    fn, (params, gen) = train_entry(TRAIN_LABEL, device=dev,
+                                    batch=TRAIN_BATCH, seed=TRAIN_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t1 = time.perf_counter()
+    hist = training.loss_history([fn(params, gen)
+                                  for _ in range(TRAIN_STEPS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches["train_step_b128"] = counts()
+    reset()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ld = hist[:, 0]
+    first, last = ld[:TRAIN_WINDOW], ld[-TRAIN_WINDOW:]
+    se = float(np.sqrt(first.var(ddof=1) / len(first)
+                       + last.var(ddof=1) / len(last)))
+    fall = {"steps": TRAIN_STEPS, "first_losses": hist[:3].tolist(),
+            "last_losses": hist[-3:].tolist(),
+            "first_mean": float(first.mean()),
+            "last_mean": float(last.mean()), "combined_se": se,
+            "all_finite": bool(np.isfinite(hist).all()),
+            "wall_s": wall, "steps_per_s_wall": TRAIN_STEPS / wall,
+            "peak_memory_gb": peak_gb}
+    print(f"train nrx_rt: loss_data first {hist[0, 0]:.4f} mean(first "
+          f"{TRAIN_WINDOW}) {fall['first_mean']:.4f} -> mean(last "
+          f"{TRAIN_WINDOW}) {fall['last_mean']:.4f}, last {hist[-1, 0]:.4f}",
+          flush=True)
+
+    # a step's device ms by stage (the step's own pieces, in its order)
+    p = Parameters(TRAIN_LABEL, training=True)
+    model = E2EModel(p, training=True, device=dev)
+    sched = p.training_schedule
+    tp = training.trainable(params)
+    opt = training.make_adam(tp, float(sched["learning_rate"][0]))
+    step = training.make_step(model, p, opt, [0], TRAIN_BATCH, True,
+                              float(sched["weighting_double_readout"][0]),
+                              False, False)
+    step.set_snr_range(sched["min_training_snr_db"][0],
+                       sched["max_training_snr_db"][0])
+    stages = {k: [] for k in ("draws_tx_ms", "channel_ms", "forward_ms",
+                              "backward_ms", "adam_ms")}
+    for i in range(8):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        snr, active, mm = step.sample(gen)
+        bits = model._bits(gen, TRAIN_BATCH, [0])
+        slot = torch.randint(0, model._num_slots, (), generator=gen,
+                             device=dev)
+        x, coded = model.transmit(bits, [0], mm, active, slot,
+                                  return_coded=True)
+        ev[1].record()
+        h = model._channel(gen, TRAIN_BATCH)
+        y = apply_ofdm_channel(x, h, None, noise=model._noise(
+            gen, TRAIN_BATCH, snr, 0))
+        ev[2].record()
+        opt.zero_grad(set_to_none=True)
+        l_d, l_c = model.receiver.training_loss(tp, y, active, coded, h, mm,
+                                                slot_idx=slot)
+        loss = l_d + 0.02 * l_c
+        ev[3].record()
+        loss.backward()
+        ev[4].record()
+        opt.step()
+        ev[5].record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            for k, (a, b) in zip(stages, zip(ev[:-1], ev[1:])):
+                stages[k].append(a.elapsed_time(b))
+    stage_ms = {k: float(np.median(v)) for k, v in stages.items()}
+    stage_ms["step_ms"] = sum(stage_ms.values())
+    del tp, opt, step, x, h, y, loss
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(3):
+            fn(params, gen)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t1) * 1e3
+    busy_ms = sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    n_kernels = sum(1 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    profile_rec = {"steps": 3, "window_ms_per_step": window_ms / 3,
+                   "device_busy_ms_per_step": busy_ms / 3,
+                   "device_busy_share": busy_ms / window_ms,
+                   "kernels_per_step": n_kernels / 3}
+
+    # (c) warm start from the committed weights, phase-1 Eb/N0
+    p_rt = Parameters(TRAIN_LABEL, training=True)
+    warm_model = E2EModel(p_rt, training=True, device=dev)
+    warm, copied, kept = training.merge_matching_leaves(
+        warm_model.init_params(gen),
+        training.load_weights(weights.NRX_RT_EMA, dev))
+    warm = training.trainable(warm)
+    sched = p_rt.training_schedule
+    wstep = training.make_step(
+        warm_model, p_rt, training.make_adam(
+            warm, float(sched["learning_rate"][1])), [0], TRAIN_BATCH, True,
+        float(sched["weighting_double_readout"][1]), False, False)
+    wstep.set_snr_range(sched["min_training_snr_db"][1],
+                        sched["max_training_snr_db"][1])
+    whist = training.loss_history([wstep(warm, gen)
+                                   for _ in range(WARM_STEPS)])
+    w_se = float(whist[:, 0].std(ddof=1) / np.sqrt(WARM_STEPS))
+    warm_rec = {"copied": copied, "kept": kept, "steps": WARM_STEPS,
+                "loss_data_mean": float(whist[:, 0].mean()),
+                "loss_data_se": w_se,
+                "init_first_mean": fall["first_mean"],
+                "init_first_se": float(first.std(ddof=1)
+                                       / np.sqrt(len(first))),
+                "jax_mean": JAX_WARM_LOSS[0], "jax_se": JAX_WARM_LOSS[1],
+                "all_finite": bool(np.isfinite(whist).all())}
+    print("warm start nrx_rt: loss_data mean "
+          f"{warm_rec['loss_data_mean']:.4f} vs the init's first "
+          f"{TRAIN_WINDOW}-step mean {fall['first_mean']:.4f} (JAX, same "
+          f"weights and sampling: {JAX_WARM_LOSS[0]:.4f})", flush=True)
+    del warm, wstep, warm_model
+
+    # (d) e2e_rt phase 0: the constellation learns
+    efn, (eparams, egen) = train_entry(E2E_LABEL, device=dev,
+                                       batch=TRAIN_BATCH, seed=TRAIN_SEED)
+    before = Constellation.points(eparams["constellation"][0].detach(),
+                                  center=True)
+    reset()
+    ehist = training.loss_history([efn(eparams, egen)
+                                   for _ in range(E2E_STEPS)])
+    e2e_launches = counts()
+    reset()
+    after = Constellation.points(eparams["constellation"][0].detach(),
+                                 center=True)
+    e2e_rec = {"steps": E2E_STEPS, "first_losses": ehist[:2].tolist(),
+               "last_losses": ehist[-2:].tolist(),
+               "all_finite": bool(np.isfinite(ehist).all()),
+               "points_moved_max": float((after - before).abs().max()),
+               "points_mean_abs": float(after.mean().abs()),
+               "points_energy": float((after.abs() ** 2).mean()),
+               "launches": e2e_launches}
+    del efn, eparams
+
+    # (e) the train CLI's smoke, the evaluate CLI on what it wrote
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        cli_train.main(["--config", TRAIN_LABEL, "--smoke", "--iters",
+                        str(CLI_SMOKE_ITERS), "--weights-dir", tmp,
+                        "--log-dir", tmp, "--seed", str(TRAIN_SEED),
+                        "--device", dev.type])
+        smoke_s = time.perf_counter() - t1
+        wpath = os.path.join(tmp, f"{TRAIN_LABEL}_smoke_weights.npz")
+        with open(os.path.join(tmp, f"{TRAIN_LABEL}_smoke.jsonl")) as f:
+            smoke_log = [json.loads(line) for line in f]
+        cli_evaluate.main(["--config", TRAIN_LABEL, "--weights", wpath,
+                           "--snr", str(TRAIN_EVAL_EBNO_DB), "--max-iter",
+                           "1", "--fast-ldpc", "--results-dir", tmp,
+                           "--batch-size", str(MC_BATCH), "--device",
+                           dev.type])
+        with open(os.path.join(tmp, f"{TRAIN_LABEL}_results.pkl"),
+                  "rb") as f:
+            _, _, bler_cli = pickle.load(f)
+            keys = sorted(bler_cli)
+        cli_rec = {"smoke_seconds": smoke_s, "iters": CLI_SMOKE_ITERS,
+                   "loss_mean_first": smoke_log[0]["loss_mean"],
+                   "loss_mean_last": smoke_log[-1]["loss_mean"],
+                   "weights_bytes": os.path.getsize(wpath),
+                   "evaluate_keys": [list(k) for k in keys]}
+    reset()
+
+    # (f) the trained parameters through the eval receiver, K1 / K3 / K5
+    p_ev = Parameters(TRAIN_LABEL, training=False)
+    trained = pack_params(weights.unflatten({
+        k: v.detach().clone() for k, v in weights.flatten(params).items()}),
+        p_ev.nrx_dtype)
+    outs = []
+    for kernels in (True, False):
+        m = E2EModel(p_ev, kernels=kernels, device=dev)
+        g = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+        reset()
+        outs.append(m(trained, g, MC_BATCH, TRAIN_EVAL_EBNO_DB,
+                      fast_ldpc=True))
+        torch.cuda.synchronize()
+        if kernels:
+            launches["train_eval_b30"] = counts()
+    reset()
+    (b, b_hat, crc), ref = outs
+    eval_rec = {"counters": block_counts(b, b_hat),
+                "counters_plain": block_counts(ref[0], ref[1]),
+                "equals_plain_route": all(torch.equal(x, y)
+                                          for x, y in zip(outs[0], ref))}
+    del outs, trained, params
+
+    # (g) covariances of UMi at 132 PRB (the LMMSE baseline's input)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, covs = compute_cov.compute(TRAIN_LABEL, dev)
+    cov_s = time.perf_counter() - t1
+    cov_rec = {"seconds": cov_s, "shapes": [list(c.shape) for c in covs]}
+    for name, c in zip(("freq", "time", "space"), covs):
+        c = c.astype(np.complex128)
+        eig = np.linalg.eigvalsh(c)
+        cov_rec[name] = {
+            "hermitian_err": float(np.abs(c - c.conj().T).max()
+                                   / np.abs(c).max()),
+            "min_eig": float(eig.min()), "max_eig": float(eig.max())}
+
+    emit({"phase": "train_path", "config": TRAIN_LABEL, "card": card,
+          "umi": umi_rec, "loss_fall": fall, "stage_ms": stage_ms,
+          "steps_per_s_device": 1e3 / stage_ms["step_ms"],
+          "profile": profile_rec, "warm_start": warm_rec, "e2e_rt": e2e_rec,
+          "cli": cli_rec, "eval_check": eval_rec, "covariance": cov_rec,
+          "launches": launches, "expected": expected,
+          "seconds": time.perf_counter() - t0})
+    assert umi_rec["finite"] and umi_rec["shape"] == [128, 4, 2, 2, 14, 48]
+    assert 0.03 < umi_rec["mean_power"] < 3.0, umi_rec
+    assert umi_rec["corr_adjacent_sc"] > 0.8, umi_rec
+    assert umi_rec["corr_128_sc"] < 0.7, umi_rec
+    assert umi_rec["corr_users"] < 0.1, umi_rec
+    for route, want in expected.items():
+        assert launches[route] == want, (route, launches[route])
+    assert e2e_launches == zero, e2e_launches
+    assert fall["all_finite"] and warm_rec["all_finite"], (fall, warm_rec)
+    assert fall["last_mean"] < fall["first_mean"] - 2 * se, fall
+    # the warm start beats the seed-made init, and its loss is the JAX
+    # package's with the same weights (which is not half of the init's:
+    # 0.49 against 0.61-0.66 on the UMi of the training configuration)
+    assert warm_rec["loss_data_mean"] < fall["first_mean"] - 2 * np.hypot(
+        w_se, warm_rec["init_first_se"]), warm_rec
+    assert abs(warm_rec["loss_data_mean"] - JAX_WARM_LOSS[0]) < 3 * np.hypot(
+        w_se, JAX_WARM_LOSS[1]), warm_rec
+    assert e2e_rec["all_finite"] and e2e_rec["points_moved_max"] > 1e-4, \
+        e2e_rec
+    assert e2e_rec["points_mean_abs"] < 1e-5, e2e_rec
+    assert abs(e2e_rec["points_energy"] - 1.0) < 1e-5, e2e_rec
+    assert cli_rec["evaluate_keys"] == [["Neural Receiver", 2, 0]], cli_rec
+    assert eval_rec["equals_plain_route"], eval_rec
+    assert cov_rec["shapes"] == [[1584, 1584], [14, 14], [4, 4]], cov_rec
+    for name in ("freq", "time", "space"):
+        c = cov_rec[name]
+        assert c["hermitian_err"] < 1e-6, (name, c)
+        assert c["min_eig"] > -1e-6 * c["max_eig"], (name, c)
+    return launches
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -1444,7 +1771,11 @@ def main() -> int:
     var_launches, var_times = var_mcs_path(dev, card, peaks, counts, reset)
     launches.update(var_launches)
 
-    # 10. times (bf16, as served), at the shapes the main path gives each
+    # 10. training: nrx_rt at its training width, e2e_rt, the CLIs, the
+    # trained parameters through the eval receiver, covariances on UMi
+    launches.update(train_path(dev, card, counts, reset))
+
+    # 11. times (bf16, as served), at the shapes the main path gives each
     # kernel: stacks at N = 2 (batch 1), the iteration at batch 16, the
     # whole CGNN at batch 1
     t0 = time.perf_counter()

@@ -30,6 +30,13 @@ the neural receiver or LS/lin.
 `baseline_entry()` is the same step with a classical receiver
 (`sim.baseline_e2e.BaselineE2EModel`: LS, LMMSE or perfect-CSI channel
 estimate, LMMSE or K-Best detection) of any configuration in eval mode.
+
+`train_entry()` is one training step (`sim.training.make_step`) of a
+configuration at its training width (nrx_rt: 4 PRB, 4 rx antennas, 2 users,
+batch 128, UMi, float32) with the first phase of its schedule: the
+per-step sampling and draws from a `torch.Generator` on the device, the
+forward through the plain layers, the backward pass and an Adam update of
+seed-made parameters.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from .sim.config import Parameters
 from .sim.e2e import E2EModel
 from .sim.mixed_mcs import MixedMCSBaselineModel, MixedMCSE2EModel
 from .sim.simber import make_eval_step
+from .sim.training import make_adam, make_step, trainable
 
 NRX_DTYPE = torch.bfloat16
 
@@ -104,18 +112,26 @@ def make_receiver(training: bool = False, nrx_dtype=NRX_DTYPE,
                         fused_full=fused_full, kernels=kernels, device=device)
 
 
-def load_params(dtype=NRX_DTYPE, device="cuda",
-                path: str = weights.NRX_RT_EMA) -> dict:
-    """{"cgnn": tree} of the weights in `path` (default: the committed
-    nrx_rt EMA weights) on `device`, with every conv stack and MLP packed
-    once for the kernels."""
-    cgnn = weights.load(path, device=device)
+def pack_params(params: dict, dtype=NRX_DTYPE) -> dict:
+    """params with every conv stack and MLP of params["cgnn"] packed once
+    for the kernels in `dtype` (the packed buffers are cached in the tree:
+    pack trained parameters after their last update)."""
+    cgnn = params["cgnn"]
     for stack in cgnn["s_init"] + [it["update"] for it in cgnn["iterations"]]:
         pack_stack(stack, dtype)
     for mlp in [it["agg"] for it in cgnn["iterations"]] + cgnn[
             "readout_llrs"] + [cgnn["readout_chest"]]:
         pack_mlp(mlp, dtype)
-    return {"cgnn": cgnn}
+    return params
+
+
+def load_params(dtype=NRX_DTYPE, device="cuda",
+                path: str = weights.NRX_RT_EMA) -> dict:
+    """{"cgnn": tree} of the weights in `path` (default: the committed
+    nrx_rt EMA weights) on `device`, with every conv stack and MLP packed
+    once for the kernels, and "constellation" where the file holds a
+    trained one."""
+    return pack_params(weights.load_tree(path, device=device), dtype)
 
 
 def entry(device="cuda", batch: int = 1, mega: bool = False):
@@ -236,3 +252,30 @@ def mixed_mcs_entry(config: str = "nrx_rt_var_mcs", mcs_order=(0, 1),
         return step(params, generator, batch, ebno_db)
 
     return fn, (params, torch.Generator(device=device).manual_seed(seed))
+
+
+def train_entry(config: str = "nrx_rt", device="cuda",
+                batch: int | None = None, seed: int = 0):
+    """Returns (fn, example_args): fn(params, generator) -> (loss_data,
+    loss_chest, loss), 0-dim device tensors, one training step of `config`
+    (`E2EModel(training=True)`, its training channel and width) with the
+    first phase of its schedule (learning rate, Eb/N0 ranges, double
+    readout and weight, multiloss, train_tx) at `batch` (default: the
+    phase's), updating params in place with Adam (optax's defaults, created
+    here); example_args = (seed-made trainable params, a generator on
+    `device` seeded with `seed`)."""
+    device = resolve_device(device)
+    p = Parameters(config, training=True)
+    model = E2EModel(p, training=True, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = trainable(model.init_params(gen))
+    sched = p.training_schedule
+    step = make_step(
+        model, p, make_adam(params, float(sched["learning_rate"][0])),
+        list(range(len(p.mcs_index))), batch or int(sched["batch_size"][0]),
+        bool(sched["double_readout"][0]),
+        float(sched["weighting_double_readout"][0]),
+        bool(sched["apply_multiloss"][0]), bool(sched["train_tx"][0]))
+    step.set_snr_range(sched["min_training_snr_db"][0],
+                       sched["max_training_snr_db"][0])
+    return step, (params, gen)

@@ -3,7 +3,9 @@
 The port's copy of what the transmitter reads from
 `neural_rx_tpu/phy/constellation.py`: the point table, the bit labels and
 `Constellation` (points normalised as the JAX transmitter normalises
-them). Trainable constellations wait for the training slice.
+them), and the trainable point set of the end-to-end configurations:
+`Constellation.init_params` gives the real [2, 2^m] leaf, `points` centres
+it and normalises it to unit energy on every forward pass.
 
 Bit convention (38.211 §5.1 QAM, Sionna): for 2^m-QAM the m bits of a
 symbol split alternately between I and Q; each axis is a Gray-coded PAM
@@ -51,18 +53,27 @@ def bit_labels(num_bits_per_symbol: int) -> np.ndarray:
 
 
 class Constellation:
-    """A fixed QAM constellation; `_init_points` is the real [2, 2^m]
-    (re, im) array the JAX package keeps as its parameter leaf."""
+    """A QAM constellation; `_init_points` is the real [2, 2^m] (re, im)
+    array the JAX package keeps as its parameter leaf, trainable in the
+    end-to-end configurations."""
 
     def __init__(self, num_bits_per_symbol: int):
         self.num_bits_per_symbol = num_bits_per_symbol
         pts = qam_points(num_bits_per_symbol)
         self._init_points = np.stack([pts.real, pts.imag]).astype(np.float32)
 
+    def init_params(self, device="cpu") -> torch.Tensor:
+        """The initial (re, im) point array [2, 2^m] float32 on `device`:
+        a parameter leaf of a trainable constellation."""
+        return torch.tensor(self._init_points, device=device)
+
     @staticmethod
-    def points(params: torch.Tensor) -> torch.Tensor:
-        """The complex point set normalised to unit energy in complex64
-        arithmetic, as the JAX transmitter computes it
-        (`Constellation.points(..., center=False)`)."""
+    def points(params: torch.Tensor, center: bool = False) -> torch.Tensor:
+        """The complex point set of the (re, im) array `params` [2, 2^m],
+        centred first if `center`, normalised to unit energy, in complex64
+        arithmetic as the JAX package computes it. Differentiable in
+        `params`."""
         c = torch.complex(params[0], params[1])
+        if center:
+            c = c - c.mean()
         return c / torch.sqrt((c.abs() ** 2).mean())

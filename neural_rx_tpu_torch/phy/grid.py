@@ -97,7 +97,12 @@ class ResourceGrid:
         flat = grid.reshape(grid.shape[:-3] + (-1, grid.shape[-1]))
         return flat[..., idx, :]
 
-    def dmrs_grid_slot(self, slot_idx: int, device=None) -> torch.Tensor:
-        """DMRS grid of one slot: [num_tx, 14, sc] complex64."""
+    def dmrs_grid_slot(self, slot_idx, device=None) -> torch.Tensor:
+        """DMRS grid of one slot: [num_tx, 14, sc] complex64. slot_idx: an
+        int, or a 0-dim integer tensor on `device` (a slot drawn on the
+        device indexes the bank there)."""
+        if isinstance(slot_idx, torch.Tensor):
+            return tables.on_device(("dmrs_grids", self._key), device,
+                                    lambda: self.dmrs_grids)[slot_idx]
         return tables.on_device(("dmrs_grid", self._key, slot_idx), device,
                                 lambda: self.dmrs_grids[slot_idx])

@@ -17,10 +17,11 @@ import math
 import torch
 
 
-def ebnodb2no(ebno_db: float, num_bits_per_symbol: int, coderate: float,
+def ebnodb2no(ebno_db, num_bits_per_symbol: int, coderate: float,
               num_resource_elements: float | None = None,
-              num_data_symbols: int | None = None) -> float:
-    """Eb/N0 [dB] -> complex noise variance N0 (unit signal energy)."""
+              num_data_symbols: int | None = None):
+    """Eb/N0 [dB] -> complex noise variance N0 (unit signal energy): a
+    float for a number, a float32 tensor for a tensor of Eb/N0s."""
     ebno = 10.0 ** (ebno_db / 10.0)
     no = 1.0 / (ebno * num_bits_per_symbol * coderate)
     if num_resource_elements is not None and num_data_symbols is not None:
@@ -28,13 +29,17 @@ def ebnodb2no(ebno_db: float, num_bits_per_symbol: int, coderate: float,
     return no
 
 
-def complex_awgn(shape, no: float, generator: torch.Generator
-                 ) -> torch.Tensor:
+def complex_awgn(shape, no, generator: torch.Generator) -> torch.Tensor:
     """CN(0, no) noise, complex64, on the generator's device: real and
-    imaginary parts N(0, no/2)."""
-    std = math.sqrt(no / 2.0)
+    imaginary parts N(0, no/2). no: a number, or a tensor [batch] of one
+    variance per batch item (the first axis of `shape`)."""
     re = torch.randn(shape, generator=generator, device=generator.device)
     im = torch.randn(shape, generator=generator, device=generator.device)
+    if isinstance(no, torch.Tensor):
+        std = torch.sqrt(no.to(re.device, torch.float32) / 2.0).reshape(
+            (-1,) + (1,) * (len(shape) - 1))
+    else:
+        std = math.sqrt(no / 2.0)
     return torch.complex(re * std, im * std)
 
 

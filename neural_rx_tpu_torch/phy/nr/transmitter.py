@@ -3,7 +3,10 @@
 The port's copy of `neural_rx_tpu/phy/nr/transmitter.py:PUSCHTransmitter`
 (frequency domain, one transmitter per MCS for all its UEs: per-UE
 scrambling via n_rnti/n_id, per-UE DMRS ports, per-UE codebook
-precoding). Trainable constellations wait for the training slice.
+precoding), with the trainable point set of the end-to-end
+configurations (`constellation_points`). `encode` and `modulate` split the
+call, so the training model reads its labels (the coded bits) from the
+same encode.
 """
 
 from __future__ import annotations
@@ -38,26 +41,32 @@ class PUSCHTransmitter:
         self.w = np.stack([c.precoding_matrix() for c in self.configs])
         self.num_antenna_ports = c0.num_antenna_ports
 
-    def __call__(self, bits: torch.Tensor, slot_idx: int | None = None
+    def encode(self, bits: torch.Tensor) -> torch.Tensor:
+        """bits [batch, num_tx, tb_size] float {0,1} -> coded bits [batch,
+        num_tx, num_coded_bits]: each UE's transport block encoded with
+        its own scrambling."""
+        return torch.stack([tb_encode(cfg.tb, bits[:, i])
+                            for i, cfg in enumerate(self.configs)], dim=1)
+
+    def modulate(self, coded: torch.Tensor, slot_idx=None,
+                 constellation_points: torch.Tensor | None = None
                  ) -> torch.Tensor:
-        """bits [batch, num_tx, tb_size] float {0,1} on the output's
-        device -> x [batch, num_tx, ports, 14, sc] complex64. slot_idx
-        selects the DMRS bank entry (default: the configured slot)."""
+        """coded bits [batch, num_tx, num_coded_bits] -> x [batch, num_tx,
+        ports, 14, sc] complex64: QAM mapping (the fixed points, or
+        `constellation_points` [2^m] complex, through which gradients flow),
+        resource-grid mapping, the DMRS of slot slot_idx (an int or a 0-dim
+        integer tensor on the device; default: the configured slot) and
+        codebook precoding."""
         rg = self.resource_grid
-        dev = bits.device
+        dev = coded.device
         if slot_idx is None:
             slot_idx = self.configs[0].carrier.slot_number
-        points = Constellation.points(tables.on_device(
-            ("constellation", self.num_bits_per_symbol), dev,
-            lambda: self.constellation._init_points))
-
-        # Per-UE TB encode (different scrambling per UE) -> data symbols
-        grids = []
-        for i, cfg in enumerate(self.configs):
-            coded = tb_encode(cfg.tb, bits[:, i])  # [batch, G]
-            syms = map_bits(coded, points)  # [batch, n_data]
-            grids.append(rg.map_data(syms))  # [batch, 14, sc]
-        x = torch.stack(grids, dim=1)  # [batch, num_tx, 14, sc]
+        points = constellation_points
+        if points is None:
+            points = Constellation.points(tables.on_device(
+                ("constellation", self.num_bits_per_symbol), dev,
+                lambda: self.constellation._init_points))
+        x = rg.map_data(map_bits(coded, points))  # [batch, num_tx, 14, sc]
 
         # Add DMRS (pre-precoding, single layer per UE)
         x = x + rg.dmrs_grid_slot(slot_idx, dev)[None]
@@ -66,3 +75,12 @@ class PUSCHTransmitter:
         w = tables.on_device(("precoders", self.w.tobytes()), dev,
                              lambda: self.w[..., 0])  # [num_tx, ports]
         return x[:, :, None] * w[None, :, :, None, None]
+
+    def __call__(self, bits: torch.Tensor, slot_idx=None,
+                 constellation_points: torch.Tensor | None = None
+                 ) -> torch.Tensor:
+        """bits [batch, num_tx, tb_size] float {0,1} on the output's
+        device -> x [batch, num_tx, ports, 14, sc] complex64: `encode`,
+        then `modulate`."""
+        return self.modulate(self.encode(bits), slot_idx,
+                             constellation_points)

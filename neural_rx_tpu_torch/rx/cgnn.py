@@ -1,4 +1,4 @@
-"""CGNN neural-receiver core (serving and eval paths) in PyTorch.
+"""CGNN neural-receiver core (serving, eval and training) in PyTorch.
 
 Counterpart of `neural_rx_tpu/rx/cgnn.py`. Parameters are the JAX package's
 tree with torch tensors as leaves: {"s_init": [stack per MCS, or one with
@@ -17,7 +17,10 @@ separable-conv stacks (`fused_convs`, `kernels/sepconv.py`), each iteration
 (`fused_iteration`), the last one with both readouts (`fused_readout`), or
 the whole CGNN in one kernel (`fused_full`, both in
 `kernels/cgnn_iter.py`). A fused route runs its CUDA kernel, or its plain
-version when `CGNNConfig.kernels` is False.
+version when `CGNNConfig.kernels` is False. Training (`training=True`)
+takes none of them, whatever the flags say: it runs the plain layers under
+autograd, as the JAX package trains on its XLA layers (its Pallas kernels
+have no VJP).
 """
 
 from __future__ import annotations
@@ -175,12 +178,14 @@ def _update_state(p, s, a, pe, fused: bool = False, sc_valid=None):
 
 def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
                mcs_ue_mask, num_it: int | None = None, dtype=torch.float32,
-               sc_valid=None):
-    """Inference forward, readout after iteration `num_it` (default
-    cfg.num_it, 1 <= num_it <= cfg.num_it).
+               sc_valid=None, training: bool = False,
+               apply_multiloss: bool = False):
+    """Forward pass, readout after iteration `num_it` (default cfg.num_it,
+    1 <= num_it <= cfg.num_it).
 
     y: [b, sym, sc, 2*rx_ant]; pe: [T, sym, sc, 2];
-    h_hat: [b, T, sym, sc, 2*rx_ant] (LS estimate); active_tx: [b, T];
+    h_hat: [b, T, sym, sc, 2*rx_ant] (LS estimate), or None for a CGNN
+    without it (`cfg.initial_chest` False); active_tx: [b, T];
     mcs_ue_mask: [b, T, num_mcs] one-hot. sc_valid (optional int): number
     of valid leading subcarriers of a bucket-padded grid; the power norm
     then averages over valid REs and every conv layer re-zeros the padding.
@@ -196,11 +201,13 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
     MCS, or with masking the single readout cut to each MCS's bits. A
     fused route takes only one-hidden-layer aggregation and readout MLPs
     (those of every shipped configuration) and raises otherwise, where the
-    JAX package falls back to its plain layers.
+    JAX package falls back to its plain layers. With `training` no fused
+    route is taken (plain layers, differentiable), and with
+    `apply_multiloss` the readouts follow every iteration.
 
-    Returns (llrs, h_hats) shaped like the JAX package's: [[llr per MCS]]
-    with llr [b, T, sym, sc, num_bits] and [h_hat] [b, T, sym, sc,
-    2*rx_ant], float32.
+    Returns (llrs, h_hats) shaped like the JAX package's: a list over
+    readout points of [llr per MCS] with llr [b, T, sym, sc, num_bits],
+    and a list of h_hat [b, T, sym, sc, 2*rx_ant], float32.
     """
     num_it = cfg.num_it if num_it is None else num_it
     if not 1 <= num_it <= cfg.num_it:
@@ -208,14 +215,16 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
     if cfg.layer_type_conv != "sepconv":
         raise NotImplementedError(
             f"layer type {cfg.layer_type_conv!r} is not ported")
-    if not cfg.initial_chest:
-        raise NotImplementedError("a CGNN without the LS estimate is not "
-                                  "ported")
+    if (h_hat is None) == cfg.initial_chest:
+        raise ValueError("h_hat is the CGNN's input exactly when "
+                         "cfg.initial_chest")
     b = y.shape[0]
     t = pe.shape[0]
     n_sc = y.shape[2]
     its = params["iterations"][:num_it]
     single = cfg.num_mcs == 1 and not cfg.var_mcs_masking
+    fused_convs = cfg.fused_convs and cfg.kernels and not training
+    fused_iteration = cfg.fused_iteration and not training
 
     sc_mask = None
     if sc_valid is not None:
@@ -223,7 +232,8 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
             torch.float32)[None, None, :, None]
         y = y * sc_mask
         pe = pe * sc_mask
-        h_hat = h_hat * sc_mask[None]
+        if h_hat is not None:
+            h_hat = h_hat * sc_mask[None]
 
     # Input power normalization: unit mean power per batch sample
     mean_sq = (y.float() ** 2).mean(dim=(1, 2, 3), keepdim=True)
@@ -232,23 +242,24 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
     norm = torch.rsqrt(mean_sq + 1e-12)
     y = (y * norm).to(dtype)
     pe = pe.to(dtype)
-    h_hat = (h_hat * norm[:, None]).to(dtype)
 
     # Stack per-user input: broadcast y to all users
     y_b = y[:, None].expand((b, t) + y.shape[1:])
     pe_b = pe[None].expand((b, t) + pe.shape[1:])
-    z0 = torch.cat([y_b, pe_b, h_hat], dim=-1)
+    feats = [y_b, pe_b]
+    if h_hat is not None:
+        feats.append((h_hat * norm[:, None]).to(dtype))
+    z0 = torch.cat(feats, dim=-1)
     z0_flat = z0.reshape((b * t,) + z0.shape[2:])
 
-    if cfg.fused_full and single:
+    if cfg.fused_full and single and not training:
         full = (cgnn_iter.fused_cgnn_full if cfg.kernels
                 else cgnn_iter.fused_cgnn_full_reference)
         llr, h_out = full(params, z0, pe, active_tx, sc_valid, num_it)
         return [[llr.float()]], [h_out.float()]
 
     def run_init(p):
-        s = _apply_conv_stack(p, z0_flat, cfg.fused_convs and cfg.kernels,
-                              sc_valid)
+        s = _apply_conv_stack(p, z0_flat, fused_convs, sc_valid)
         return s.reshape((b, t) + s.shape[1:])
 
     if cfg.var_mcs_masking:
@@ -260,30 +271,38 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
             s = s + (run_init(params["s_init"][idx])
                      * mm[:, :, idx:idx + 1][..., None, None])
 
+    def readouts(s):
+        if cfg.var_mcs_masking:
+            out = _apply_mlp(params["readout_llrs"][0], s).float()
+            llr = [out[..., :nb] for nb in cfg.num_bits_per_symbol]
+        else:
+            llr = [_apply_mlp(p, s).float() for p in params["readout_llrs"]]
+        return llr, _apply_mlp(params["readout_chest"], s).float()
+
     iterate = (cgnn_iter.fused_iteration if cfg.kernels
                else cgnn_iter.fused_iteration_reference)
+    llrs, h_hats = [], []
     for i, it_p in enumerate(its):
-        if cfg.fused_iteration:
+        if fused_iteration:
             if cfg.fused_readout and i == num_it - 1 and single:
                 llr, h_out = iterate(it_p, s, pe, active_tx, sc_valid,
                                      params["readout_llrs"][0],
                                      params["readout_chest"])
                 return [[llr.float()]], [h_out.float()]
             s = iterate(it_p, s, pe, active_tx, sc_valid)
-            continue
-        a = _aggregate_user_states(it_p["agg"], s, active_tx, dtype)
-        if sc_mask is not None:
-            # pad columns carry MLP(0); the update stack's first 3x3 conv
-            # would bleed it into the last valid column
-            a = a * sc_mask[None].to(a.dtype)
-        s = _update_state(it_p["update"], s, a, pe,
-                          cfg.fused_convs and cfg.kernels, sc_valid)
-    if cfg.var_mcs_masking:
-        out = _apply_mlp(params["readout_llrs"][0], s).float()
-        llrs = [out[..., :nb] for nb in cfg.num_bits_per_symbol]
-    else:
-        llrs = [_apply_mlp(p, s).float() for p in params["readout_llrs"]]
-    return [llrs], [_apply_mlp(params["readout_chest"], s).float()]
+        else:
+            a = _aggregate_user_states(it_p["agg"], s, active_tx, dtype)
+            if sc_mask is not None:
+                # pad columns carry MLP(0); the update stack's first 3x3
+                # conv would bleed it into the last valid column
+                a = a * sc_mask[None].to(a.dtype)
+            s = _update_state(it_p["update"], s, a, pe, fused_convs,
+                              sc_valid)
+        if (training and apply_multiloss) or i == num_it - 1:
+            llr, h_out = readouts(s)
+            llrs.append(llr)
+            h_hats.append(h_out)
+    return llrs, h_hats
 
 
 def pilot_positional_encoding(dmrs_grids: np.ndarray,

@@ -1,13 +1,17 @@
 """NeuralPUSCHReceiver: dense LS estimate + CGNN (+ transport-block decode).
 
 Counterpart of `neural_rx_tpu/rx/neural_rx.py:NeuralPUSCHReceiver`
-(`__init__`, the planar `_prepare_inputs` and the eval forward `apply`),
-plus `serve`, which returns what the JAX package's
-`__graft_entry__.entry()` function returns: the final-iteration LLR grid
-and the refined channel estimate, by the same batch-adaptive route. `apply`
-takes that route too and decodes each user's transport block;
+(`__init__`, the planar `_prepare_inputs`, the eval forward `apply` and
+the training forward `training_loss`), plus `serve`, which returns what the
+JAX package's `__graft_entry__.entry()` function returns: the
+final-iteration LLR grid and the refined channel estimate, by the same
+batch-adaptive route. `apply` takes that route too and decodes each user's
+transport block; `training_loss` takes the plain layers under autograd and
+returns the BCE data loss and the channel-estimate MSE;
 `preprocess_channel_ground_truth` puts a true channel into the layout of
-the channel estimates; `init_params` makes seed-made parameters.
+the channel estimates; `init_params` makes seed-made parameters. The
+end-to-end configurations feed the CGNN without the LS estimate and with
+the pilot REs of y zeroed (`mask_pilots`).
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ def receiver_for(p, nrx_dtype=None, fused_full: bool = False,
         layer_type_conv=p.layer_type_conv,
         var_mcs_masking=p.mcs_var_mcs_masking,
         initial_chest=p.initial_chest in ("ls", "nn"),
+        mask_pilots=p.mask_pilots,
         nrx_dtype=p.nrx_dtype if nrx_dtype is None else nrx_dtype,
         fused_full=fused_full, kernels=kernels, device=device)
 
@@ -70,8 +75,9 @@ class NeuralPUSCHReceiver:
     MCS); num_bits_per_symbol: one entry per MCS (`sim.config.Parameters`);
     tb_configs: [mcs][ue] transport-block chains for `apply` (default: the
     grid's configs, one MCS); initial_chest: whether the CGNN takes the LS
-    estimate (the receivers without it only make parameters: `apply` and
-    `serve` raise).
+    estimate; mask_pilots: zero y's pilot REs before the CGNN (the
+    end-to-end configurations, whose pilots carry no energy; not with the
+    LS estimate).
     fused_full: serve through the whole-CGNN kernel (the JAX entry's
     `NRX_DEPLOY_MEGA=1` route); kernels=False: every fused route, and the
     layered LDPC decoder, takes its kernel's plain version.
@@ -84,6 +90,7 @@ class NeuralPUSCHReceiver:
                  layer_type_conv: str = "sepconv",
                  var_mcs_masking: bool = False,
                  initial_chest: bool = True,
+                 mask_pilots: bool = False,
                  nrx_dtype=torch.float32,
                  fused_full: bool = False,
                  kernels: bool = True,
@@ -118,7 +125,11 @@ class NeuralPUSCHReceiver:
         pe = pilot_positional_encoding(self.rg.dmrs_grids[slot],
                                        self.rg.pilot_mask)[:max_num_tx]
         self.pe = torch.as_tensor(pe, device=self.device)
-        self._ls = LSChannelEstimator(self.rg)
+        if initial_chest and mask_pilots:
+            raise ValueError("the LS estimate needs the pilots: no "
+                             "initial estimate with masked pilots")
+        self.mask_pilots = mask_pilots
+        self._ls = LSChannelEstimator(self.rg) if initial_chest else None
         # precoders [T, ports] of the users
         self.w = np.stack([c.precoding_matrix()[:, 0]
                            for c in self.rg.configs])[:max_num_tx]
@@ -146,17 +157,25 @@ class NeuralPUSCHReceiver:
 
     def _prepare_inputs(self, y_planar: torch.Tensor, slot_idx=None):
         """y_planar [b, rx_ant, sym, sc, 2] float32 (re/im planes) ->
-        (y_in [b, sym, sc, 2*rx_ant], h_in [b, T, sym, sc, 2*rx_ant]),
-        channel order [re a0.., im a0..]. bf16 receivers round y before
-        the transpose and the LS estimate after its FOCC average, as the
-        JAX package does; the LS estimate reads the f32 input. slot_idx
+        (y_in [b, sym, sc, 2*rx_ant], h_in [b, T, sym, sc, 2*rx_ant] or None
+        without the LS estimate), channel order [re a0.., im a0..]. With
+        masked pilots y's pilot REs are zeroed first. bf16 receivers round y
+        before the transpose and the LS estimate after its FOCC average, as
+        the JAX package does; the LS estimate reads the f32 input. slot_idx
         selects the DMRS values the transmitter used (default: the
-        configured slot)."""
+        configured slot; an int or a 0-dim tensor on the device)."""
         b, ant = y_planar.shape[0], y_planar.shape[1]
+        if self.mask_pilots:
+            pilot = tables.on_device(
+                ("pilot_mask", self.rg._key), y_planar.device,
+                lambda: self.rg.pilot_mask)[None, None, :, :, None]
+            y_planar = torch.where(pilot, 0.0, y_planar)
         bf16 = self.nrx_dtype == torch.bfloat16
         y_t = y_planar.to(self.nrx_dtype) if bf16 else y_planar
         y_in = y_t.permute(0, 2, 3, 4, 1).reshape(
             b, y_planar.shape[2], y_planar.shape[3], 2 * ant)
+        if self._ls is None:
+            return y_in, None
         h_in = self._ls.estimate_planar(
             y_planar, slot_idx=slot_idx,
             out_dtype=self.nrx_dtype if bf16 else None)
@@ -235,6 +254,54 @@ class NeuralPUSCHReceiver:
                                     llr_flat[:, ue])
                              for ue in range(self.max_num_tx)))
         return torch.stack(b_hats, 1), h_hat, h_in, torch.stack(crcs, 1)
+
+    def training_loss(self, params, y: torch.Tensor, active_tx: torch.Tensor,
+                      labels, h: torch.Tensor | None,
+                      mcs_ue_mask: torch.Tensor, mcs_arr_eval=None,
+                      apply_multiloss: bool = False,
+                      num_it: int | None = None, slot_idx=None):
+        """Training forward: (loss_data, loss_chest), float32 scalars,
+        differentiable in params.
+
+        y: [b, rx_ant, 14, sc] complex64; active_tx [b, T]; labels: one
+        coded-bit tensor [b, T, G] per MCS of mcs_arr_eval (default: every
+        MCS), the transmitted bits; h: the true CFR [b, rx_ant, T, ports,
+        14, sc] or None; mcs_ue_mask [b, T, num_mcs]; slot_idx: the slot
+        whose DMRS was sent. The CGNN runs its plain layers
+        (`cgnn_apply(training=True)`), with the readouts after every
+        iteration if apply_multiloss. loss_data sums, over the readout
+        points and the MCS, the mean over all entries of BCE with logits
+        (softplus(llr) - label * llr, llr = log p1/p0) times the user's MCS
+        mask and activity; loss_chest sums over the readout points the mean
+        squared error of the channel readout against the precoded true
+        channel, times the activity. Neither is renormalised by the share
+        of active entries, as in the JAX package."""
+        if mcs_arr_eval is None:
+            mcs_arr_eval = list(range(self.num_mcs))
+        active = active_tx.to(torch.float32)
+        y_planar = torch.stack([y.real, y.imag], dim=-1)
+        y_in, h_in = self._prepare_inputs(y_planar, slot_idx)
+        llrs, h_hats = cgnn_apply(
+            params["cgnn"], self.cgnn_cfg, y_in, self.pe, h_in, active,
+            mcs_ue_mask, num_it=num_it, dtype=self.nrx_dtype, training=True,
+            apply_multiloss=apply_multiloss)
+        b = y.shape[0]
+        loss_data = torch.zeros((), device=y.device)
+        for llrs_it in llrs:
+            for li, idx in enumerate(mcs_arr_eval):
+                llr = self.rg.demap_data(llrs_it[idx]).reshape(
+                    b, self.max_num_tx, -1)
+                bce = torch.nn.functional.softplus(llr) - labels[li] * llr
+                m = (mcs_ue_mask[:, :, idx] * active)[..., None]
+                loss_data = loss_data + (bce * m).mean()
+        loss_chest = torch.zeros((), device=y.device)
+        if h is not None:
+            h_label = self.preprocess_channel_ground_truth(h)
+            for hh in h_hats:
+                se = (h_label - hh) ** 2
+                loss_chest = loss_chest + (
+                    se * active[:, :, None, None, None]).mean()
+        return loss_data, loss_chest
 
 
 def _to(tree, device):

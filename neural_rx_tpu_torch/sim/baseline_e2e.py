@@ -78,7 +78,7 @@ class BaselineE2EModel(EvalLink):
         if system not in SYSTEMS:
             raise ValueError(f"unknown baseline system {system!r}; one of "
                              f"{', '.join(SYSTEMS)}")
-        refuse_unported(sys_parameters, mesh=mesh)
+        refuse_unported(sys_parameters, mesh=mesh, baseline=True)
         super().__init__(sys_parameters, device)
         self.system = system
         parts = system.split("_")

@@ -3,10 +3,14 @@
 The port's counterpart of `neural_rx_tpu/sim/config.py:Parameters`, cut to
 what the serving and eval paths read: the config fields, the per-(MCS, UE)
 `PUSCHConfig`s, the shared resource grid, one `PUSCHTransmitter` per MCS,
-the noise-variance rule of the JAX package's `sim/e2e.py`, and the channel
-model: TDL-B100, TDL-C300, DoubleTDL{low,medium,high} and AWGN. UMi, UMa
-(training) and Dataset channels are recorded by name with
-`channel_model = None`; `sim.e2e.E2EModel` refuses them. A carrier
+the noise-variance rule of the JAX package's `sim/e2e.py` (per batch item
+in training, with the rate shift of masked pilots), and the channel model:
+TDL-B100, TDL-C300, DoubleTDL{low,medium,high}, the 38.901 UMi and UMa
+(the training channel of most configurations) and AWGN. The Dataset
+channel is recorded by name with `channel_model = None`; the E2E models
+refuse it. The [training] section's keys (`training_schedule`,
+`mcs_training_probs`, `mcs_training_snr_db_offset`, `eval_ebno_db_arr`)
+are attributes, the optional two None where a file lacks them. A carrier
 frequency offset (`cfo_offset_ppm` > 0) becomes `frequency_offset`, a
 `channel.cfo.FrequencyOffset` relative to the bandwidth, constant at eval
 and drawn per user in training, as in the JAX package (None without one).
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import ast
 import configparser
+import math
 import os
 
 import torch
@@ -28,6 +33,7 @@ import torch
 from ..channel.cfo import FrequencyOffset
 from ..channel.double_tdl import DoubleTDLChannel
 from ..channel.tdl import TDLChannel
+from ..channel.tr38901 import UMiUMaChannel
 from ..phy.nr.dmrs import DMRSConfig
 from ..phy.misc import ebnodb2no
 from ..phy.nr.pusch import CarrierConfig, PUSCHConfig
@@ -93,6 +99,9 @@ class Parameters:
             setattr(self, key, value)
         if not hasattr(self, "mcs_var_mcs_masking"):
             self.mcs_var_mcs_masking = False
+        for name in ("mcs_training_probs", "mcs_training_snr_db_offset"):
+            if not hasattr(self, name):
+                setattr(self, name, None)
         if system == "dummy":
             return
 
@@ -164,7 +173,14 @@ class Parameters:
                 num_tx_ant=ports, norm_channel=self.channel_norm,
                 correlation=ct[len("DoubleTDL"):])
             self.channel_num_tx = 2
-        elif ct not in ("UMi", "UMa", "AWGN", "Dataset"):
+        elif ct in ("UMi", "UMa"):
+            self.channel_model = UMiUMaChannel(
+                ct.lower(), carrier.carrier_frequency,
+                num_rx_ant=self.num_rx_antennas, num_tx_ant=ports,
+                min_speed=self.min_ut_velocity,
+                max_speed=self.max_ut_velocity,
+                normalize=self.channel_norm)
+        elif ct not in ("AWGN", "Dataset"):
             raise ValueError(f"Unknown channel type {ct}")
         self.channel_type_name = ct
         self.frequency_offset = None
@@ -175,17 +191,21 @@ class Parameters:
                           * carrier.subcarrier_spacing),
                 cp_length=0, constant_offset=not self.training)
 
-    def noise_variance(self, ebno_db: float, mcs_idx: int = 0) -> float:
+    def noise_variance(self, ebno_db, mcs_idx: int = 0):
         """N0 for an Eb/N0 (or, with ebno=False, an SNR) in dB, for the
         transmitter of MCS `mcs_idx` (`sim/e2e.py:_noise_variance` of the
         JAX package): rate-adjusted, with the resource-grid overhead
-        (pilots and CP) in the energy per bit."""
-        if self.mask_pilots:
-            raise NotImplementedError("masked pilots are not ported")
+        (pilots and CP) in the energy per bit, and with masked pilots the
+        Eb/N0 shifted by the share of pilot REs, which carry no energy.
+        ebno_db: a number (a float N0) or a float32 tensor of one Eb/N0 per
+        batch item (a tensor)."""
         if not self.ebno:
             return 10.0 ** (-ebno_db / 10.0)
         tx = self.transmitters[mcs_idx]
         rg = tx.resource_grid
+        if self.mask_pilots:
+            ebno_db = ebno_db - 10.0 * math.log10(
+                1.0 - rg.num_pilot_symbols / rg.num_resource_elements)
         return ebnodb2no(ebno_db, tx.num_bits_per_symbol,
                          tx.target_coderate,
                          rg.num_resource_elements * (1.0 + rg.cp_overhead),

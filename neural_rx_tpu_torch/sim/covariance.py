@@ -5,8 +5,10 @@ The port's counterpart of `neural_rx_tpu/sim/covariance.py`, split as the
 E2E model is: `draw` samples a batch of CFRs of the configuration's channel
 from a `torch.Generator`; `accumulate` is deterministic: each link (rx
 antenna, tx, port) of each sample is normalised to unit mean power, then
-the three covariances are averaged over the other axes. Only the TDL and
-DoubleTDL channels are ported (UMi/UMa are the training slice's).
+the three covariances are averaged over the other axes. The channel is any
+ported one but AWGN: TDL, DoubleTDL, or the 38.901 UMi/UMa on which the
+JAX package measures them (`cli/compute_cov.py`: the training channel at
+the eval width).
 """
 
 from __future__ import annotations
@@ -14,21 +16,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..channel.tr38901 import UMiUMaChannel
+
 COV_SEED = 123  # the seed of the JAX package's estimate
 
 
 def draw(p, generator: torch.Generator, batch_size: int) -> torch.Tensor:
     """One batch of CFRs of `p`'s channel at its resource grid: [b, rx_ant,
     links, 14, sc] complex64, links = (user, port) pairs of the channel (a
-    single-link TDL has one user)."""
+    single-link TDL has one user; UMi/UMa draws p.max_num_tx users)."""
     rg = p.transmitters[0].resource_grid
-    ct = p.channel_type_name
-    if not (ct.startswith("DoubleTDL") or ct in ("TDL-B100", "TDL-C300")):
-        raise NotImplementedError(
-            f"covariances of the {ct} channel: only TDL and DoubleTDL are "
-            "ported (UMi/UMa: ROADMAP A4)")
-    h = p.channel_model(generator, batch_size, rg.num_ofdm_symbols,
-                        rg.num_subcarriers, p.carrier.subcarrier_spacing)
+    nsym, nsc = rg.num_ofdm_symbols, rg.num_subcarriers
+    scs = p.carrier.subcarrier_spacing
+    if p.channel_model is None:
+        raise ValueError(f"no channel model to draw: {p.channel_type_name}")
+    if isinstance(p.channel_model, UMiUMaChannel):
+        h = p.channel_model(generator, batch_size, p.max_num_tx, nsym, nsc,
+                            scs)
+    else:
+        h = p.channel_model(generator, batch_size, nsym, nsc, scs)
     if h.dim() == 5:  # a single link: [b, rx_ant, ports, 14, sc]
         h = h[:, :, None]
     return h.reshape(h.shape[0], h.shape[1], -1, *h.shape[-2:])

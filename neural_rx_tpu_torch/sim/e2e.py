@@ -1,21 +1,28 @@
-"""End-to-end eval model: transmitter -> channel -> neural receiver.
+"""End-to-end model: transmitter -> channel -> neural receiver, for
+evaluation and training.
 
-The port's counterpart of `neural_rx_tpu/sim/e2e.py:E2EModel` in eval mode:
-every DMRS port active, the configured slot, the transmitters of the
-evaluated MCS superposed through a one-hot per-user MCS mask, the
-configuration's constant carrier frequency offset if it has one, the
-rate-adjusted noise variance of the first evaluated MCS
-(`Parameters.noise_variance`), the configuration's channel (TDL-B100,
-TDL-C300, DoubleTDL or AWGN), then the receiver's `apply` (LS estimate,
-CGNN, per-user transport-block decode of the first evaluated MCS).
+The port's counterpart of `neural_rx_tpu/sim/e2e.py:E2EModel`. The
+transmitters of the evaluated MCS are superposed through a one-hot per-user
+MCS mask, inactive DMRS ports zeroed, the configuration's carrier frequency
+offset applied if it has one, the configuration's channel (TDL-B100,
+TDL-C300, DoubleTDL, UMi, UMa or AWGN) and the rate-adjusted noise of the
+first evaluated MCS (`Parameters.noise_variance`, one N0 per batch item
+for a tensor of Eb/N0s) added. The end-to-end configurations send a
+trainable constellation (`params["constellation"]`, centred and normalised
+each pass) and no pilot energy (`mask_pilots`).
+
+Eval: every DMRS port active, the configured slot, then the receiver's
+`apply` (CGNN, per-user transport-block decode of the first evaluated MCS).
+Training (`training=True`): a random pilot slot, the coded bits of each
+MCS as labels, then the receiver's `training_loss` -> (loss_data,
+loss_chest).
 
 Randomness comes from one `torch.Generator` on the model's device, drawn in
-a fixed order by `draw`: the bits of each evaluated MCS in order, the
-channel (per user for a single-link TDL, the two links of DoubleTDL in
-order), the noise. `forward` does everything after the draws, so a test can
-feed it the JAX package's own bits, CFRs and noise. Training, trainable
-constellations, masked pilots and the UMi/UMa/Dataset channels raise
-`NotImplementedError`.
+a fixed order: at eval by `draw` (the bits of each evaluated MCS in order,
+the channel, the noise), in training by `draw_training` (the bits, the
+pilot slot, the frequency offsets, the channel, the noise). `forward` does
+everything after the draws, so a test can feed it the JAX package's own.
+A Dataset channel and a device mesh raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -24,8 +31,21 @@ import numpy as np
 import torch
 
 from ..channel.apply import apply_ofdm_channel
+from ..channel.tr38901 import UMiUMaChannel
+from ..phy.constellation import Constellation
 from ..phy.misc import binary_source, complex_awgn
 from ..rx.neural_rx import mcs_mask, receiver_for, resolve_device
+
+
+def sample_active_dmrs(generator: torch.Generator, batch_size: int, num_tx,
+                       max_num_tx: int) -> torch.Tensor:
+    """[b, max_num_tx] float32 on the generator's device: a random
+    permutation mask with num_tx (an int or a 0-dim tensor) active ports per
+    item, as the argsort of an argsort of uniform scores."""
+    scores = torch.rand((batch_size, max_num_tx), generator=generator,
+                        device=generator.device)
+    rank = torch.argsort(torch.argsort(scores, dim=-1), dim=-1)
+    return (rank < num_tx).float()
 
 
 def eval_order(mcs_arr_eval_idx, mcs_ue_mask, num_mcs: int) -> list:
@@ -47,22 +67,20 @@ def eval_order(mcs_arr_eval_idx, mcs_ue_mask, num_mcs: int) -> list:
     return order
 
 
-def refuse_unported(p, training: bool = False, mesh=None):
-    """NotImplementedError for what the eval models' transmitter and
-    channel do not port."""
+def refuse_unported(p, mesh=None, baseline: bool = False):
+    """NotImplementedError for what the E2E models do not port: a device
+    mesh (ROADMAP A6), the Dataset channel (A5), and for the classical
+    baselines a trainable constellation or masked pilots, which they cannot
+    receive (the JAX package's baselines cannot either)."""
     why = None
     ct = p.channel_type_name
-    if training:
-        why = "training is the training slice's (ROADMAP A4)"
-    elif mesh is not None:
+    if mesh is not None:
         why = "a device mesh is the multi-GPU slice's (ROADMAP A6)"
-    elif ct in ("UMi", "UMa"):
-        why = f"the {ct} channel is the training slice's (ROADMAP A4)"
     elif ct == "Dataset":
         why = "the Dataset channel is the dataset slice's (ROADMAP A5)"
-    elif p.custom_constellation or p.mask_pilots:
-        why = ("trainable constellations and masked pilots are the "
-               "training slice's (ROADMAP A4)")
+    elif baseline and (p.custom_constellation or p.mask_pilots):
+        why = ("the classical baselines send fixed QAM with pilots: no "
+               "trainable constellation, no masked pilots")
     if why is not None:
         raise NotImplementedError(why)
     if p.channel_num_tx is not None and p.channel_num_tx > 1 \
@@ -73,8 +91,8 @@ def refuse_unported(p, training: bool = False, mesh=None):
 
 class EvalLink:
     """The transmitters (one per MCS; `transmitter` is the first) and
-    channel of one `sim.config.Parameters` in eval mode, and the draws of a
-    Monte-Carlo batch; the eval models add a receiver."""
+    channel of one `sim.config.Parameters`, and the draws of a Monte-Carlo
+    batch; the E2E models add a receiver."""
 
     def __init__(self, sys_parameters, device="cuda"):
         self.p = sys_parameters
@@ -96,82 +114,152 @@ class EvalLink:
                 (batch_size, p.num_rx_antennas, p.max_num_tx, ports, nsym,
                  nsc), 1.0 / np.sqrt(ports), dtype=torch.complex64,
                 device=generator.device)
+        if isinstance(p.channel_model, UMiUMaChannel):  # any user count
+            return p.channel_model(generator, batch_size, p.max_num_tx, nsym,
+                                   nsc, scs)
         if p.channel_num_tx == 1:  # a single link: one draw per user
             return torch.stack([
                 p.channel_model(generator, batch_size, nsym, nsc, scs)
                 for _ in range(p.max_num_tx)], dim=2)
         return p.channel_model(generator, batch_size, nsym, nsc, scs)
 
+    def _bits(self, generator, batch_size, mcs_arr_eval):
+        return [binary_source((batch_size, self.p.max_num_tx,
+                               self.transmitters[idx].tb_size), generator)
+                for idx in mcs_arr_eval]
+
+    def _noise(self, generator, batch_size, ebno_db, mcs_idx):
+        rg = self.transmitter.resource_grid
+        return complex_awgn(
+            (batch_size, self.p.num_rx_antennas, rg.num_ofdm_symbols,
+             rg.num_subcarriers), self.p.noise_variance(ebno_db, mcs_idx),
+            generator)
+
     def draw(self, generator: torch.Generator, batch_size: int,
-             ebno_db: float, mcs_arr_eval=(0,)):
+             ebno_db, mcs_arr_eval=(0,)):
         """(bits, h [b, rx_ant, T, ports, 14, sc], noise [b, rx_ant, 14, sc]
         ~ CN(0, N0)) from `generator`, in that order: bits is a list with
         one [b, T, tb_size] tensor per evaluated MCS, in the order of
-        mcs_arr_eval, and N0 is that of mcs_arr_eval[0]."""
-        p = self.p
-        rg = self.transmitter.resource_grid
-        bits = [binary_source((batch_size, p.max_num_tx,
-                               self.transmitters[idx].tb_size), generator)
-                for idx in mcs_arr_eval]
+        mcs_arr_eval, and N0 is that of mcs_arr_eval[0] at ebno_db (a
+        number, or a tensor [b]: one N0 per item)."""
+        bits = self._bits(generator, batch_size, mcs_arr_eval)
         h = self._channel(generator, batch_size)
-        noise = complex_awgn(
-            (batch_size, p.num_rx_antennas, rg.num_ofdm_symbols,
-             rg.num_subcarriers), p.noise_variance(ebno_db, mcs_arr_eval[0]),
-            generator)
+        noise = self._noise(generator, batch_size, ebno_db, mcs_arr_eval[0])
         return bits, h, noise
 
-    def transmit(self, bits, order, mcs_ue_mask, active=None):
+    def transmit(self, bits, order, mcs_ue_mask, active=None, slot_idx=None,
+                 points=None, fo=None, return_coded: bool = False):
         """x [b, T, ports, 14, sc]: each evaluated MCS's transmitter on its
-        bits (bits[i] for MCS order[i]) times its column of mcs_ue_mask
-        [b, T, num_mcs], summed in order; inactive users (active [b, T])
-        zeroed; the configuration's frequency offset applied."""
-        x = None
-        for b_i, idx in zip(bits, order):
+        bits (bits[i] for MCS order[i]) in slot slot_idx (default: the
+        configured one) with the point set points[i] (None: the fixed
+        QAM), times its column of mcs_ue_mask [b, T, num_mcs], summed in
+        order; inactive users (active [b, T]) zeroed; the configuration's
+        frequency offset applied: the drawn offsets fo [b, T, 1, 1], or the
+        constant eval offset. With return_coded also the coded bits of each
+        MCS [b, T, G] (the training labels)."""
+        x, coded = None, []
+        for i, (b_i, idx) in enumerate(zip(bits, order)):
+            tx = self.transmitters[idx]
+            c_i = tx.encode(b_i)
+            coded.append(c_i)
             m = mcs_ue_mask[:, :, idx].to(torch.complex64)
-            x_i = self.transmitters[idx](b_i) * m[:, :, None, None, None]
+            x_i = tx.modulate(c_i, slot_idx, None if points is None
+                              else points[i]) * m[:, :, None, None, None]
             x = x_i if x is None else x + x_i
         if active is not None:
             x = x * active.to(x.dtype)[:, :, None, None, None]
-        if self.p.frequency_offset is not None:
-            x = self.p.frequency_offset(x)
-        return x
+        cfo = self.p.frequency_offset
+        if cfo is not None:
+            x = cfo(x) if fo is None else cfo.apply(x, fo)
+        return (x, coded) if return_coded else x
 
 
 class E2EModel(EvalLink):
-    """TX -> channel -> neural RX of one `sim.config.Parameters`, eval only.
+    """TX -> channel -> neural RX of one `sim.config.Parameters`.
 
-    kernels=False: the receiver takes its kernels' plain versions on the
-    same route (the kernels' oracle on the card)."""
+    training: `forward` returns the training losses (the receiver's plain
+    layers under autograd); otherwise the decoded bits. kernels=False: the
+    eval receiver takes its kernels' plain versions on the same route (the
+    kernels' oracle on the card)."""
 
     def __init__(self, sys_parameters, training: bool = False, mesh=None,
                  kernels: bool = True, device="cuda"):
-        refuse_unported(sys_parameters, training, mesh)
-        if sys_parameters.initial_chest != "ls":
-            raise NotImplementedError(
-                "the NN initial estimate is the training slice's (ROADMAP A4)")
+        refuse_unported(sys_parameters, mesh)
         super().__init__(sys_parameters, device)
+        self.training = training
         self.receiver = receiver_for(self.p, kernels=kernels,
                                      device=self.device)
+        rg = self.transmitter.resource_grid
+        self._num_slots = rg.num_slots_per_frame
+
+    def init_params(self, generator: torch.Generator) -> dict:
+        """Seed-made parameters: the receiver's {"cgnn": tree} and, with a
+        trainable constellation, "constellation": one (re, im) [2, 2^m]
+        QAM point array per MCS, on the model's device."""
+        params = self.receiver.init_params(generator)
+        if self.p.custom_constellation:
+            params["constellation"] = [
+                tx.constellation.init_params(self.device)
+                for tx in self.transmitters]
+        return params
+
+    def constellation_points(self, params, order):
+        """The point set of each MCS of `order` (centred, unit energy) for a
+        trainable constellation, else None (the fixed QAM)."""
+        if not self.p.custom_constellation:
+            return None
+        if "constellation" not in params:
+            raise ValueError(f"{self.p.label} trains its constellation: "
+                             "params need a 'constellation' entry")
+        return [Constellation.points(params["constellation"][idx],
+                                     center=True) for idx in order]
+
+    def draw_training(self, generator: torch.Generator, batch_size: int,
+                      ebno_db: torch.Tensor, mcs_arr_eval) -> dict:
+        """The draws of a training step after the per-step sampling, from
+        `generator` in this order: "bits" (a [b, T, tb_size] tensor per
+        MCS of mcs_arr_eval), "slot_idx" (a 0-dim tensor, uniform over the
+        slots of a frame), "fo" (the users' frequency offsets, or None
+        without an offset), "h", "noise" (CN(0, N0) of mcs_arr_eval[0] at
+        each item's Eb/N0, ebno_db [b])."""
+        bits = self._bits(generator, batch_size, mcs_arr_eval)
+        slot_idx = torch.randint(0, self._num_slots, (), generator=generator,
+                                 device=generator.device)
+        fo = None
+        if self.p.frequency_offset is not None:
+            fo = self.p.frequency_offset.draw(generator, batch_size,
+                                              self.p.max_num_tx)
+        h = self._channel(generator, batch_size)
+        noise = self._noise(generator, batch_size, ebno_db, mcs_arr_eval[0])
+        return {"bits": bits, "slot_idx": slot_idx, "fo": fo, "h": h,
+                "noise": noise}
 
     def forward(self, params, bits, h: torch.Tensor, noise: torch.Tensor,
                 active_dmrs: torch.Tensor | None = None,
                 fast_ldpc: bool = False, output_nrx_h_hat: bool = False,
                 num_it: int | None = None, mcs_arr_eval_idx=0,
-                mcs_ue_mask: torch.Tensor | None = None):
+                mcs_ue_mask: torch.Tensor | None = None, slot_idx=None,
+                fo: torch.Tensor | None = None,
+                apply_multiloss: bool = False):
         """Everything after the draws: `transmit` the bits (a list as
-        `draw` gives it, or one MCS's tensor) in the configured slot with
-        the inactive ports (active_dmrs [b, T], default all active) zeroed,
-        y = sum h x + noise, receive and decode the first evaluated MCS.
+        `draw` gives it, or one MCS's tensor) in slot slot_idx (default:
+        the configured slot) with the inactive ports (active_dmrs [b, T],
+        default all active) zeroed and the frequency offsets fo (training;
+        at eval the constant offset), y = sum h x + noise, then receive.
         mcs_arr_eval_idx and mcs_ue_mask [b, T, num_mcs] as in the JAX
         package (`eval_order`): without a mask every user is on MCS
         mcs_arr_eval_idx; num_it cuts the CGNN.
 
-        Returns (b, b_hat, crc) as the JAX package's eval model does: the
-        first evaluated MCS's bits [b, T, tb_size] and b_hat zeroed for
+        Training: returns (loss_data, loss_chest) of the receiver's
+        `training_loss` on the coded bits of every evaluated MCS, with the
+        readouts after every iteration if apply_multiloss.
+
+        Eval: returns (b, b_hat, crc) as the JAX package's eval model does:
+        the first evaluated MCS's bits [b, T, tb_size] and b_hat zeroed for
         inactive ports, and the error-counting CRC status [b, T] with
         inactive ports forced to pass; with output_nrx_h_hat also (h_true
-        [b, T, 14, sc, 2*rx_ant], h_hat refined, h_hat of the LS
-        estimate)."""
+        [b, T, 14, sc, 2*rx_ant], h_hat refined, h_hat of the LS estimate
+        or None)."""
         bits = [bits] if isinstance(bits, torch.Tensor) else list(bits)
         order = eval_order(mcs_arr_eval_idx, mcs_ue_mask, self.num_mcs)
         if len(bits) != len(order):
@@ -183,11 +271,19 @@ class E2EModel(EvalLink):
         if mcs_ue_mask is None:
             mcs_ue_mask = mcs_mask(active.shape, order[0], self.num_mcs,
                                    active.device)
-        x = self.transmit(bits, order, mcs_ue_mask, active)
+        x, coded = self.transmit(bits, order, mcs_ue_mask, active, slot_idx,
+                                 self.constellation_points(params, order),
+                                 fo, return_coded=True)
         y = apply_ofdm_channel(x, h, None, noise=noise)
+        if self.training:
+            return self.receiver.training_loss(
+                params, y, active, coded, h, mcs_ue_mask, mcs_arr_eval=order,
+                apply_multiloss=apply_multiloss, num_it=num_it,
+                slot_idx=slot_idx)
         b_hat, h_ref, h_init, crc = self.receiver.apply(
             params, y, active, mcs_arr_eval=tuple(order),
-            mcs_ue_mask=mcs_ue_mask, num_it=num_it, fast_ldpc=fast_ldpc)
+            mcs_ue_mask=mcs_ue_mask, num_it=num_it, fast_ldpc=fast_ldpc,
+            slot_idx=slot_idx)
         am = active[..., None]
         b = bits[0] * am
         b_hat = b_hat * am
@@ -198,14 +294,27 @@ class E2EModel(EvalLink):
         return b, b_hat, crc
 
     def __call__(self, params, generator: torch.Generator, batch_size: int,
-                 ebno_db: float, fast_ldpc: bool = False,
+                 ebno_db, fast_ldpc: bool = False,
                  output_nrx_h_hat: bool = False, num_it: int | None = None,
-                 mcs_arr_eval_idx=0, mcs_ue_mask: torch.Tensor | None = None):
-        """One Monte-Carlo batch: `draw` from `generator` (on the model's
-        device) for the evaluated MCS, then `forward`."""
+                 mcs_arr_eval_idx=0, mcs_ue_mask: torch.Tensor | None = None,
+                 active_dmrs: torch.Tensor | None = None):
+        """One batch: the draws from `generator` (on the model's device),
+        then `forward`. Eval: `draw`, every port active. Training:
+        `draw_training` at ebno_db (a number or a tensor [b]) with the
+        ports of active_dmrs [b, T] active (default all)."""
         order = eval_order(mcs_arr_eval_idx, mcs_ue_mask, self.num_mcs)
-        bits, h, noise = self.draw(generator, batch_size, ebno_db, order)
-        return self.forward(params, bits, h, noise, fast_ldpc=fast_ldpc,
-                            output_nrx_h_hat=output_nrx_h_hat, num_it=num_it,
+        if not self.training:
+            bits, h, noise = self.draw(generator, batch_size, ebno_db, order)
+            return self.forward(params, bits, h, noise, fast_ldpc=fast_ldpc,
+                                output_nrx_h_hat=output_nrx_h_hat,
+                                num_it=num_it,
+                                mcs_arr_eval_idx=mcs_arr_eval_idx,
+                                mcs_ue_mask=mcs_ue_mask)
+        ebno = torch.as_tensor(ebno_db, dtype=torch.float32,
+                               device=self.device).expand(batch_size)
+        d = self.draw_training(generator, batch_size, ebno, order)
+        return self.forward(params, d["bits"], d["h"], d["noise"],
+                            active_dmrs=active_dmrs, num_it=num_it,
                             mcs_arr_eval_idx=mcs_arr_eval_idx,
-                            mcs_ue_mask=mcs_ue_mask)
+                            mcs_ue_mask=mcs_ue_mask, slot_idx=d["slot_idx"],
+                            fo=d["fo"])

@@ -4,7 +4,10 @@ The JAX package pickles its trees with a JAX `PyTreeDef`, which needs JAX
 to read. `scripts/torch_port_export_weights.py` converts such a file into
 an `.npz` of named float32 leaves ("s_init.0.hidden.1.pw", ...: the tree
 path, list indices as numbers), which this module reads with numpy alone.
-Leaves keep the JAX layout (depthwise kernels stay [3, 3, 1, C]).
+Leaves keep the JAX layout (depthwise kernels stay [3, 3, 1, C]). The port
+writes trained parameters in the same format (`save`): the CGNN's leaves
+under those names and a trainable constellation's point arrays as
+"constellation.0", ... (one per MCS).
 """
 
 from __future__ import annotations
@@ -41,9 +44,11 @@ NRX_RT_EMA = ema_weights("nrx_rt")
 
 
 def flatten(tree, prefix: str = "") -> dict:
-    """{dotted path: leaf} of a nested dict/list tree."""
+    """{dotted path: leaf} of a nested dict/list tree, without the kernels'
+    packed weight buffers (a stack's or MLP's "packed" entry, derived from
+    its leaves)."""
     if isinstance(tree, dict):
-        items = tree.items()
+        items = ((k, v) for k, v in tree.items() if k != "packed")
     elif isinstance(tree, (list, tuple)):
         items = enumerate(tree)
     else:
@@ -89,8 +94,33 @@ def from_jax_numpy(tree, device="cpu"):
     return conv(tree)
 
 
-def load(path: str = NRX_RT_EMA, device="cuda"):
-    """A CGNN parameter tree from an `.npz` of named leaves."""
+def load_tree(path: str, device="cuda") -> dict:
+    """{"cgnn": tree} of an `.npz` of named leaves, with "constellation":
+    [one (re, im) point array per MCS] where the file holds one."""
     with np.load(path) as f:
         leaves = {k: f[k] for k in f.files}
-    return from_jax_numpy(unflatten(leaves), device=device)
+    points = {k: v for k, v in leaves.items()
+              if k.startswith("constellation.")}
+    cgnn = {k: v for k, v in leaves.items() if k not in points}
+    params = {"cgnn": from_jax_numpy(unflatten(cgnn), device=device)}
+    if points:
+        params["constellation"] = from_jax_numpy(
+            unflatten(points)["constellation"], device=device)
+    return params
+
+
+def load(path: str = NRX_RT_EMA, device="cuda"):
+    """A CGNN parameter tree from an `.npz` of named leaves."""
+    return load_tree(path, device)["cgnn"]
+
+
+def save(path: str, params: dict) -> None:
+    """Write params ({"cgnn": tree} and an optional "constellation" list)
+    as an `.npz` of named float32 leaves that `load_tree` reads."""
+    leaves = flatten(params["cgnn"])
+    if "constellation" in params:
+        leaves.update(flatten({"constellation": params["constellation"]}))
+    arrays = {k: v.detach().float().cpu().numpy() for k, v in leaves.items()}
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)

@@ -294,7 +294,6 @@ def test_baseline_entry_on_cpu():
 
 @pytest.mark.parametrize("change,match", [
     ({"mesh": object()}, "multi-GPU"),
-    ({"channel_type_name": "UMi"}, "UMi"),
     ({"channel_type_name": "Dataset"}, "dataset"),
     ({"mask_pilots": True}, "masked pilots"),
     ({"custom_constellation": True}, "constellation")])

@@ -355,8 +355,10 @@ def test_covariance_draw_shapes():
         assert c.shape == (n, n) and c.dtype == np.complex64
         np.testing.assert_allclose(c, c.conj().T, atol=1e-6)
         assert abs(np.real(np.trace(c)) / n - 1.0) < 1e-5
-    with pytest.raises(NotImplementedError, match="UMi"):
-        covariance.draw(Parameters("nrx_rt", training=True), None, 1)
+    # UMi (the training channel, drawn for every user): [b, ant, T*ports]
+    h = covariance.draw(Parameters("nrx_rt", training=True),
+                        torch.Generator().manual_seed(1), 2)
+    assert h.shape == (2, 4, 4, 14, 48) and h.dtype == torch.complex64
 
 
 # -- Parameters ---------------------------------------------------------------

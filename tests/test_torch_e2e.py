@@ -231,12 +231,8 @@ def test_second_step_builds_no_table(port_side, monkeypatch):
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"training": True}, "training"),
     ({"mesh": object()}, "multi-GPU"),
-    ({"channel_type_name": "UMi"}, "UMi"),
-    ({"channel_type_name": "Dataset"}, "dataset"),
-    ({"mask_pilots": True}, "masked pilots"),
-    ({"custom_constellation": True}, "constellation")])
+    ({"channel_type_name": "Dataset"}, "dataset")])
 def test_e2e_refuses_what_is_not_ported(cfg_dir, change, match):
     p = Parameters("nrx_rt", training=False, config_dir=cfg_dir)
     kwargs = {k: change.pop(k) for k in ("training", "mesh") if k in change}
