@@ -103,7 +103,34 @@ Phases, each printing one JSON line with its seconds:
      LDPC launches, kernel route = plain route); `compute_cov` on UMi at 132
      PRB (Hermitian, PSD); a step's device ms by stage, steps/s, the
      device's busy share and the peak memory;
- 11. times: CUDA-event device time per kernel launch (kernel and plain) at
+ 11. deploy_path: the deploy engine (`entry.deploy_entry`, `deploy/`) of
+     nrx_rt, bf16, committed EMA weights: every bucket of
+     DEFAULT_PRB_BUCKETS (4 to 273 PRB) at batch 1, its CUDA-graph replay
+     equal to its eager call and that to the plain route (1 sepconv, 2
+     iteration launches an eager call; a replay passes no wrapper), device
+     ms by CUDA events and host p50/p99 per call, eager and graph, beside
+     the reference's 1.275 ms; 131 and 100 PRB through the 132 bucket
+     against engines of those widths with nonzero biases, equal in float32
+     and bf16; the mega route (K4) at 132 PRB, batch 1 and 16, captured,
+     graph = eager = plain route; the Aerial test vectors
+     (`deploy/data_tools.py`, DoubleTDLlow, 10 dB, batch 16) through the
+     engine into the evaluator in float32 and bf16 (coded BER, CRC pass
+     rate), the float32 served call within 1e-5 of the eval receiver on
+     the same slot; slots/s at batch
+     16; the export CLI for buckets 4 and 132 into a temporary directory
+     and its 132 engine file loaded back, equal to the live engine; K1 and
+     K3 at 48 and 3276 subcarriers with their bounds;
+ 12. site_path: the site-specific Dataset channel: the synthetic datasets
+     written into a temporary directory (md5 of data/'s files);
+     nrx_site_specific_100k at 132 PRB, batch 30, float32, K5: one step's
+     launches (1 sepconv, 2 iteration, 2 LDPC), kernel route = plain route
+     over 2 steps, `sim_ber` at 3 and 7 dB inside the committed curve's
+     band, the evaluate CLI; the LS/lin and LMMSE baselines of
+     nrx_site_specific_baseline (2 LDPC launches, covariances computed on
+     the Dataset channel) = plain route; 20 training steps of
+     nrx_site_specific at 4 PRB, batch 128 (no kernel, finite losses); a
+     step's device ms by stage;
+ 13. times: CUDA-event device time per kernel launch (kernel and plain) at
      the shapes the main path gives it, with its bound, achieved TFLOP/s
      and share of the bound (the sepconv stack at N = 2 and on the batch-16
      route's init stack at N = 32, the whole-CGNN kernel at batch 1 and
@@ -242,6 +269,31 @@ E2E_LABEL = "e2e_rt"  # learned constellation, masked pilots, no LS input
 E2E_STEPS = 40
 CLI_SMOKE_ITERS = 200
 TRAIN_EVAL_EBNO_DB = 4.0
+# the deploy engine (phase deploy_path): nrx_rt, bf16, every bucket
+DEPLOY_YARDSTICK_MS = 1.275  # the reference's slot, RTX 3090, TRT fp16
+DEPLOY_PRB = 132  # the eval width: the padded, mega and test-vector bucket
+DEPLOY_PAD_CASES = (131, 100)  # requests served by the 132-PRB bucket
+DEPLOY_BATCH = 16  # the generator/evaluator slot and the slots/s batch
+DEPLOY_EBNO_DB = 10.0
+DEPLOY_ITERS = 50  # calls per latency measurement
+DEPLOY_SEED = 0
+# the site-specific path (phase site_path): nrx_site_specific_100k at
+# 132 PRB on the eval trajectory, batch 30, float32, committed weights
+SITE_LABEL = "nrx_site_specific_100k"
+SITE_BASELINE = "nrx_site_specific_baseline"
+SITE_TRAIN_LABEL = "nrx_site_specific"  # trains at 4 PRB, batch 128
+SITE_BATCH = 30
+SITE_SEED = 0
+SITE_STEP_DB = 5.0
+SITE_SWEEP_DB = (3.0, 7.0)
+SITE_TRAIN_STEPS = 20
+SITE_CURVE = os.path.join("neural_rx_tpu_torch", "curves",
+                          "nrx_site_specific_100k.json")
+# md5 of the port's synthetic datasets, the repository's data/ files
+SITE_MD5 = {"nrx_site_specific_train.cirbin":
+            "e544e3a74fdbe8c6b1b8524ae3c34b36",
+            "nrx_site_specific_eval.cirbin":
+            "74d4594bc73ca5afedea1ecb091a110e"}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_SYM, N_SC, N_TX = 14, 1584, 2
 
@@ -303,8 +355,8 @@ def widths_of(p):
         lp["pw"].shape[1] for lp in p["hidden"]] + [p["out"]["pw"].shape[1]]
 
 
-def iteration_work(it_p, b, d_pe, itemsize, readouts=()):
-    """(bytes, flops) of one CGNN iteration at 14x1584 with b*T images:
+def iteration_work(it_p, b, d_pe, itemsize, readouts=(), w=N_SC):
+    """(bytes, flops) of one CGNN iteration at 14 x w with b*T images:
     state and pe read once, the state (or the readouts) written once,
     weights read once; per position the aggregation MLP, the user sum,
     difference and scale (3 ops a channel), the update stack and the
@@ -312,13 +364,13 @@ def iteration_work(it_p, b, d_pe, itemsize, readouts=()):
     agg = mlp_dims(it_p["agg"])
     widths = widths_of(it_p["update"])
     d_s = agg[0]
-    n_pos = b * N_TX * N_SYM * N_SC
+    n_pos = b * N_TX * N_SYM * w
     out_ch = sum(mlp_dims(r)[2] for r in readouts) if readouts else d_s
     flops = n_pos * (mlp_flops(agg) + 3 * d_s + stack_flops(widths) + d_s
                      + sum(mlp_flops(mlp_dims(r)) for r in readouts))
     n_w = mlp_params(agg) + stack_params(widths) + sum(
         mlp_params(mlp_dims(r)) for r in readouts)
-    nbytes = (n_pos * (d_s + out_ch) + N_TX * N_SYM * N_SC * d_pe + n_w) \
+    nbytes = (n_pos * (d_s + out_ch) + N_TX * N_SYM * w * d_pe + n_w) \
         * itemsize + b * N_TX * 4
     return nbytes, flops
 
@@ -1275,6 +1327,478 @@ def train_path(dev, card, counts, reset):
     return launches
 
 
+def deploy_path(dev, card, peaks, counts, reset):
+    """Phase 11: the deploy engine (`entry.deploy_entry`, `deploy/`) of
+    nrx_rt with the committed EMA weights in bf16: per bucket at batch 1
+    the graph replay against the eager call and both against the plain
+    route (launches of an eager call counted), device ms and host p50/p99,
+    eager and graph; padded requests against direct engines (f32 and bf16,
+    nonzero biases); the mega route (K4) at batch 1 and 16; the Aerial test
+    vectors through the engine into the evaluator (f32, bf16), the served
+    call against the eval receiver; slots/s at batch 16; the export CLI and an
+    engine file loaded back; K1 and K3 at the smallest and largest bucket's
+    width. Emits the phase's record, asserts it, and returns (launches by
+    path, the kernels' timing records)."""
+    import dataclasses
+    import torch
+    from neural_rx_tpu_torch import weights
+    from neural_rx_tpu_torch.cli import export as cli_export
+    from neural_rx_tpu_torch.deploy import aot, data_tools
+    from neural_rx_tpu_torch.deploy.aerial import AerialNRX
+    from neural_rx_tpu_torch.entry import deploy_entry, load_params
+    from neural_rx_tpu_torch.kernels import cgnn_iter, sepconv
+    from neural_rx_tpu_torch.sim.config import Parameters
+    from neural_rx_tpu_torch.sim.e2e import E2EModel
+
+    t0 = time.perf_counter()
+    bf, f32 = torch.bfloat16, torch.float32
+    launches = {}
+    route = {"sepconv_stack": 1, "cgnn_iter": 2, "cgnn_full": 0,
+             "ldpc_decode": 0}
+    mega_route = {"sepconv_stack": 0, "cgnn_iter": 0, "cgnn_full": 1,
+                  "ldpc_decode": 0}
+    expected = {}
+
+    def twin(rx, **changes):
+        """A receiver of rx's engines (the same tables) on another route."""
+        engines = {n: AerialNRX(e.numpy_tables(),
+                                dataclasses.replace(e.cfg, **changes),
+                                num_it=e.num_it, dtype=e.dtype,
+                                mcs_idx=e.mcs_idx, device=dev)
+                   for n, e in rx.engines.items()}
+        return aot.BucketedReceiver(engines.__getitem__, rx.params,
+                                    rx.batch_size, rx.buckets)
+
+    def counted(name, fn, want):
+        """fn() with the counts set to 0 just before and read just after,
+        its outputs cloned."""
+        reset()
+        out = [o.clone() for o in fn()]
+        torch.cuda.synchronize()
+        launches[name], expected[name] = counts(), want
+        reset()
+        return out
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    # (a) every bucket at batch 1: graph = eager = plain route
+    t1 = time.perf_counter()
+    rx, examples = deploy_entry(device=dev)
+    build_s = time.perf_counter() - t1
+    plain = twin(rx, kernels=False)
+    buckets = {}
+    for n in rx.buckets:
+        x = examples[n]
+        eager = counted(f"deploy_b1_{n}prb", lambda: rx.eager(n, *x), route)
+        reset()
+        graph = [o.clone() for o in rx.run(n, *x)]
+        torch.cuda.synchronize()
+        replay_counts = counts()
+        ref = plain.eager(n, *x)
+        torch.cuda.synchronize()
+        reset()
+        rec = compare(eager, ref, f32, TOL_BF16)
+        buckets[n] = {
+            "sc": 12 * n, "llr_shape": list(eager[0].shape),
+            "graph_equals_eager": same(graph, eager),
+            "eager_equals_plain": same(eager, ref), "vs_plain": rec,
+            "replay_counts": replay_counts,
+            "capture_s": rx.capture_seconds.get((n, 12 * n)),
+            "graph": aot.measure_latency(lambda *a: rx.run(n, *a), x,
+                                         DEPLOY_ITERS),
+            "eager": aot.measure_latency(lambda *a: rx.eager(n, *a), x,
+                                         DEPLOY_ITERS)}
+        reset()
+    del plain
+
+    # (b) padded requests against direct engines, nonzero biases
+    flat = weights.flatten(weights.load_tree(weights.NRX_RT_EMA,
+                                             device=dev)["cgnn"])
+    gen_b = torch.Generator(device=dev).manual_seed(7)
+    params_r = {"cgnn": weights.unflatten({
+        k: 0.5 * torch.randn(v.shape, generator=gen_b, device=dev)
+        if v.dim() == 1 else v for k, v in flat.items()})}
+    padded = {}
+    for dtype in (f32, bf):
+        direct, _ = deploy_entry(device=dev, buckets=DEPLOY_PAD_CASES,
+                                 dtype=dtype, params=params_r)
+        pad_rx, _ = deploy_entry(device=dev, buckets=(DEPLOY_PRB,),
+                                 dtype=dtype, params=params_r)
+        for n in DEPLOY_PAD_CASES:
+            x = direct.example_inputs(n, seed=3)
+            want = [o.clone() for o in direct.run(n, *x)]
+            key = f"{n}_in_{DEPLOY_PRB}_{str(dtype)[6:]}"
+            eager = counted(f"deploy_pad_{key}", lambda: pad_rx.eager(n, *x),
+                            route)
+            graph = [o.clone() for o in pad_rx.run(n, *x)]
+            torch.cuda.synchronize()
+            padded[key] = {
+                "shapes": [list(o.shape) for o in graph],
+                "graph_equals_direct": same(graph, want),
+                "eager_equals_direct": same(eager, want),
+                "rel_err": max(rel_err(g, w) for g, w in zip(graph, want)),
+                "mean_err": max(float((g - w).abs().mean() / w.abs().max())
+                                for g, w in zip(graph, want))}
+        del direct, pad_rx
+
+    # (c) the mega route (K4) at 132 PRB, captured in a graph
+    mega = {}
+    for b in (1, DEPLOY_BATCH):
+        m_rx, m_ex = deploy_entry(device=dev, buckets=(DEPLOY_PRB,),
+                                  batch=b, mega=True)
+        x = m_ex[DEPLOY_PRB]
+        eager = counted(f"deploy_mega_b{b}",
+                        lambda: m_rx.eager(DEPLOY_PRB, *x), mega_route)
+        m_plain = twin(m_rx, kernels=False)
+        ref = m_plain.eager(DEPLOY_PRB, *x)
+        graph = [o.clone() for o in m_rx.run(DEPLOY_PRB, *x)]
+        torch.cuda.synchronize()
+        mega[b] = {"capture_s": m_rx.capture_seconds.get(
+                       (DEPLOY_PRB, 12 * DEPLOY_PRB)),
+                   "graph_equals_eager": same(graph, eager),
+                   "eager_equals_plain": same(eager, ref),
+                   "vs_plain": compare(eager, ref, f32, TOL_BF16),
+                   "run": aot.measure_latency(
+                       lambda *a: m_rx.run(DEPLOY_PRB, *a), x, DEPLOY_ITERS,
+                       b),
+                   "eager": aot.measure_latency(
+                       lambda *a: m_rx.eager(DEPLOY_PRB, *a), x,
+                       DEPLOY_ITERS, b)}
+        reset()
+        del m_rx, m_plain
+
+    # (d) Aerial test vectors -> engine -> evaluator, 132 PRB, batch 16
+    p = Parameters("nrx_rt", training=False,
+                   overrides={"n_size_bwp": DEPLOY_PRB})
+    model = E2EModel(p, device=dev)
+    inputs, labels = data_tools.AerialDataGenerator(model)(
+        torch.Generator(device=dev).manual_seed(DEPLOY_SEED), DEPLOY_BATCH,
+        DEPLOY_EBNO_DB)
+    evaluator = data_tools.AerialDataEvaluator(model)
+    vectors = {}
+    for dtype in (f32, bf):
+        rx16, _ = deploy_entry(device=dev, buckets=(DEPLOY_PRB,),
+                               batch=DEPLOY_BATCH, dtype=dtype)
+        name = str(dtype)[6:]
+        llr, h_hat = counted(f"deploy_vectors_{name}",
+                             lambda: rx16.eager(DEPLOY_PRB, *inputs), route)
+        vectors[name] = {**evaluator(llr, labels),
+                         "graph": aot.measure_latency(
+                             lambda *a: rx16.run(DEPLOY_PRB, *a), inputs,
+                             DEPLOY_ITERS, DEPLOY_BATCH)}
+        if dtype == f32:
+            # the served call (num_valid_sc = 12 n_prb) against the eval
+            # receiver's CGNN on the same slot and route (K1 + K3)
+            y = torch.complex(inputs[0], inputs[1]).permute(0, 3, 2, 1)
+            llr_r, h_r = model.receiver.serve(
+                load_params(dtype=f32, device=dev),
+                torch.stack([y.real, y.imag], dim=-1))
+            vectors[name]["vs_eval_receiver"] = {
+                "llr": rel_err(-llr.transpose(2, 3), llr_r),
+                "h_hat": rel_err(h_hat.transpose(2, 3), h_r)}
+        del rx16
+    reset()
+
+    # (e) the export CLI, an engine file loaded back without Parameters
+    with tempfile.TemporaryDirectory() as out:
+        t1 = time.perf_counter()
+        cli_export.main(["--config", "nrx_rt", "--buckets", "4",
+                         str(DEPLOY_PRB), "--out", out])
+        cli_s = time.perf_counter() - t1
+        with open(os.path.join(out, "nrx_rt_manifest.json")) as f:
+            manifest = json.load(f)
+        eng, params_l = aot.load_engine(os.path.join(
+            out, manifest["buckets"][str(DEPLOY_PRB)]["engine_file"]),
+            device=dev)
+        x, sc = examples[DEPLOY_PRB], 12 * DEPLOY_PRB
+        loaded_equal = same(eng(params_l, *x, num_valid_sc=sc),
+                            rx.engines[DEPLOY_PRB](rx.params, *x,
+                                                   num_valid_sc=sc))
+    reset()
+
+    # (f) K1 and K3 (bf16) at the smallest and largest bucket's width
+    cgnn = rx.params["cgnn"]
+    init_p, it0 = cgnn["s_init"][0], cgnn["iterations"][0]
+    gen_k = torch.Generator(device=dev).manual_seed(1)
+    widths_k = {}
+    for n in (min(rx.buckets), max(rx.buckets)):
+        w = 12 * n
+        eng_n = rx.engines[n]
+        x = torch.randn((N_TX, N_SYM, w, 18), generator=gen_k,
+                        device=dev).to(bf)
+        s = (4.0 * torch.randn((1, N_TX, N_SYM, w, 56), generator=gen_k,
+                               device=dev)).to(bf)
+        pe = eng_n.tables["pe"].to(bf)
+        act = torch.ones((1, N_TX), device=dev)
+        widths_k[w] = {
+            "sepconv_stack": rates({
+                "shape": list(x.shape),
+                "kernel_ms": cuda_ms(lambda: sepconv.fused_conv_stack(
+                    init_p, x), 20),
+                "plain_ms": cuda_ms(lambda: sepconv.sepconv_stack_reference(
+                    init_p, x), 5),
+                **bound(*stack_work(widths_of(init_p), N_TX, N_SYM, w, 2),
+                        peaks)}),
+            "cgnn_iter": rates({
+                "shape": list(s.shape),
+                "kernel_ms": cuda_ms(lambda: cgnn_iter.fused_iteration(
+                    it0, s, pe, act), 20),
+                "plain_ms": cuda_ms(
+                    lambda: cgnn_iter.fused_iteration_reference(
+                        it0, s, pe, act), 5),
+                **bound(*iteration_work(it0, 1, 2, 2, w=w), peaks)})}
+    reset()
+
+    emit({"phase": "deploy_path", "card": card, "buckets": buckets,
+          "build_s": build_s, "padded": padded, "mega": mega,
+          "vectors": vectors, "ebno_db": DEPLOY_EBNO_DB,
+          "export": {"seconds": cli_s, "manifest": manifest,
+                     "loaded_equals_live": loaded_equal},
+          "kernels_at_width": widths_k,
+          "yardstick_ms": DEPLOY_YARDSTICK_MS, "launches": launches,
+          "expected": expected, "seconds": time.perf_counter() - t0})
+    for name, want in expected.items():
+        assert launches[name] == want, (name, launches[name])
+    for n, rec in buckets.items():
+        assert rec["graph_equals_eager"], (n, rec)
+        assert rec["eager_equals_plain"], (n, rec)
+        assert rec["replay_counts"] == dict.fromkeys(route, 0), (n, rec)
+        assert rec["llr_shape"] == [1, N_TX, 12 * n, N_SYM, 4], (n, rec)
+    for key, rec in padded.items():
+        assert rec["graph_equals_direct"], (key, rec)
+        assert rec["eager_equals_direct"], (key, rec)
+    for b, rec in mega.items():
+        assert rec["capture_s"] is not None, (b, rec)
+        assert rec["graph_equals_eager"], (b, rec)
+        assert rec["eager_equals_plain"], (b, rec)
+    for name, rec in vectors.items():
+        # JAX_CURVE: nrx_rt's BLER is below 1e-4 from 7 dB on
+        assert 0.0 <= rec["coded_ber"] < 0.2, (name, rec)
+        assert rec["crc_pass_rate"] >= 0.9, (name, rec)
+    assert max(vectors["float32"]["vs_eval_receiver"].values()) <= 1e-5, \
+        vectors["float32"]
+    assert loaded_equal and set(manifest["buckets"]) == {"4",
+                                                         str(DEPLOY_PRB)}
+    return launches, widths_k
+
+
+def site_path(dev, card, counts, reset):
+    """Phase 12: the site-specific Dataset channel on the card: the port's
+    synthetic datasets written into a temporary directory (md5 of the
+    repository's data/ files); one Monte-Carlo step of SITE_LABEL at 132
+    PRB, batch 30, float32 with K5 (launches counted), kernel route = plain
+    route from the same seed; `sim_ber` at SITE_SWEEP_DB inside the
+    committed curve's band; the evaluate CLI; one step of the LS/lin and
+    the LMMSE baselines of SITE_BASELINE with covariances computed on the
+    Dataset channel; SITE_TRAIN_STEPS training steps of SITE_TRAIN_LABEL at
+    its training width; a step's device ms by stage. Emits the phase's
+    record, asserts it, and returns the launches by path."""
+    import hashlib
+    import torch
+    from neural_rx_tpu_torch.channel.apply import apply_ofdm_channel
+    from neural_rx_tpu_torch.cli import evaluate as cli_evaluate
+    from neural_rx_tpu_torch.entry import (baseline_entry, mc_entry,
+                                           train_entry)
+    from neural_rx_tpu_torch.kernels import ldpc as k5
+    from neural_rx_tpu_torch.sim import trajectory
+    from neural_rx_tpu_torch.sim.baseline_e2e import BaselineE2EModel
+    from neural_rx_tpu_torch.sim.config import Parameters
+    from neural_rx_tpu_torch.sim.e2e import E2EModel
+    from neural_rx_tpu_torch.sim.simber import sim_ber
+
+    t0 = time.perf_counter()
+    launches = {}
+    k_all = {"sepconv_stack": 1, "cgnn_iter": 2, "cgnn_full": 0,
+             "ldpc_decode": 2}
+    k5_only = {"sepconv_stack": 0, "cgnn_iter": 0, "cgnn_full": 0,
+               "ldpc_decode": 2}
+    none = dict.fromkeys(k_all, 0)
+    expected = {"site_b30": k_all, "site_baseline_lslin_lmmse": k5_only,
+                "site_baseline_lmmse_lmmse": k5_only,
+                "site_train_steps": none}
+    curve = json_curve(SITE_CURVE, key=("curve",))
+    with tempfile.TemporaryDirectory() as data_dir:
+        t1 = time.perf_counter()
+        paths = trajectory.write_committed_site_datasets(data_dir)
+        md5 = {}
+        for path in paths:
+            with open(path, "rb") as f:
+                md5[os.path.basename(path)] = hashlib.md5(
+                    f.read()).hexdigest()
+        datasets_s = time.perf_counter() - t1
+
+        # (a) one step through the entry point, launches counted
+        fn, (params, gen) = mc_entry(device=dev, batch=SITE_BATCH,
+                                     ebno_db=SITE_STEP_DB, seed=SITE_SEED,
+                                     config=SITE_LABEL, data_dir=data_dir)
+        reset()
+        step_counts = fn(params, gen)
+        torch.cuda.synchronize()
+        launches["site_b30"] = counts()
+        reset()
+
+        # (b) kernel route = plain route from the same seed, 2 steps
+        p = Parameters(SITE_LABEL, training=False, data_dir=data_dir)
+        models = [E2EModel(p, kernels=k, device=dev) for k in (True, False)]
+        outs = []
+        for m in models:
+            g = torch.Generator(device=dev).manual_seed(SITE_SEED)
+            outs.append([m(params, g, SITE_BATCH, SITE_STEP_DB,
+                           fast_ldpc=True) for _ in range(2)])
+        torch.cuda.synchronize()
+        reset()
+        plain_rec = {
+            "counters": [block_counts(b, bh) for b, bh, _ in outs[0]],
+            "counters_plain": [block_counts(b, bh) for b, bh, _ in outs[1]],
+            "equals_plain_route": all(
+                torch.equal(x, y) for o, r in zip(*outs)
+                for x, y in zip(o, r))}
+        del outs
+
+        # (c) sim_ber inside the committed curve's band
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bers, blers, n_err, n_blk = sim_ber(
+            models[0], params, SITE_SWEEP_DB, SITE_BATCH,
+            max_mc_iter=MC_MAX_ITER,
+            num_target_block_errors=MC_TARGET_BLOCK_ERRORS, seed=SITE_SEED,
+            verbose=False, fast_ldpc=True, return_counts=True)
+        sweep_s = time.perf_counter() - t1
+        points = [curve_point(*pt, curve) for pt in zip(
+            SITE_SWEEP_DB, bers, blers, n_err, n_blk)]
+        steps = int(n_blk.sum()) // (SITE_BATCH * N_TX)
+        reset()
+
+        # (d) a step's device ms by stage
+        model = models[0]
+        rx_s = model.receiver
+        gen_t = torch.Generator(device=dev).manual_seed(SITE_SEED + 1)
+
+        def front():
+            (b_,), h_, n_ = model.draw(gen_t, SITE_BATCH, SITE_STEP_DB)
+            return apply_ofdm_channel(model.transmitter(b_), h_, None,
+                                      noise=n_)
+        y_t = front()
+        y_tp = torch.stack([y_t.real, y_t.imag], dim=-1)
+        llr_t, _ = rx_s.serve(params, y_tp)
+
+        def decode_both():
+            flat = rx_s.rg.demap_data(llr_t).reshape(SITE_BATCH, N_TX, -1)
+            return [k5.tb_decode_fast(cfg.tb, flat[:, ue])
+                    for ue, cfg in enumerate(rx_s.rg.configs)]
+        stage_ms = {"front_ms": cuda_ms(front, 5),
+                    "channel_cfr_ms": cuda_ms(lambda: p.channel_model(
+                        gen_t, SITE_BATCH, N_TX, N_SYM, N_SC, 30e3), 5),
+                    "receiver_ms": cuda_ms(lambda: rx_s.serve(params, y_tp),
+                                           5),
+                    "decode_ms": cuda_ms(decode_both, 3, warmup=1)}
+        stage_ms["step_ms"] = (stage_ms["front_ms"] + stage_ms["receiver_ms"]
+                               + stage_ms["decode_ms"])
+        del models, y_t, y_tp, llr_t
+        reset()
+
+        # (e) the evaluate CLI on the site configuration
+        with tempfile.TemporaryDirectory() as res_dir:
+            t1 = time.perf_counter()
+            cli_evaluate.main(["--config", SITE_LABEL, "--snr", "5",
+                               "--max-iter", "2", "--fast-ldpc",
+                               "--data-dir", data_dir,
+                               "--results-dir", res_dir])
+            with open(os.path.join(res_dir, f"{SITE_LABEL}_results.pkl"),
+                      "rb") as f:
+                cli_keys = sorted(pickle.load(f)[2])
+            cli_s = time.perf_counter() - t1
+        reset()
+
+        # (f) the baselines, covariances on the Dataset channel
+        base = {}
+        with tempfile.TemporaryDirectory() as cov_dir:
+            for system in ("baseline_lslin_lmmse", "baseline_lmmse_lmmse"):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                fn_b, (prm_b, gen_b) = baseline_entry(
+                    system, config=SITE_BASELINE, device=dev,
+                    batch=SITE_BATCH, ebno_db=SITE_STEP_DB, seed=SITE_SEED,
+                    cov_dir=cov_dir, data_dir=data_dir)
+                setup_s = time.perf_counter() - t1
+                reset()
+                c = fn_b(prm_b, gen_b)
+                torch.cuda.synchronize()
+                launches[f"site_{system}"] = counts()
+                reset()
+                p_b = Parameters(SITE_BASELINE, system=system,
+                                 training=False, data_dir=data_dir)
+                outs = []
+                for k in (True, False):
+                    m = BaselineE2EModel(p_b, system, cov_dir=cov_dir,
+                                         kernels=k, device=dev)
+                    g = torch.Generator(device=dev).manual_seed(SITE_SEED)
+                    outs.append(m({}, g, SITE_BATCH, SITE_STEP_DB,
+                                  fast_ldpc=True))
+                torch.cuda.synchronize()
+                reset()
+                base[system] = {
+                    "setup_s": setup_s, "counters": [int(v) for v in c],
+                    "equals_plain_route": all(
+                        torch.equal(x, y) for x, y in zip(*outs))}
+            cov_files = sorted(f for f in os.listdir(cov_dir)
+                               if f.endswith(".npy"))
+            covs = [np.load(os.path.join(cov_dir, f)) for f in cov_files]
+        cov_rec = {"files": cov_files, "hermitian_err": max(
+            float(np.abs(c - c.conj().T).max() / np.abs(c).max())
+            for c in covs)}
+
+        # (g) training steps of the site configuration at its width
+        step, (tparams, tgen) = train_entry(SITE_TRAIN_LABEL, device=dev,
+                                            seed=SITE_SEED,
+                                            data_dir=data_dir)
+        reset()
+        losses = []
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(SITE_TRAIN_STEPS):
+            losses.append([float(v) for v in step(tparams, tgen)])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t1
+        launches["site_train_steps"] = counts()
+        reset()
+
+    emit({"phase": "site_path", "card": card, "config": SITE_LABEL,
+          "datasets": {"md5": md5, "seconds": datasets_s},
+          "step_counters": [int(v) for v in step_counts],
+          "kernel_vs_plain": plain_rec,
+          "sweep": {"points": points, "steps": steps, "wall_s": sweep_s,
+                    "slots_per_s_wall": steps * SITE_BATCH / sweep_s},
+          "stage_ms": stage_ms,
+          "slots_per_s_device": SITE_BATCH / stage_ms["step_ms"] * 1e3,
+          "cli": {"seconds": cli_s, "keys": cli_keys},
+          "baselines": base, "covariance": cov_rec,
+          "train": {"config": SITE_TRAIN_LABEL, "steps": SITE_TRAIN_STEPS,
+                    "seconds": train_s, "first": losses[0],
+                    "last": losses[-1],
+                    "all_finite": bool(np.isfinite(losses).all())},
+          "launches": launches, "expected": expected,
+          "seconds": time.perf_counter() - t0})
+    assert md5 == SITE_MD5, md5
+    for name, want in expected.items():
+        assert launches[name] == want, (name, launches[name])
+    assert step_counts[3] == SITE_BATCH * N_TX, step_counts
+    assert plain_rec["equals_plain_route"], plain_rec
+    assert all(a > b for a, b in zip(blers, blers[1:])), blers
+    for pt in points:
+        lo, hi = pt["band"]
+        assert lo <= pt["bler"] <= hi, pt
+    assert cli_keys == [("Neural Receiver", 2, 0)], cli_keys
+    for system, rec in base.items():
+        assert rec["equals_plain_route"], (system, rec)
+        assert rec["counters"][3] == SITE_BATCH * N_TX, (system, rec)
+    assert len(cov_rec["files"]) == 3 and cov_rec["hermitian_err"] < 1e-6, \
+        cov_rec
+    assert np.isfinite(losses).all(), losses
+    return launches
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -1775,7 +2299,16 @@ def main() -> int:
     # trained parameters through the eval receiver, covariances on UMi
     launches.update(train_path(dev, card, counts, reset))
 
-    # 11. times (bf16, as served), at the shapes the main path gives each
+    # 11. the deploy engine: every bucket, padded requests, mega, the
+    # Aerial test vectors, the export CLI
+    deploy_launches, deploy_widths = deploy_path(dev, card, peaks, counts,
+                                                 reset)
+    launches.update(deploy_launches)
+
+    # 12. the site-specific Dataset channel: eval, baselines, training
+    launches.update(site_path(dev, card, counts, reset))
+
+    # 13. times (bf16, as served), at the shapes the main path gives each
     # kernel: stacks at N = 2 (batch 1), the iteration at batch 16, the
     # whole CGNN at batch 1
     t0 = time.perf_counter()
@@ -1958,6 +2491,18 @@ def main() -> int:
         return {"ms_mc": rec["kernel_ms"], "plain_ms_mc": rec["plain_ms"],
                 "bound_ms_mc": rec["bound_ms"]}
 
+    def width_keys(kernel):
+        """The deploy path's launch at the smallest and largest bucket's
+        width (bf16, batch 1)."""
+        out = {}
+        for w, recs in deploy_widths.items():
+            rec = recs[kernel]
+            out.update({f"ms_w{w}": rec["kernel_ms"],
+                        f"plain_ms_w{w}": rec["plain_ms"],
+                        f"bound_ms_w{w}": rec["bound_ms"],
+                        f"pct_of_bound_w{w}": rec["pct_of_bound"]})
+        return out
+
     st_bytes = sum(s["bytes_ms"] for s in per_stack)
     st_ops = sum(s["ops_ms"] for s in per_stack)
     by_path = {k: {r: launches[r][k] for r in launches} for k in
@@ -1978,13 +2523,14 @@ def main() -> int:
          "library_ms": None, "ms_n32": stack_n32["kernel_ms"],
          "plain_ms_n32": stack_n32["plain_ms"],
          "bound_ms_n32": stack_n32["bound_ms"],
-         **mc_keys("sepconv_stack"),
+         **mc_keys("sepconv_stack"), **width_keys("sepconv_stack"),
          "note": "ms/plain_ms/bound_ms: sum over the 3 launches of one "
                  "batch-1 slot (init, update0, update1), bf16, N=2, "
                  "14x1584; *_n32: the batch-16 route's launch (init stack, "
                  "N=32); *_mc: the mc path's launch (init stack, float32, "
-                 "N=60); library: no PyTorch call computes a separable "
-                 "stack"},
+                 "N=60); *_w48, *_w3276: the deploy engine's init stack at "
+                 "the 4- and 273-PRB buckets (bf16, N=2); library: no "
+                 "PyTorch call computes a separable stack"},
         {"name": "cgnn_iter", "route": "cuda",
          "source": "neural_rx_tpu_torch/csrc/cgnn_iter.cu",
          "replaces": "neural_rx_tpu/kernels/cgnn_iter_pallas.py:532",
@@ -1995,11 +2541,13 @@ def main() -> int:
          "ms": iteration["kernel_ms"], "plain_ms": iteration["plain_ms"],
          "bound_ms": iteration["bound_ms"],
          "bound_by": iteration["bound_by"], "library_ms": None,
-         **mc_keys("cgnn_iter"),
+         **mc_keys("cgnn_iter"), **width_keys("cgnn_iter"),
          "note": "one launch in state mode at batch 16 (b=16, T=2, "
                  "14x1584), bf16; *_mc: the mc path's launch (float32, "
-                 "b=30); library: no PyTorch call computes the "
-                 "aggregation MLP, user sum and separable stack"},
+                 "b=30); *_w48, *_w3276: the deploy engine's launch at the "
+                 "4- and 273-PRB buckets (bf16, b=1, state mode); library: "
+                 "no PyTorch call computes the aggregation MLP, user sum "
+                 "and separable stack"},
         {"name": "cgnn_full", "route": "cuda",
          "source": "neural_rx_tpu_torch/csrc/cgnn_iter.cu",
          "replaces": "neural_rx_tpu/kernels/cgnn_iter_pallas.py:494",

@@ -1,1 +1,2 @@
-"""Channel application (the channel models wait for the next eval slice)."""
+"""Channel models (TDL, DoubleTDL, 38.901 UMi/UMa, the site-specific CIR
+dataset), the carrier frequency offset and the channel's application."""

@@ -8,7 +8,7 @@ Carlo).
         [--snr 2 3 4] [--max-iter N] [--batch-size B] [--num-tx-eval T] \
         [--mcs-idx 0] [--fast-ldpc] [--target-block-errors K] \
         [--target-bler X] [--weights PATH] [--results-dir DIR] \
-        [--device cuda|cpu]
+        [--data-dir DIR] [--device cuda|cpu]
 
 Sweeps Eb/N0 over the configuration's [evaluation] grid unless --snr is
 given, with `sim.simber.sim_ber` on `sim.e2e.E2EModel` (system nrx) or
@@ -22,7 +22,10 @@ configuration's num_nrx_iter_eval iterations; its weights default to the
 committed weights (`weights.committed_weights`); a missing file is an error.
 A baseline with the LMMSE channel estimate reads the covariances
 weights/{label}_{freq,time,space}_cov_mat.npy, and computes and writes them
-there if they are missing. The device defaults to cuda, which needs a GPU.
+there if they are missing. The site-specific configurations read their
+CIR dataset from --data-dir (default: the repository's data/; `python -m
+neural_rx_tpu_torch.sim.trajectory --out DIR` writes it). The device
+defaults to cuda, which needs a GPU.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ def main(argv=None):
                     help="layered min-sum decoder (the LDPC kernel)")
     ap.add_argument("--weights", default=None)
     ap.add_argument("--results-dir", default="results")
+    ap.add_argument("--data-dir", default=None)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
     if args.system != "nrx" and args.system not in SYSTEMS:
@@ -67,7 +71,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     p = Parameters(args.config, system=args.system, training=False,
-                   num_tx_eval=args.num_tx_eval)
+                   num_tx_eval=args.num_tx_eval, data_dir=args.data_dir)
     if not 0 <= args.mcs_idx < len(p.mcs_index):
         raise ValueError(f"MCS index {args.mcs_idx} out of range: "
                          f"{args.config} has {len(p.mcs_index)} MCS")

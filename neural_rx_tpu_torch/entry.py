@@ -31,6 +31,13 @@ the neural receiver or LS/lin.
 (`sim.baseline_e2e.BaselineE2EModel`: LS, LMMSE or perfect-CSI channel
 estimate, LMMSE or K-Best detection) of any configuration in eval mode.
 
+`deploy_entry()` is the deployed engine (`deploy/`): one Aerial-ABI
+engine per PRB bucket of a configuration (nrx_rt: 2 users, 4 rx antennas,
+14 symbols, buckets 4 to 273 PRB, bfloat16), pad-to-bucket dispatch, and
+in graph mode one CUDA graph per (bucket, valid width); the export CLI's
+route (the stack kernel on the init stack, the iteration kernel on every
+iteration) or the whole-CGNN kernel (mega).
+
 `train_entry()` is one training step (`sim.training.make_step`) of a
 configuration at its training width (nrx_rt: 4 PRB, 4 rx antennas, 2 users,
 batch 128, UMi, float32) with the first phase of its schedule: the
@@ -41,6 +48,8 @@ seed-made parameters.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -48,6 +57,8 @@ from . import weights
 from .kernels.cgnn_iter import pack_mlp
 from .kernels.sepconv import pack_stack
 from .channel.apply import apply_ofdm_channel
+from .deploy.aerial import AerialNRX
+from .deploy.aot import DEFAULT_PRB_BUCKETS, BucketedReceiver, engine_config
 from .phy.misc import binary_source
 from .rx.neural_rx import NeuralPUSCHReceiver, receiver_for, resolve_device
 from .sim.baseline_e2e import BaselineE2EModel
@@ -171,7 +182,8 @@ def eval_entry(device="cuda", batch: int = 16, ebno_db: float = 10.0,
 
 def mc_entry(device="cuda", batch: int = 30, ebno_db: float = 3.0,
              fast_ldpc: bool = True, seed: int = 0, config: str = "nrx_rt",
-             mcs_idx: int = 0, num_it: int | None = None):
+             mcs_idx: int = 0, num_it: int | None = None,
+             data_dir: str | None = None):
     """Returns (fn, example_args): fn(params, generator) -> int64 [4]
     counters (bit errors, bits, block errors, blocks) of one Monte-Carlo
     step of `config` in eval mode (nrx_rt: 132 PRB, float32, DoubleTDLlow)
@@ -179,9 +191,10 @@ def mc_entry(device="cuda", batch: int = 30, ebno_db: float = 3.0,
     all), at `batch` slots and `ebno_db`, decoding with the layered min-sum
     kernel (fast_ldpc=True) or the flooding decoder, with the committed
     weights (`weights.committed_weights`); example_args = (params, a
-    generator on `device` seeded with `seed`)."""
+    generator on `device` seeded with `seed`). data_dir: where a Dataset
+    channel's files are (default: the repository's data/)."""
     device = resolve_device(device)
-    p = Parameters(config, training=False)
+    p = Parameters(config, training=False, data_dir=data_dir)
     model = E2EModel(p, device=device)
     params = load_params(dtype=p.nrx_dtype, device=device,
                          path=weights.committed_weights(p.label))
@@ -197,7 +210,8 @@ def mc_entry(device="cuda", batch: int = 30, ebno_db: float = 3.0,
 def baseline_entry(system: str, config: str = "nrx_rt", device="cuda",
                    batch: int = 30, ebno_db: float = 4.0,
                    num_tx_eval: int | None = None, fast_ldpc: bool = True,
-                   seed: int = 0, cov_dir: str | None = None):
+                   seed: int = 0, cov_dir: str | None = None,
+                   data_dir: str | None = None):
     """Returns (fn, example_args): fn(params, generator) -> int64 [4]
     counters of one Monte-Carlo step of the baseline `system` (one of
     `sim.baseline_e2e.SYSTEMS`) on `config` in eval mode (132 PRB for every
@@ -206,10 +220,11 @@ def baseline_entry(system: str, config: str = "nrx_rt", device="cuda",
     layered min-sum kernel (fast_ldpc=True) or the flooding decoder;
     example_args = ({}, a generator on `device` seeded with `seed`). The
     LMMSE estimate reads its covariances from `cov_dir` (default:
-    weights/), or computes them there on `device` when they are missing."""
+    weights/), or computes them there on `device` when they are missing;
+    data_dir as `mc_entry`'s."""
     device = resolve_device(device)
     p = Parameters(config, system=system, training=False,
-                   num_tx_eval=num_tx_eval)
+                   num_tx_eval=num_tx_eval, data_dir=data_dir)
     model = BaselineE2EModel(p, system, cov_dir=cov_dir, device=device)
     step = make_eval_step(model, fast_ldpc=fast_ldpc)
 
@@ -255,7 +270,8 @@ def mixed_mcs_entry(config: str = "nrx_rt_var_mcs", mcs_order=(0, 1),
 
 
 def train_entry(config: str = "nrx_rt", device="cuda",
-                batch: int | None = None, seed: int = 0):
+                batch: int | None = None, seed: int = 0,
+                data_dir: str | None = None):
     """Returns (fn, example_args): fn(params, generator) -> (loss_data,
     loss_chest, loss), 0-dim device tensors, one training step of `config`
     (`E2EModel(training=True)`, its training channel and width) with the
@@ -263,9 +279,9 @@ def train_entry(config: str = "nrx_rt", device="cuda",
     readout and weight, multiloss, train_tx) at `batch` (default: the
     phase's), updating params in place with Adam (optax's defaults, created
     here); example_args = (seed-made trainable params, a generator on
-    `device` seeded with `seed`)."""
+    `device` seeded with `seed`); data_dir as `mc_entry`'s."""
     device = resolve_device(device)
-    p = Parameters(config, training=True)
+    p = Parameters(config, training=True, data_dir=data_dir)
     model = E2EModel(p, training=True, device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = trainable(model.init_params(gen))
@@ -279,3 +295,42 @@ def train_entry(config: str = "nrx_rt", device="cuda",
     step.set_snr_range(sched["min_training_snr_db"][0],
                        sched["max_training_snr_db"][0])
     return step, (params, gen)
+
+
+def deploy_entry(config: str = "nrx_rt", buckets=DEFAULT_PRB_BUCKETS,
+                 batch: int = 1, dtype=torch.bfloat16, mega: bool = False,
+                 graphs: bool = True, device="cuda",
+                 fused_convs: bool = True, fused_iteration: bool = True,
+                 params: dict | None = None,
+                 weights_dir: str = weights.WEIGHTS_DIR):
+    """Returns (receiver, examples): a `deploy.aot.BucketedReceiver` of
+    `config`'s eval receiver with one `AerialNRX` engine per PRB bucket
+    (each grid at that width), in `dtype`, graphs captured for `batch`
+    (graphs=True: a CUDA device only; graphs=False serves every call
+    eagerly), and {n_prb: seeded example inputs} per bucket. Route:
+    `deploy.aot.engine_config` (fused_convs, fused_iteration, mega).
+    params: {"cgnn": tree} (default: the committed weights of weights_dir,
+    else seed-made ones from seed 0), packed here for `dtype`."""
+    device = resolve_device(device)
+
+    def params_at(n_prb):
+        return Parameters(config, training=False,
+                          overrides={"n_size_bwp": n_prb})
+
+    def make_engine(n_prb):
+        p = params_at(n_prb)
+        rx = receiver_for(p, device=device)
+        cfg = engine_config(rx.cgnn_cfg, fused_convs, fused_iteration, mega)
+        return AerialNRX.from_grid(rx.rg, cfg, num_it=p.num_nrx_iter_eval,
+                                   dtype=dtype, device=device)
+
+    if params is None:
+        p = params_at(min(buckets))
+        path = weights.committed_weights(p.label, weights_dir)
+        params = weights.load_tree(path, device=device) \
+            if os.path.exists(path) else receiver_for(
+                p, device=device).init_params(
+                    torch.Generator(device=device).manual_seed(0))
+    receiver = BucketedReceiver(make_engine, pack_params(params, dtype),
+                                batch, buckets, graphs)
+    return receiver, {n: receiver.example_inputs(n) for n in buckets}

@@ -235,10 +235,11 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
         if h_hat is not None:
             h_hat = h_hat * sc_mask[None]
 
-    # Input power normalization: unit mean power per batch sample
-    mean_sq = (y.float() ** 2).mean(dim=(1, 2, 3), keepdim=True)
-    if sc_valid is not None:
-        mean_sq = mean_sq * (n_sc / float(sc_valid))
+    # Input power normalization: unit mean power per batch sample, over
+    # the valid REs alone (the same reduction as a grid of the valid width,
+    # so a bucket-padded grid's norm equals the direct one's bit for bit)
+    y_valid = y if sc_valid is None else y[:, :, :sc_valid]
+    mean_sq = (y_valid.float() ** 2).mean(dim=(1, 2, 3), keepdim=True)
     norm = torch.rsqrt(mean_sq + 1e-12)
     y = (y * norm).to(dtype)
     pe = pe.to(dtype)

@@ -6,9 +6,11 @@ what the serving and eval paths read: the config fields, the per-(MCS, UE)
 the noise-variance rule of the JAX package's `sim/e2e.py` (per batch item
 in training, with the rate shift of masked pilots), and the channel model:
 TDL-B100, TDL-C300, DoubleTDL{low,medium,high}, the 38.901 UMi and UMa
-(the training channel of most configurations) and AWGN. The Dataset
-channel is recorded by name with `channel_model = None`; the E2E models
-refuse it. The [training] section's keys (`training_schedule`,
+(the training channel of most configurations), the site-specific CIR
+dataset (`channel.dataset.DatasetChannel`, read from
+`{data_dir}/{tfrecord_filename}`, data_dir the repository's `data/` unless
+the caller names another; an absolute `tfrecord_filename` override names
+the file itself) and AWGN. The [training] section's keys (`training_schedule`,
 `mcs_training_probs`, `mcs_training_snr_db_offset`, `eval_ebno_db_arr`)
 are attributes, the optional two None where a file lacks them. A carrier
 frequency offset (`cfo_offset_ppm` > 0) becomes `frequency_offset`, a
@@ -31,6 +33,7 @@ import os
 import torch
 
 from ..channel.cfo import FrequencyOffset
+from ..channel.dataset import DatasetChannel
 from ..channel.double_tdl import DoubleTDLChannel
 from ..channel.tdl import TDLChannel
 from ..channel.tr38901 import UMiUMaChannel
@@ -40,6 +43,9 @@ from ..phy.nr.pusch import CarrierConfig, PUSCHConfig
 from ..phy.nr.transmitter import PUSCHTransmitter
 
 CONFIG_DIR = os.path.join(os.path.dirname(__file__), "..", "configs")
+# where the site-specific configurations' CIR datasets live by default
+DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "data")
 
 _EVAL_OVERRIDES = ["channel_type", "n_size_bwp", "max_ut_velocity",
                    "min_ut_velocity", "channel_norm", "cfo_offset_ppm",
@@ -67,14 +73,18 @@ class Parameters:
     system: 'nrx', 'baseline_*', or 'dummy' (parse only: no component is
     built). overrides: {key: value} set after the file is parsed and
     before any component is built; a key the configuration lacks raises
-    KeyError. pusch_configs: [mcs][ue] PUSCHConfig; transmitters: one per
-    MCS; resource_grid: the grid of the first MCS (identical across MCS).
+    KeyError (`cir_max_records`, the Dataset channel's cap on records,
+    -1 by default, is one). pusch_configs: [mcs][ue] PUSCHConfig;
+    transmitters: one per MCS; resource_grid: the grid of the first MCS
+    (identical across MCS). data_dir: where the Dataset channel's files
+    are (default `DATA_DIR`).
     """
 
     def __init__(self, config_name: str, system: str = "nrx",
                  training: bool = False, num_tx_eval: int | None = None,
                  config_dir: str | None = None,
-                 overrides: dict | None = None):
+                 overrides: dict | None = None,
+                 data_dir: str | None = None):
         if not config_name.endswith(".cfg"):
             config_name += ".cfg"
         path = os.path.join(config_dir or CONFIG_DIR, config_name)
@@ -93,12 +103,15 @@ class Parameters:
                 ev = name + "_eval"
                 if hasattr(self, ev):
                     setattr(self, name, getattr(self, ev))
+        self.cir_max_records = -1
         for key, value in (overrides or {}).items():
             if not hasattr(self, key):
                 raise KeyError(f"unknown Parameters override: {key}")
             setattr(self, key, value)
         if not hasattr(self, "mcs_var_mcs_masking"):
             self.mcs_var_mcs_masking = False
+        if not hasattr(self, "random_subsampling"):
+            self.random_subsampling = True
         for name in ("mcs_training_probs", "mcs_training_snr_db_offset"):
             if not hasattr(self, name):
                 setattr(self, name, None)
@@ -148,9 +161,9 @@ class Parameters:
         self.transmitters = [PUSCHTransmitter(per_ue)
                              for per_ue in self.pusch_configs]
         self.resource_grid = self.transmitters[0].resource_grid
-        self._channel(carrier)
+        self._channel(carrier, data_dir or DATA_DIR)
 
-    def _channel(self, carrier):
+    def _channel(self, carrier, data_dir: str):
         """channel_model, channel_num_tx, channel_type_name and
         frequency_offset (JAX `Parameters.__init__`'s channel section)."""
         ct = self.channel_type
@@ -180,7 +193,14 @@ class Parameters:
                 min_speed=self.min_ut_velocity,
                 max_speed=self.max_ut_velocity,
                 normalize=self.channel_norm)
-        elif ct not in ("AWGN", "Dataset"):
+        elif ct == "Dataset":
+            self.channel_model = DatasetChannel(
+                os.path.join(data_dir, self.tfrecord_filename),
+                training=self.training, num_tx=self.max_num_tx,
+                random_subsampling=self.random_subsampling,
+                num_rx_ant=self.num_rx_antennas, num_tx_ant=ports,
+                max_num_examples=self.cir_max_records)
+        elif ct != "AWGN":
             raise ValueError(f"Unknown channel type {ct}")
         self.channel_type_name = ct
         self.frequency_offset = None

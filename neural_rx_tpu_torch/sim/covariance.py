@@ -6,9 +6,9 @@ E2E model is: `draw` samples a batch of CFRs of the configuration's channel
 from a `torch.Generator`; `accumulate` is deterministic: each link (rx
 antenna, tx, port) of each sample is normalised to unit mean power, then
 the three covariances are averaged over the other axes. The channel is any
-ported one but AWGN: TDL, DoubleTDL, or the 38.901 UMi/UMa on which the
-JAX package measures them (`cli/compute_cov.py`: the training channel at
-the eval width).
+ported one but AWGN: TDL, DoubleTDL, the CIR dataset, or the 38.901
+UMi/UMa on which the JAX package measures them (`cli/compute_cov.py`: the
+training channel at the eval width).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..channel.dataset import DatasetChannel
 from ..channel.tr38901 import UMiUMaChannel
 
 COV_SEED = 123  # the seed of the JAX package's estimate
@@ -30,7 +31,7 @@ def draw(p, generator: torch.Generator, batch_size: int) -> torch.Tensor:
     scs = p.carrier.subcarrier_spacing
     if p.channel_model is None:
         raise ValueError(f"no channel model to draw: {p.channel_type_name}")
-    if isinstance(p.channel_model, UMiUMaChannel):
+    if isinstance(p.channel_model, (UMiUMaChannel, DatasetChannel)):
         h = p.channel_model(generator, batch_size, p.max_num_tx, nsym, nsc,
                             scs)
     else:

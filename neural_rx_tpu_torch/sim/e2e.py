@@ -5,7 +5,8 @@ The port's counterpart of `neural_rx_tpu/sim/e2e.py:E2EModel`. The
 transmitters of the evaluated MCS are superposed through a one-hot per-user
 MCS mask, inactive DMRS ports zeroed, the configuration's carrier frequency
 offset applied if it has one, the configuration's channel (TDL-B100,
-TDL-C300, DoubleTDL, UMi, UMa or AWGN) and the rate-adjusted noise of the
+TDL-C300, DoubleTDL, UMi, UMa, the CIR dataset or AWGN) and the
+rate-adjusted noise of the
 first evaluated MCS (`Parameters.noise_variance`, one N0 per batch item
 for a tensor of Eb/N0s) added. The end-to-end configurations send a
 trainable constellation (`params["constellation"]`, centred and normalised
@@ -22,7 +23,7 @@ a fixed order: at eval by `draw` (the bits of each evaluated MCS in order,
 the channel, the noise), in training by `draw_training` (the bits, the
 pilot slot, the frequency offsets, the channel, the noise). `forward` does
 everything after the draws, so a test can feed it the JAX package's own.
-A Dataset channel and a device mesh raise `NotImplementedError`.
+A device mesh raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from ..channel.apply import apply_ofdm_channel
+from ..channel.dataset import DatasetChannel
 from ..channel.tr38901 import UMiUMaChannel
 from ..phy.constellation import Constellation
 from ..phy.misc import binary_source, complex_awgn
@@ -69,15 +71,13 @@ def eval_order(mcs_arr_eval_idx, mcs_ue_mask, num_mcs: int) -> list:
 
 def refuse_unported(p, mesh=None, baseline: bool = False):
     """NotImplementedError for what the E2E models do not port: a device
-    mesh (ROADMAP A6), the Dataset channel (A5), and for the classical
-    baselines a trainable constellation or masked pilots, which they cannot
-    receive (the JAX package's baselines cannot either)."""
+    mesh (ROADMAP A6), and for the classical baselines a trainable
+    constellation or masked pilots, which they cannot receive (the JAX
+    package's baselines cannot either)."""
     why = None
     ct = p.channel_type_name
     if mesh is not None:
         why = "a device mesh is the multi-GPU slice's (ROADMAP A6)"
-    elif ct == "Dataset":
-        why = "the Dataset channel is the dataset slice's (ROADMAP A5)"
     elif baseline and (p.custom_constellation or p.mask_pilots):
         why = ("the classical baselines send fixed QAM with pilots: no "
                "trainable constellation, no masked pilots")
@@ -114,7 +114,8 @@ class EvalLink:
                 (batch_size, p.num_rx_antennas, p.max_num_tx, ports, nsym,
                  nsc), 1.0 / np.sqrt(ports), dtype=torch.complex64,
                 device=generator.device)
-        if isinstance(p.channel_model, UMiUMaChannel):  # any user count
+        if isinstance(p.channel_model, (UMiUMaChannel, DatasetChannel)):
+            # any user count
             return p.channel_model(generator, batch_size, p.max_num_tx, nsym,
                                    nsc, scs)
         if p.channel_num_tx == 1:  # a single link: one draw per user

@@ -23,19 +23,19 @@ WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "weights")
 
 
-def ema_weights(label: str) -> str:
+def ema_weights(label: str, weights_dir: str = WEIGHTS_DIR) -> str:
     """Path of the committed EMA weights of configuration `label`."""
-    return os.path.join(WEIGHTS_DIR, f"{label}_ema_weights.npz")
+    return os.path.join(weights_dir, f"{label}_ema_weights.npz")
 
 
-def committed_weights(label: str) -> str:
-    """Path of the committed weights of configuration `label`: its EMA
-    weights, or {label}_weights.npz where only those are committed
-    (nrx_rt_var_mcs: the EMA pickle of that configuration reproduces no
-    committed curve, ROADMAP.md C4). Each `.npz` is named after the JAX
-    pickle it was converted from."""
-    path = ema_weights(label)
-    other = os.path.join(WEIGHTS_DIR, f"{label}_weights.npz")
+def committed_weights(label: str, weights_dir: str = WEIGHTS_DIR) -> str:
+    """Path of the committed weights of configuration `label` in
+    weights_dir: its EMA weights, or {label}_weights.npz where only those
+    are committed (nrx_rt_var_mcs: the EMA pickle of that configuration
+    reproduces no committed curve, ROADMAP.md C4; nrx_site_specific_100k).
+    Each `.npz` is named after the JAX pickle it was converted from."""
+    path = ema_weights(label, weights_dir)
+    other = os.path.join(weights_dir, f"{label}_weights.npz")
     return other if not os.path.exists(path) and os.path.exists(other) \
         else path
 

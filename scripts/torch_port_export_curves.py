@@ -1,11 +1,12 @@
-"""Copy the committed var-MCS BLER curves of the JAX package into the JSON
-file the PyTorch port's `chip_smoke.py` reads (`results/` is not part of
-the copy of the repository that runs on the GPU machine).
+"""Copy committed BLER curves of the JAX package into the JSON files the
+PyTorch port's `chip_smoke.py` reads (`results/` is not part of the copy of
+the repository that runs on the GPU machine).
 
-    python scripts/torch_port_export_curves.py \
-        [neural_rx_tpu_torch/curves/nrx_rt_var_mcs.json]
+    python scripts/torch_port_export_curves.py [CURVES_DIR]
 
-Reads, with numpy and pickle alone:
+writes CURVES_DIR/nrx_rt_var_mcs.json and
+CURVES_DIR/nrx_site_specific_100k.json (default:
+neural_rx_tpu_torch/curves/). Reads, with numpy and pickle alone:
 - results/nrx_rt_var_mcs_results.pkl: the own-trained weights' curves
   ("own"; reproduced by weights/nrx_rt_var_mcs_weights.pkl, ROADMAP.md C4),
   key ('Neural Receiver', 2, mcs);
@@ -13,7 +14,11 @@ Reads, with numpy and pickle alone:
   curves ("ref"; those weights are not in the repository);
 - results/mixed_mcs_results.pkl: the mixed-MCS curves of user 0 ("mixed":
   [ebno, same-MCS dict, mixed-MCS dict], keys (system name, MCS of user
-  0)), made with the imported weights.
+  0)), made with the imported weights;
+- results/nrx_site_specific_100k_results.pkl: the site-specific fine-tuned
+  receiver's curve on the eval trajectory ("curve"; reproduced by
+  weights/nrx_site_specific_100k_weights.pkl, ROADMAP.md C7), key
+  ('Neural Receiver', 2, 0).
 Each curve is written as {"ebno_db": [...], "bler": [...]} with the points
 the run did not reach (NaN) dropped.
 """
@@ -42,21 +47,28 @@ def _per_mcs(name: str) -> dict:
             if key[0] == "Neural Receiver" and key[1] == 2}
 
 
-def main(out=os.path.join(ROOT, "neural_rx_tpu_torch", "curves",
-                          "nrx_rt_var_mcs.json")) -> int:
+def _write(path: str, record: dict) -> None:
+    with open(path, "w") as f:
+        json.dump(record, f, indent=1)
+        f.write("\n")
+    print(path)
+
+
+def main(curves_dir=os.path.join(ROOT, "neural_rx_tpu_torch",
+                                 "curves")) -> int:
     with open(os.path.join(ROOT, "results", "mixed_mcs_results.pkl"),
               "rb") as f:
         ebno, _, mixed = pickle.load(f)
-    record = {
+    _write(os.path.join(curves_dir, "nrx_rt_var_mcs.json"), {
         "config": "nrx_rt_var_mcs", "users": 2,
         "own": _per_mcs("nrx_rt_var_mcs_results.pkl"),
         "ref": _per_mcs("nrx_rt_var_mcs_ref_results.pkl"),
         "mixed": {SYSTEMS[name] + "_ue0_mcs" + str(mcs): _curve(ebno, v)
-                  for (name, mcs), v in sorted(mixed.items())}}
-    with open(out, "w") as f:
-        json.dump(record, f, indent=1)
-        f.write("\n")
-    print(out)
+                  for (name, mcs), v in sorted(mixed.items())}})
+    _write(os.path.join(curves_dir, "nrx_site_specific_100k.json"), {
+        "config": "nrx_site_specific_100k", "users": 2,
+        "weights": "nrx_site_specific_100k_weights.pkl",
+        "curve": _per_mcs("nrx_site_specific_100k_results.pkl")["0"]})
     return 0
 
 

@@ -52,8 +52,7 @@ def test_config_builds_as_jax(site_datasets, name, training):
     jp = jax_config.Parameters(name, system="nrx", training=training)
     assert p.channel_type_name == jp.channel_type_name
     assert p.channel_num_tx == jp.channel_num_tx
-    assert (p.channel_model is None) == (
-        jp.channel_model is None or jp.channel_type_name == "Dataset")
+    assert (p.channel_model is None) == (jp.channel_model is None)
     assert (p.frequency_offset is None) == (jp.frequency_offset is None)
     assert p.max_num_tx == jp.max_num_tx
     assert len(p.pusch_configs) == len(jp.pusch_configs)

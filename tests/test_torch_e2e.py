@@ -232,7 +232,8 @@ def test_second_step_builds_no_table(port_side, monkeypatch):
 
 @pytest.mark.parametrize("change,match", [
     ({"mesh": object()}, "multi-GPU"),
-    ({"channel_type_name": "Dataset"}, "dataset")])
+    # the Dataset channel is ported; with a mesh the mesh still raises
+    ({"mesh": object(), "channel_type_name": "Dataset"}, "multi-GPU")])
 def test_e2e_refuses_what_is_not_ported(cfg_dir, change, match):
     p = Parameters("nrx_rt", training=False, config_dir=cfg_dir)
     kwargs = {k: change.pop(k) for k in ("training", "mesh") if k in change}
