@@ -130,7 +130,20 @@ Phases, each printing one JSON line with its seconds:
      the Dataset channel) = plain route; 20 training steps of
      nrx_site_specific at 4 PRB, batch 128 (no kernel, finite losses); a
      step's device ms by stage;
- 13. times: CUDA-event device time per kernel launch (kernel and plain) at
+ 13. dist_path: several ranks (`dist/`): a one-rank NCCL group (mesh 1 x
+     1) whose `sim_ber` (nrx_rt, 132 PRB, 3 dB, global batch 30, K5) and
+     training step (the gradient all-reduce) equal the same calls without
+     a mesh; gloo groups of 2 and 4 ranks sharing the card, started
+     together (spawn; the library built here, loaded there): the stack
+     and iteration kernels on 792- and 396-subcarrier shards with halos of
+     3 (bf16, float32) against the unsharded launch, the eval receiver's
+     CGNN on meshes 1 x 4 and 2 x 2 within 1e-5 of one rank's, `sim_ber`
+     on meshes 2 x 1 and 2 x 2 with counters equal to one rank's, a 2-rank
+     training step with equal parameters on both ranks, each rank's
+     launches asserted; `chained_device_time_ms` of `entry()` at batch 1 beside its
+     event time; nrx_rt's weights through the reference format and back
+     equal, a served call from them equal;
+ 14. times: CUDA-event device time per kernel launch (kernel and plain) at
      the shapes the main path gives it, with its bound, achieved TFLOP/s
      and share of the bound (the sepconv stack at N = 2 and on the batch-16
      route's init stack at N = 32, the whole-CGNN kernel at batch 1 and
@@ -1799,6 +1812,364 @@ def site_path(dev, card, counts, reset):
     return launches
 
 
+DIST_BATCH = 30  # the global batch of the sharded sim_ber (nrx_rt eval)
+DIST_EBNO_DB = 3.0
+DIST_STEPS = 2  # sim_ber steps a run
+DIST_SEED = 0
+DIST_CGNN_BATCH = 2  # the grid-sharded CGNN's batch (1 a data row at 2)
+DIST_CGNN_MESHES = ((1, 4), (2, 2))
+CHAIN_LENGTH = 20  # calls a chain of chained_device_time_ms
+
+
+def dist_inputs(config="nrx_rt", config_dir=None, batch=DIST_BATCH,
+                train_batch=None):
+    """The sharded jobs' inputs at nrx_rt's widths (132 PRB, committed
+    weights; CPU tensors from numpy's default_rng(DIST_SEED)):
+    "kernel_jobs", the stack kernel (init stack, N = 2) and the iteration
+    kernel (b = 1, state and readout mode) in bf16 and float32; "cgnn", the
+    eval receiver's CGNN (float32, its iteration-kernel route) with its
+    inputs at batch DIST_CGNN_BATCH; "eval_args", `sim_ber` of config at
+    DIST_EBNO_DB, global batch `batch`, DIST_STEPS steps with the layered
+    decoder; "train_args", one training step of config from a seed-made
+    init at global batch train_batch (default: its phase 0's)."""
+    import dataclasses
+    import torch
+    from neural_rx_tpu_torch import weights
+    from neural_rx_tpu_torch.dist import checks
+    from neural_rx_tpu_torch.entry import load_params, make_receiver
+    from neural_rx_tpu_torch.sim.config import Parameters
+    from neural_rx_tpu_torch.sim.e2e import E2EModel
+
+    rng = np.random.default_rng(DIST_SEED)
+
+    def normal(*shape, scale=1.0):
+        return torch.as_tensor(scale * rng.normal(size=shape),
+                               dtype=torch.float32)
+    cgnn_p = load_params(dtype=torch.float32, device="cpu")["cgnn"]
+    rx32 = make_receiver(nrx_dtype=torch.float32, device="cpu")
+    x = normal(2, N_SYM, N_SC, 18)
+    s = normal(1, N_TX, N_SYM, N_SC, 56, scale=4.0)
+    act = torch.ones((1, N_TX))
+    readouts = [cgnn_p["readout_llrs"][0], cgnn_p["readout_chest"]]
+    kernel_jobs = []
+    for dt in ("bfloat16", "float32"):
+        kernel_jobs += [
+            ("stack", {"p": cgnn_p["s_init"][0], "x": x, "dtype": dt}),
+            ("iteration", {"it_p": cgnn_p["iterations"][0], "s": s,
+                           "pe": rx32.pe, "active": act, "dtype": dt}),
+            ("iteration", {"it_p": cgnn_p["iterations"][1], "s": s,
+                           "pe": rx32.pe, "active": act,
+                           "readouts": readouts, "dtype": dt})]
+    b = DIST_CGNN_BATCH
+    cgnn = {"params": cgnn_p, "pe": rx32.pe, "y": normal(b, N_SYM, N_SC, 8),
+            "h": normal(b, N_TX, N_SYM, N_SC, 8),
+            "cfg": dataclasses.replace(rx32.cgnn_cfg, fused_iteration=True)}
+    p_train = Parameters(config, training=True, config_dir=config_dir)
+    train_batch = train_batch or int(
+        p_train.training_schedule["batch_size"][0])
+    eval_args = {"config": config, "config_dir": config_dir,
+                 "weights": weights.NRX_RT_EMA,
+                 "kwargs": {"ebno_dbs": [DIST_EBNO_DB], "batch_size": batch,
+                            "max_mc_iter": DIST_STEPS,
+                            "num_target_block_errors": 10**9,
+                            "seed": DIST_SEED, "fast_ldpc": True}}
+    train_args = {"config": config, "config_dir": config_dir, "lr": 1e-3,
+                  "seed": DIST_SEED, "batch": train_batch,
+                  "leaves": checks.flat_leaves(
+                      E2EModel(p_train, training=True, device="cpu")
+                      .init_params(torch.Generator().manual_seed(
+                          DIST_SEED)))}
+    return {"kernel_jobs": kernel_jobs, "cgnn": cgnn,
+            "eval_args": eval_args, "train_args": train_args}
+
+
+def cgnn_jobs(inputs, meshes) -> list:
+    """A "cgnn" job of `dist_inputs`' CGNN on each (data, grid) mesh."""
+    import torch
+    c = inputs["cgnn"]
+    b = c["y"].shape[0]
+    return [("cgnn", {**c, "active": torch.ones((b, N_TX)),
+                      "mm": torch.ones((b, N_TX, 1)), "data": d, "grid": g,
+                      "dtype": "float32"}) for d, g in meshes]
+
+
+def check_kernel_jobs(dev, kernel_jobs, groups_w, world) -> list:
+    """`compare` records of each kernel job's shards (groups_w: per job the
+    ranks' records) joined, against the unsharded launch on dev."""
+    import torch
+    from neural_rx_tpu_torch.dist import checks
+    from neural_rx_tpu_torch.kernels import cgnn_iter, sepconv
+    recs = []
+    for (kind, args), ranks in zip(kernel_jobs, groups_w):
+        dtype = getattr(torch, args["dtype"])
+        tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
+        if kind == "stack":
+            ref = (sepconv.fused_conv_stack(checks.to_device(args["p"], dev),
+                                            args["x"].to(dev, dtype)),)
+            got = (torch.cat([r["out"] for r in ranks], 2),)
+        else:
+            ref = cgnn_iter.fused_iteration(
+                checks.to_device(args["it_p"], dev),
+                args["s"].to(dev, dtype), args["pe"].to(dev, dtype),
+                args["active"].to(dev), None,
+                *checks.to_device(args.get("readouts") or [], dev))
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            got = tuple(torch.cat([r["out"][j] for r in ranks], 3)
+                        for j in range(len(ref)))
+        rec = compare(tuple(g.to(dev) for g in got), ref, dtype, tol)
+        recs.append({"ranks": world, "kernel": kind, "shard": N_SC // world,
+                     "mode": "readout" if "readouts" in args else "state",
+                     **rec})
+    return recs
+
+
+def check_cgnn_jobs(dev, inputs, groups_c, meshes) -> list:
+    """Each "cgnn" job's blocks joined (groups_c: per mesh the ranks'
+    records) against `cgnn_apply` on dev alone: the largest difference
+    relative to max |ref|."""
+    import torch
+    from neural_rx_tpu_torch.dist import checks
+    from neural_rx_tpu_torch.rx.cgnn import cgnn_apply
+    c = inputs["cgnn"]
+    b = c["y"].shape[0]
+    llr, _ = cgnn_apply(checks.to_device(c["params"], dev), c["cfg"],
+                        c["y"].to(dev), c["pe"].to(dev), c["h"].to(dev),
+                        torch.ones((b, N_TX), device=dev),
+                        torch.ones((b, N_TX, 1), device=dev))
+    return [{"data": d, "grid": g, "rel_err": rel_err(
+        checks.assemble(ranks, "llr").to(dev), llr[-1][0])}
+        for (d, g), ranks in zip(meshes, groups_c)]
+
+
+def dist_path(dev, card, peaks, counts, reset):
+    """Phase 13: several ranks (`neural_rx_tpu_torch/dist/`) and the
+    tooling on the card. (a) A one-rank NCCL group in this process, mesh
+    1 x 1: `sim_ber` of nrx_rt at 132 PRB, DIST_EBNO_DB, global batch
+    DIST_BATCH, DIST_STEPS steps with K5, counters equal to the same call
+    without a mesh; one training step (nrx_rt at 4 PRB, batch 128, UMi)
+    through the gradient all-reduce, parameters equal to the step without
+    it bit for bit. (b) Gloo groups of 2 and 4 ranks sharing the card
+    (`dist.launch.run_ranks`, `dist.checks.run_jobs`; the kernel library
+    built here, the ranks only load it), started together: the stack kernel
+    (nrx_rt's init stack) and the iteration kernel (state and readout mode)
+    on 792 / 396-subcarrier shards with halos of 3, bf16 and float32,
+    against the unsharded launch here (bit for bit expected; held to
+    TOL_*); on 4 ranks the eval receiver's CGNN on meshes data 1 x grid 4
+    and data 2 x grid 2 (K1, then K3 on every iteration) within 1e-5 of max
+    |ref| of one rank's, and `sim_ber` on a data 2 x grid 2 mesh; on 2
+    ranks `sim_ber` on a data 2 mesh (mode a); both with counters equal to
+    (a)'s; on 2 ranks a training step on a data 2 mesh (batch
+    128 in all), parameters equal on both ranks; each rank's K1 / K3 / K5
+    launches per job asserted. (c) Tooling: `chained_device_time_ms` of
+    `entry()` at batch 1 beside its CUDA-event time; nrx_rt's weights
+    exported to the reference format and imported back equal, and a served
+    call from the imported tree equal to the original's. (d) K1 and K3 (bf16,
+    batch 1) timed at the extended shard widths of 2 and 4 ranks beside
+    their bounds. Emits the phase's record, asserts it, and returns (the
+    launches by path, the kernels' timing records by shard count)."""
+    import concurrent.futures
+    import torch
+    import torch.distributed as dist
+    from neural_rx_tpu_torch import weights
+    from neural_rx_tpu_torch.compat import reference_weights as refw
+    from neural_rx_tpu_torch.dist import checks
+    from neural_rx_tpu_torch.dist.launch import run_ranks
+    from neural_rx_tpu_torch.dist.mesh import make_mesh
+    from neural_rx_tpu_torch.entry import entry, make_receiver, pack_params
+    from neural_rx_tpu_torch.kernels import cgnn_iter, sepconv
+    from neural_rx_tpu_torch.sim.simber import sim_ber
+    from neural_rx_tpu_torch.utils.profiling import chained_device_time_ms
+
+    t0 = time.perf_counter()
+    launches = {}
+    none = {"sepconv_stack": 0, "cgnn_iter": 0, "cgnn_full": 0,
+            "ldpc_decode": 0}
+
+    def want(k1=0, k3=0, k5=0):
+        return dict(none, sepconv_stack=k1, cgnn_iter=k3, ldpc_decode=k5)
+
+    # (b) the gloo groups, started first: they run while (a) does
+    d = dist_inputs()
+    eval_args, train_args = d["eval_args"], d["train_args"]
+    kernel_jobs, cgnn_js = d["kernel_jobs"], cgnn_jobs(d, DIST_CGNN_MESHES)
+    jobs = {2: kernel_jobs + [("sim_ber", dict(eval_args, mode="a", data=2,
+                                               grid=1)),
+                              ("train", train_args)],
+            4: kernel_jobs + cgnn_js + [
+                ("sim_ber", dict(eval_args, mode="a", data=2, grid=2))]}
+    # per rank and job: 1 K1 a stack; 1 K3 an iteration; the CGNN's init
+    # stack and its 2 iterations; per sim_ber step K1, 2 K3 (batch 15 > 4:
+    # the iteration kernel's route) and 2 K5 (one a user: every rank of a
+    # data row decodes the row's blocks)
+    kernel_want = [want(k1=1), want(k3=1), want(k3=1)] * 2
+    sim_want = want(DIST_STEPS, 2 * DIST_STEPS, 2 * DIST_STEPS)
+    job_want = {2: kernel_want + [sim_want, none],
+                4: kernel_want + [want(1, 2)] * len(cgnn_js) + [sim_want]}
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    futures = {w: pool.submit(
+        run_ranks, "neural_rx_tpu_torch.dist.checks:run_jobs", w, "gloo",
+        {"device": "cuda", "jobs": jobs[w]}, 600)
+        for w in (2, 4)}
+
+    # (a) a one-rank NCCL group, mesh 1 x 1
+    with tempfile.TemporaryDirectory() as rdv:
+        dist.init_process_group("nccl", init_method=f"file://{rdv}/nccl",
+                                world_size=1, rank=0)
+        try:
+            mesh1 = make_mesh(1, 1, 1, backend="nccl")
+            model, params = checks.eval_model(eval_args, dev)
+            ref_counts = sim_ber(model, params, verbose=False,
+                                 return_counts=True, **eval_args["kwargs"])
+            reset()
+            mesh_counts = sim_ber(model, params, verbose=False, mesh=mesh1,
+                                  return_counts=True, **eval_args["kwargs"])
+            torch.cuda.synchronize()
+            launches["dist_nccl_sim_ber"] = counts()
+            reset()
+            step_plain = checks.train_once(train_args, dev)
+            step_mesh = checks.train_once(train_args, dev, mesh1)
+            launches["dist_nccl_train"] = counts()
+            reset()
+        finally:
+            dist.destroy_process_group()
+    nccl = {
+        "counters": [int(v[0]) for v in ref_counts[2:]],
+        "ber": float(ref_counts[0][0]),
+        "counters_equal": all(np.array_equal(a, c) for a, c in
+                              zip(ref_counts, mesh_counts)),
+        "train_equal": all(torch.equal(v, step_mesh[0][k])
+                           for k, v in step_plain[0].items())
+        and torch.equal(step_plain[1], step_mesh[1]),
+        "train_moved": any(not torch.equal(v, train_args["leaves"][k])
+                           for k, v in step_plain[0].items())}
+
+    # the groups are done before anything here is timed
+    groups = {w: [list(r) for r in zip(*futures[w].result())]
+              for w in (2, 4)}
+    pool.shutdown()
+
+    # (c) tooling
+    fn, (params_e, y_e) = entry(device="cuda")
+    chained = chained_device_time_ms(lambda yy: fn(params_e, yy), y_e,
+                                     length=CHAIN_LENGTH, reps=3)
+    event_ms = cuda_ms(lambda: fn(params_e, y_e), 20)
+    with tempfile.TemporaryDirectory() as wdir:
+        path = os.path.join(wdir, "nrx_rt_weights")
+        refw.save_reference_weights(path, params_e)
+        template = make_receiver(device=dev).init_params(
+            torch.Generator(device=dev).manual_seed(1))
+        imported = pack_params(weights.load_tree(path, device=dev,
+                                                 template=template))
+    flat_o = weights.flatten(params_e["cgnn"])
+    flat_i = weights.flatten(imported["cgnn"])
+    rx = make_receiver(device=dev)
+    out_o = rx.serve(params_e, y_e)
+    out_i = rx.serve(imported, y_e)
+    torch.cuda.synchronize()
+    tools = {"chained_ms_b1": chained, "event_ms_b1": event_ms,
+             "chain_length": CHAIN_LENGTH,
+             "weights_equal": flat_o.keys() == flat_i.keys() and all(
+                 torch.equal(flat_o[k], flat_i[k]) for k in flat_o),
+             "served_equal": all(torch.equal(a, c)
+                                 for a, c in zip(out_o, out_i))}
+    reset()
+
+    # (d) K1 and K3 at the extended shard widths, bf16, batch 1
+    bf = torch.bfloat16
+    init_p = checks.to_device(d["cgnn"]["params"]["s_init"][0], dev)
+    it0 = checks.to_device(d["cgnn"]["params"]["iterations"][0], dev)
+    gen_k = torch.Generator(device=dev).manual_seed(DIST_SEED)
+    shard_k = {}
+    for w_ranks in (2, 4):
+        w = N_SC // w_ranks + 2 * 3  # the shard and its halos
+        x_k = torch.randn((N_TX, N_SYM, w, 18), generator=gen_k,
+                          device=dev).to(bf)
+        s_k = (4.0 * torch.randn((1, N_TX, N_SYM, w, 56), generator=gen_k,
+                                 device=dev)).to(bf)
+        pe_k = torch.randn((N_TX, N_SYM, w, 2), generator=gen_k,
+                           device=dev).to(bf)
+        act_k = torch.ones((1, N_TX), device=dev)
+        shard_k[w_ranks] = {
+            "sepconv_stack": rates({
+                "shape": list(x_k.shape),
+                "kernel_ms": cuda_ms(lambda: sepconv.fused_conv_stack(
+                    init_p, x_k), 20),
+                "plain_ms": cuda_ms(lambda: sepconv.sepconv_stack_reference(
+                    init_p, x_k), 5),
+                **bound(*stack_work(widths_of(init_p), N_TX, N_SYM, w, 2),
+                        peaks)}),
+            "cgnn_iter": rates({
+                "shape": list(s_k.shape),
+                "kernel_ms": cuda_ms(lambda: cgnn_iter.fused_iteration(
+                    it0, s_k, pe_k, act_k), 20),
+                "plain_ms": cuda_ms(
+                    lambda: cgnn_iter.fused_iteration_reference(
+                        it0, s_k, pe_k, act_k), 5),
+                **bound(*iteration_work(it0, 1, 2, 2, w=w), peaks)})}
+    reset()
+
+    # (b) the groups' results against the unsharded launches here
+    kernel_recs = []
+    for w in (2, 4):
+        kernel_recs += check_kernel_jobs(dev, kernel_jobs, groups[w], w)
+    cgnn_recs = check_cgnn_jobs(dev, d, groups[4][len(kernel_jobs):],
+                                DIST_CGNN_MESHES)
+    reset()
+    n_k = len(kernel_jobs)
+    sim2 = groups[2][n_k]
+    train2 = groups[2][n_k + 1]
+    sim4 = groups[4][n_k + len(cgnn_js)]
+
+    def same_counters(recs):
+        return all(np.array_equal(r["block_errors"], ref_counts[2])
+                   and np.array_equal(r["blocks"], ref_counts[3])
+                   and np.array_equal(r["ber"], ref_counts[0]) for r in recs)
+    gloo = {
+        "sim_ber_counters": [[int(r["block_errors"][0]), int(r["blocks"][0]),
+                              float(r["ber"][0])] for r in sim2],
+        "sim_ber_equal": same_counters(sim2),
+        "sim_ber_2x2_counters": [[int(r["block_errors"][0]),
+                                  int(r["blocks"][0]), float(r["ber"][0])]
+                                 for r in sim4],
+        "sim_ber_2x2_equal": same_counters(sim4),
+        "train_ranks_equal": all(torch.equal(v, train2[0]["leaves"][k])
+                                 for r in train2
+                                 for k, v in r["leaves"].items()),
+        "train_vs_single_max_abs": max(
+            checks.max_abs_diff(v, step_plain[0][k])
+            for k, v in train2[0]["leaves"].items()),
+        "job_seconds": {w: [max(r["seconds"] for r in recs)
+                            for recs in groups[w]] for w in (2, 4)}}
+    for w in (2, 4):
+        total = dict(none)
+        for i, recs in enumerate(groups[w]):
+            for r in recs:
+                assert r["launches"] == job_want[w][i], (w, i, r["launches"])
+                for k in total:
+                    total[k] += r["launches"][k]
+        launches[f"dist_gloo{w}"] = total
+    expected = {"dist_nccl_sim_ber": want(DIST_STEPS, 2 * DIST_STEPS,
+                                          2 * DIST_STEPS),
+                "dist_nccl_train": none}
+    emit({"phase": "dist_path", "card": card, "nccl_1x1": nccl,
+          "kernels_sharded": kernel_recs, "cgnn_sharded": cgnn_recs,
+          "gloo": gloo, "tools": tools, "kernels_at_shard": shard_k,
+          "launches": launches, "seconds": time.perf_counter() - t0})
+    for name, w in expected.items():
+        assert launches[name] == w, (name, launches[name])
+    assert nccl["counters_equal"] and nccl["train_equal"], nccl
+    assert nccl["train_moved"], nccl
+    for rec in kernel_recs:
+        assert rec["ok"], rec
+    for rec in cgnn_recs:
+        assert rec["rel_err"] <= 1e-5, rec
+    assert gloo["sim_ber_equal"] and gloo["sim_ber_2x2_equal"], gloo
+    assert gloo["train_ranks_equal"], gloo
+    assert tools["weights_equal"] and tools["served_equal"], tools
+    assert tools["chained_ms_b1"] > 0, tools
+    return launches, shard_k
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -2308,7 +2679,12 @@ def main() -> int:
     # 12. the site-specific Dataset channel: eval, baselines, training
     launches.update(site_path(dev, card, counts, reset))
 
-    # 13. times (bf16, as served), at the shapes the main path gives each
+    # 13. several ranks: a one-rank NCCL group, gloo groups of 2 and 4
+    # ranks sharing the card; the tooling
+    dist_launches, dist_shards = dist_path(dev, card, peaks, counts, reset)
+    launches.update(dist_launches)
+
+    # 14. times (bf16, as served), at the shapes the main path gives each
     # kernel: stacks at N = 2 (batch 1), the iteration at batch 16, the
     # whole CGNN at batch 1
     t0 = time.perf_counter()
@@ -2503,6 +2879,18 @@ def main() -> int:
                         f"pct_of_bound_w{w}": rec["pct_of_bound"]})
         return out
 
+    def shard_keys(kernel):
+        """The dist path's launch on the extended shard of 2 and 4 ranks
+        (bf16, batch 1)."""
+        out = {}
+        for n, recs in dist_shards.items():
+            rec = recs[kernel]
+            out.update({f"ms_shard{n}": rec["kernel_ms"],
+                        f"plain_ms_shard{n}": rec["plain_ms"],
+                        f"bound_ms_shard{n}": rec["bound_ms"],
+                        f"pct_of_bound_shard{n}": rec["pct_of_bound"]})
+        return out
+
     st_bytes = sum(s["bytes_ms"] for s in per_stack)
     st_ops = sum(s["ops_ms"] for s in per_stack)
     by_path = {k: {r: launches[r][k] for r in launches} for k in
@@ -2524,13 +2912,16 @@ def main() -> int:
          "plain_ms_n32": stack_n32["plain_ms"],
          "bound_ms_n32": stack_n32["bound_ms"],
          **mc_keys("sepconv_stack"), **width_keys("sepconv_stack"),
+         **shard_keys("sepconv_stack"),
          "note": "ms/plain_ms/bound_ms: sum over the 3 launches of one "
                  "batch-1 slot (init, update0, update1), bf16, N=2, "
                  "14x1584; *_n32: the batch-16 route's launch (init stack, "
                  "N=32); *_mc: the mc path's launch (init stack, float32, "
                  "N=60); *_w48, *_w3276: the deploy engine's init stack at "
-                 "the 4- and 273-PRB buckets (bf16, N=2); library: no "
-                 "PyTorch call computes a separable stack"},
+                 "the 4- and 273-PRB buckets (bf16, N=2); *_shard2, "
+                 "*_shard4: the dist path's launch on the extended shard "
+                 "of 2 and 4 ranks (798 and 402 columns, bf16, N=2); "
+                 "library: no PyTorch call computes a separable stack"},
         {"name": "cgnn_iter", "route": "cuda",
          "source": "neural_rx_tpu_torch/csrc/cgnn_iter.cu",
          "replaces": "neural_rx_tpu/kernels/cgnn_iter_pallas.py:532",
@@ -2542,12 +2933,16 @@ def main() -> int:
          "bound_ms": iteration["bound_ms"],
          "bound_by": iteration["bound_by"], "library_ms": None,
          **mc_keys("cgnn_iter"), **width_keys("cgnn_iter"),
+         **shard_keys("cgnn_iter"),
          "note": "one launch in state mode at batch 16 (b=16, T=2, "
                  "14x1584), bf16; *_mc: the mc path's launch (float32, "
                  "b=30); *_w48, *_w3276: the deploy engine's launch at the "
-                 "4- and 273-PRB buckets (bf16, b=1, state mode); library: "
-                 "no PyTorch call computes the aggregation MLP, user sum "
-                 "and separable stack"},
+                 "4- and 273-PRB buckets (bf16, b=1, state mode); "
+                 "*_shard2, *_shard4: the dist path's launch on the "
+                 "extended shard of 2 and 4 ranks (798 and 402 columns, "
+                 "bf16, b=1, state mode); library: no PyTorch call "
+                 "computes the aggregation MLP, user sum and separable "
+                 "stack"},
         {"name": "cgnn_full", "route": "cuda",
          "source": "neural_rx_tpu_torch/csrc/cgnn_iter.cu",
          "replaces": "neural_rx_tpu/kernels/cgnn_iter_pallas.py:494",

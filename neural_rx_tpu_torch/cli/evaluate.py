@@ -19,7 +19,9 @@ Receiver" for nrx and the system name for a baseline. --mcs-idx picks
 the evaluated MCS of a configuration with several (every user on it); an
 index out of range raises ValueError. The neural receiver runs the
 configuration's num_nrx_iter_eval iterations; its weights default to the
-committed weights (`weights.committed_weights`); a missing file is an error.
+committed weights (`weights.committed_weights`); a missing file is an error;
+a --weights file not ending in `.npz` is read as a reference weight file
+(`compat/reference_weights.py`).
 A baseline with the LMMSE channel estimate reads the covariances
 weights/{label}_{freq,time,space}_cov_mat.npy, and computes and writes them
 there if they are missing. The site-specific configurations read their
@@ -61,6 +63,8 @@ def main(argv=None):
         raise ValueError(f"unknown system {args.system!r}: nrx or one of "
                          f"{', '.join(SYSTEMS)}")
 
+    import torch
+
     from .. import weights
     from ..entry import load_params
     from ..rx.neural_rx import resolve_device
@@ -87,7 +91,10 @@ def main(argv=None):
                 f"no weights at {wpath}: convert them with "
                 "scripts/torch_port_export_weights.py")
         model = E2EModel(p, device=device)
-        params = load_params(dtype=p.nrx_dtype, device=device, path=wpath)
+        template = None if wpath.endswith(".npz") else model.init_params(
+            torch.Generator(device=device).manual_seed(0))
+        params = load_params(dtype=p.nrx_dtype, device=device, path=wpath,
+                             template=template)
         name, num_it = "Neural Receiver", p.num_nrx_iter_eval
     else:
         model = BaselineE2EModel(p, args.system, device=device)

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from .. import weights
 from ..rx.cgnn import CGNNConfig
+from ..utils import debug
 from .aerial import TABLE_NAMES, AerialNRX
 
 DEFAULT_PRB_BUCKETS = (4, 16, 32, 64, 132, 273)
@@ -47,9 +48,12 @@ class CapturedCall:
     inputs, after one eager warm-up (which uploads the static tables,
     builds the kernel library and caches the launch set-up outside the
     capture). A call copies its inputs in and replays; it returns the
-    graph's own output tensors, which the next call overwrites."""
+    graph's own output tensors, which the next call overwrites. Inside
+    `utils.debug.debug_context(eager=True)` a call runs fn eagerly on its
+    inputs instead."""
 
     def __init__(self, fn, example_inputs):
+        self.fn = fn
         self.inputs = [x.clone() for x in example_inputs]
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -67,6 +71,9 @@ class CapturedCall:
                 raise ValueError(f"captured for inputs of shape "
                                  f"{tuple(static.shape)}, got "
                                  f"{tuple(x.shape)}")
+        if debug.eager():
+            return self.fn(*inputs)
+        for static, x in zip(self.inputs, inputs):
             static.copy_(x)
         self.graph.replay()
         return self.outputs

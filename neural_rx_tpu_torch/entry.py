@@ -137,12 +137,18 @@ def pack_params(params: dict, dtype=NRX_DTYPE) -> dict:
 
 
 def load_params(dtype=NRX_DTYPE, device="cuda",
-                path: str = weights.NRX_RT_EMA) -> dict:
+                path: str = weights.NRX_RT_EMA,
+                template: dict | None = None) -> dict:
     """{"cgnn": tree} of the weights in `path` (default: the committed
     nrx_rt EMA weights) on `device`, with every conv stack and MLP packed
     once for the kernels, and "constellation" where the file holds a
-    trained one."""
-    return pack_params(weights.load_tree(path, device=device), dtype)
+    trained one. A reference weight file (not `.npz`) is read onto the
+    tree of template (default: nrx_rt's, `make_receiver().init_params`)."""
+    if template is None and not path.endswith(".npz"):
+        template = make_receiver(device="cpu").init_params(
+            torch.Generator().manual_seed(0))
+    return pack_params(weights.load_tree(path, device=device,
+                                         template=template), dtype)
 
 
 def entry(device="cuda", batch: int = 1, mega: bool = False):

@@ -6,18 +6,24 @@ with a plain C interface (no PyTorch headers, so the build takes seconds)
 inside `_build/` next to this package, which `.gitignore` lists.
 The library's file name carries a hash of the sources and flags, so it is
 rebuilt only when a source changes. Nothing is built when this module is
-imported.
+imported. Several processes (the ranks of one card, `dist/`) may build at
+once: a lock file beside the library lets one of them compile while the
+others wait and then load its library (an advisory `flock`, which the
+system drops when its holder dies), and each build writes its objects and
+link output under names of its own before the one rename.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import fcntl
 import glob
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -99,26 +105,29 @@ def _run(cmds: list[list[str]]) -> str:
 
 
 def build() -> BuildInfo:
-    """Compile the kernels unless the library for these sources exists."""
+    """Compile the kernels unless the library for these sources exists.
+    Safe to call from several processes at once: one compiles, the others
+    wait for it and find the library (seconds 0)."""
     path = library_path()
     if os.path.exists(path):
         return BuildInfo(path, 0.0, "")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tag = f"{path}.{os.getpid()}"
-    nvcc = _nvcc()
-    srcs = [s for s in _sources() if s.endswith(".cu")]
-    objs = [f"{tag}.{os.path.basename(s)}.o" for s in srcs]
-    t0 = time.perf_counter()
-    try:
-        log = _run([[nvcc, *NVCC_FLAGS, "-c", s, "-o", o]
-                    for s, o in zip(srcs, objs)])
-        log += _run([[nvcc, *LINK_FLAGS, "-o", f"{tag}.tmp", *objs]])
-    finally:
-        for o in objs:
-            if os.path.exists(o):
-                os.remove(o)
-    seconds = time.perf_counter() - t0
-    os.replace(f"{tag}.tmp", path)
+    with open(f"{path}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(path):  # built while this process waited
+            return BuildInfo(path, 0.0, "")
+        nvcc = _nvcc()
+        srcs = [s for s in _sources() if s.endswith(".cu")]
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [os.path.join(tmp, f"{os.path.basename(s)}.o")
+                    for s in srcs]
+            out = os.path.join(tmp, os.path.basename(path))
+            t0 = time.perf_counter()
+            log = _run([[nvcc, *NVCC_FLAGS, "-c", s, "-o", o]
+                        for s, o in zip(srcs, objs)])
+            log += _run([[nvcc, *LINK_FLAGS, "-o", out, *objs]])
+            seconds = time.perf_counter() - t0
+            os.replace(out, path)
     return BuildInfo(path, seconds, log)
 
 

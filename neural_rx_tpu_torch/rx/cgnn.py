@@ -20,7 +20,8 @@ the whole CGNN in one kernel (`fused_full`, both in
 version when `CGNNConfig.kernels` is False. Training (`training=True`)
 takes none of them, whatever the flags say: it runs the plain layers under
 autograd, as the JAX package trains on its XLA layers (its Pallas kernels
-have no VJP).
+have no VJP). `cgnn_apply(mesh=)` runs on a subcarrier shard of a mesh's
+grid axis (`dist/`).
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..dist import fused_sharded
+from ..dist.mesh import sum_over_grid
 from ..kernels import cgnn_iter
 from ..kernels.sepconv import fused_conv_stack, sepconv_stack_reference
 
@@ -137,14 +140,16 @@ def count_params(params) -> int:
     return sum(count_params(v) for v in params)
 
 
-def _apply_conv_stack(p, x, fused: bool = False, sc_valid=None):
+def _apply_conv_stack(p, x, fused: bool = False, sc_valid=None, mesh=None):
     """Separable-conv stack, ReLU after each hidden layer, through the
     kernel if `fused`, else its plain version. sc_valid (optional): columns
     outside the valid range are re-zeroed per layer (exact pad-to-bucket
-    dispatch)."""
-    if fused:
-        return fused_conv_stack(p, x, sc_valid=sc_valid)
-    return sepconv_stack_reference(p, x, sc_valid=sc_valid)
+    dispatch). mesh (grid axis > 1): x is a subcarrier shard, extended by
+    its neighbours' halos first."""
+    stack = fused_conv_stack if fused else sepconv_stack_reference
+    if mesh is not None:
+        return fused_sharded.sharded_stack(stack, p, x, mesh)
+    return stack(p, x, sc_valid=sc_valid)
 
 
 def _apply_mlp(p, x):
@@ -166,20 +171,21 @@ def _aggregate_user_states(p, s, active_tx, dtype):
     return a * scale
 
 
-def _update_state(p, s, a, pe, fused: bool = False, sc_valid=None):
+def _update_state(p, s, a, pe, fused: bool = False, sc_valid=None,
+                  mesh=None):
     """Conv state update with residual skip."""
     b, t = s.shape[0], s.shape[1]
     pe_b = pe[None].expand((b,) + pe.shape)
     z = torch.cat([a, s, pe_b], dim=-1)
     z = z.reshape((b * t,) + z.shape[2:])
-    z = _apply_conv_stack(p, z, fused, sc_valid)
+    z = _apply_conv_stack(p, z, fused, sc_valid, mesh)
     return z.reshape((b, t) + z.shape[1:]) + s
 
 
 def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
                mcs_ue_mask, num_it: int | None = None, dtype=torch.float32,
                sc_valid=None, training: bool = False,
-               apply_multiloss: bool = False):
+               apply_multiloss: bool = False, mesh=None):
     """Forward pass, readout after iteration `num_it` (default cfg.num_it,
     1 <= num_it <= cfg.num_it).
 
@@ -205,6 +211,20 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
     route is taken (plain layers, differentiable), and with
     `apply_multiloss` the readouts follow every iteration.
 
+    mesh (`dist.mesh.Mesh`, optional): y, pe and h_hat are this rank's
+    block of the subcarrier axis, split over the mesh's grid axis (the
+    batch block is the caller's), and so are the outputs. With a grid axis
+    wider than 1 the input power norm sums its squares (in float64, as
+    without a mesh) and counts over the grid group; every conv
+    stack runs on the shard extended by its neighbours' halos
+    (`dist/fused_sharded.py`), an iteration of the iteration kernel too;
+    and `fused_full` takes the stack and iteration kernels' route instead
+    of the whole-CGNN kernel, which cannot exchange halos between its
+    iterations (both routes compute the same plain function). Each kernel
+    computes on its extended shard what it computes on the full grid, bit
+    for bit on its columns. Not with sc_valid, nor in training (the batch
+    is the only axis training shards).
+
     Returns (llrs, h_hats) shaped like the JAX package's: a list over
     readout points of [llr per MCS] with llr [b, T, sym, sc, num_bits],
     and a list of h_hat [b, T, sym, sc, 2*rx_ant], float32.
@@ -218,6 +238,11 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
     if (h_hat is None) == cfg.initial_chest:
         raise ValueError("h_hat is the CGNN's input exactly when "
                          "cfg.initial_chest")
+    if mesh is not None and mesh.grid == 1:
+        mesh = None  # the whole band: the single-device computation
+    if mesh is not None and (sc_valid is not None or training):
+        raise ValueError("a subcarrier shard takes no sc_valid and does not "
+                         "train")
     b = y.shape[0]
     t = pe.shape[0]
     n_sc = y.shape[2]
@@ -237,9 +262,17 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
 
     # Input power normalization: unit mean power per batch sample, over
     # the valid REs alone (the same reduction as a grid of the valid width,
-    # so a bucket-padded grid's norm equals the direct one's bit for bit)
+    # so a bucket-padded grid's norm equals the direct one's bit for bit).
+    # The squares are summed in float64 and the mean rounded to float32,
+    # so the norm does not depend on how the sum is split (the batch size,
+    # the device's reduction tiling, subcarrier shards)
     y_valid = y if sc_valid is None else y[:, :, :sc_valid]
-    mean_sq = (y_valid.float() ** 2).mean(dim=(1, 2, 3), keepdim=True)
+    sq = torch.stack([(y_valid.double() ** 2).sum(dim=(1, 2, 3)),
+                      torch.full((b,), float(y_valid[0].numel()),
+                                 dtype=torch.float64, device=y.device)])
+    if mesh is not None:
+        sq = sum_over_grid(sq, mesh)
+    mean_sq = (sq[0] / sq[1]).float()[:, None, None, None]
     norm = torch.rsqrt(mean_sq + 1e-12)
     y = (y * norm).to(dtype)
     pe = pe.to(dtype)
@@ -253,14 +286,20 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
     z0 = torch.cat(feats, dim=-1)
     z0_flat = z0.reshape((b * t,) + z0.shape[2:])
 
-    if cfg.fused_full and single and not training:
+    if cfg.fused_full and single and not training and mesh is None:
         full = (cgnn_iter.fused_cgnn_full if cfg.kernels
                 else cgnn_iter.fused_cgnn_full_reference)
         llr, h_out = full(params, z0, pe, active_tx, sc_valid, num_it)
         return [[llr.float()]], [h_out.float()]
 
+    # K4's route on a shard: K1, then K3, the last iteration with readouts
+    full_on_shard = cfg.fused_full and single and not training
+    fused_convs = fused_convs or (full_on_shard and cfg.kernels)
+    fused_iteration = fused_iteration or full_on_shard
+    fused_readout = cfg.fused_readout or full_on_shard
+
     def run_init(p):
-        s = _apply_conv_stack(p, z0_flat, fused_convs, sc_valid)
+        s = _apply_conv_stack(p, z0_flat, fused_convs, sc_valid, mesh)
         return s.reshape((b, t) + s.shape[1:])
 
     if cfg.var_mcs_masking:
@@ -282,10 +321,16 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
 
     iterate = (cgnn_iter.fused_iteration if cfg.kernels
                else cgnn_iter.fused_iteration_reference)
+    if mesh is not None:
+        kernel = iterate
+
+        def iterate(it_p, s, pe, active_tx, sc_valid, *readout):
+            return fused_sharded.fused_iteration_sharded(
+                it_p, s, pe, active_tx, mesh, *readout, iterate=kernel)
     llrs, h_hats = [], []
     for i, it_p in enumerate(its):
         if fused_iteration:
-            if cfg.fused_readout and i == num_it - 1 and single:
+            if fused_readout and i == num_it - 1 and single:
                 llr, h_out = iterate(it_p, s, pe, active_tx, sc_valid,
                                      params["readout_llrs"][0],
                                      params["readout_chest"])
@@ -298,7 +343,7 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
                 # conv would bleed it into the last valid column
                 a = a * sc_mask[None].to(a.dtype)
             s = _update_state(it_p["update"], s, a, pe, fused_convs,
-                              sc_valid)
+                              sc_valid, mesh)
         if (training and apply_multiloss) or i == num_it - 1:
             llr, h_out = readouts(s)
             llrs.append(llr)

@@ -11,7 +11,9 @@ returns the BCE data loss and the channel-estimate MSE;
 `preprocess_channel_ground_truth` puts a true channel into the layout of
 the channel estimates; `init_params` makes seed-made parameters. The
 end-to-end configurations feed the CGNN without the LS estimate and with
-the pilot REs of y zeroed (`mask_pilots`).
+the pilot REs of y zeroed (`mask_pilots`). On a mesh (`dist/`) the CGNN of
+`serve` and `apply` runs on this rank's subcarrier block, and the LLRs and
+channel estimates are gathered over the grid group before decoding.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from .. import tables
+from ..dist.mesh import constrain, gather_grid
 from ..kernels.ldpc import tb_decode_fast
 from ..phy.chest import LSChannelEstimator
 from ..phy.nr.tb import tb_decode
@@ -80,7 +83,12 @@ class NeuralPUSCHReceiver:
     LS estimate).
     fused_full: serve through the whole-CGNN kernel (the JAX entry's
     `NRX_DEPLOY_MEGA=1` route); kernels=False: every fused route, and the
-    layered LDPC decoder, takes its kernel's plain version.
+    layered LDPC decoder, takes its kernel's plain version. mesh
+    (`dist.mesh.Mesh`, optional): the CGNN runs on this rank's block of the
+    subcarrier axis (`cgnn_apply(mesh=)`); the LS estimate before it is
+    computed at full width on every rank of a grid group (its nearest
+    pilot and FOCC pairs then need no halo), and its outputs are gathered
+    over the grid group. The batch block is the caller's.
     """
 
     def __init__(self, resource_grid, num_bits_per_symbol,
@@ -94,8 +102,9 @@ class NeuralPUSCHReceiver:
                  nrx_dtype=torch.float32,
                  fused_full: bool = False,
                  kernels: bool = True,
-                 device="cuda", tb_configs=None):
+                 device="cuda", tb_configs=None, mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.rg = resource_grid
         self.tb_configs = tb_configs or [[c.tb for c in resource_grid.configs]]
         if len(self.tb_configs) != len(num_bits_per_symbol):
@@ -196,10 +205,22 @@ class NeuralPUSCHReceiver:
             mcs_ue_mask = mcs_mask(active_tx.shape, 0, self.num_mcs,
                                    active_tx.device)
         y_in, h_in = self._prepare_inputs(y_planar, slot_idx)
-        llrs, h_hats = cgnn_apply(params["cgnn"], cfg, y_in, self.pe, h_in,
-                                  active_tx, mcs_ue_mask, num_it=num_it,
-                                  dtype=self.nrx_dtype)
-        return llrs[-1], h_hats[-1], h_in
+        mesh = self.mesh if self.mesh is not None and self.mesh.grid > 1 \
+            else None
+        if mesh is None:
+            llrs, h_hats = cgnn_apply(params["cgnn"], cfg, y_in, self.pe,
+                                      h_in, active_tx, mcs_ue_mask,
+                                      num_it=num_it, dtype=self.nrx_dtype)
+            return llrs[-1], h_hats[-1], h_in
+
+        def shard(x, sc_axis):
+            return None if x is None else constrain(x, mesh, None, sc_axis)
+        llrs, h_hats = cgnn_apply(
+            params["cgnn"], cfg, shard(y_in, 2), shard(self.pe, 2),
+            shard(h_in, 3), active_tx, mcs_ue_mask, num_it=num_it,
+            dtype=self.nrx_dtype, mesh=mesh)
+        return ([gather_grid(llr, mesh, 3) for llr in llrs[-1]],
+                gather_grid(h_hats[-1], mesh, 3), h_in)
 
     def serve(self, params, y_planar: torch.Tensor,
               fused_iteration: bool | None = None):

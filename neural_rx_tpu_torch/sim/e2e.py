@@ -23,7 +23,15 @@ a fixed order: at eval by `draw` (the bits of each evaluated MCS in order,
 the channel, the noise), in training by `draw_training` (the bits, the
 pilot slot, the frequency offsets, the channel, the noise). `forward` does
 everything after the draws, so a test can feed it the JAX package's own.
-A device mesh raises `NotImplementedError`.
+
+On a mesh (`E2EModel(mesh=)`, `dist/`) every rank draws the global batch
+from its generator, exactly as one device would (the same seed on every
+rank), and keeps its data block: the bits, the channel and the noise of
+its batch rows. The receiver runs its CGNN on the rank's subcarrier block
+and gathers the LLRs over the grid group, so every rank of a data row
+decodes that row's transport blocks (K5 per data rank); error counters
+are summed over the data group by `sim_ber`. Training shards the batch
+alone (`sim/training.py`).
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch
 from ..channel.apply import apply_ofdm_channel
 from ..channel.dataset import DatasetChannel
 from ..channel.tr38901 import UMiUMaChannel
+from ..dist.mesh import Mesh, constrain
 from ..phy.constellation import Constellation
 from ..phy.misc import binary_source, complex_awgn
 from ..rx.neural_rx import mcs_mask, receiver_for, resolve_device
@@ -69,15 +78,23 @@ def eval_order(mcs_arr_eval_idx, mcs_ue_mask, num_mcs: int) -> list:
     return order
 
 
+def check_mesh(mesh):
+    """TypeError unless mesh is None or a `dist.mesh.Mesh`."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"a multi-GPU mesh is a dist.mesh.Mesh, not "
+                        f"{type(mesh).__name__}")
+
+
 def refuse_unported(p, mesh=None, baseline: bool = False):
-    """NotImplementedError for what the E2E models do not port: a device
-    mesh (ROADMAP A6), and for the classical baselines a trainable
-    constellation or masked pilots, which they cannot receive (the JAX
-    package's baselines cannot either)."""
+    """NotImplementedError for what the classical baselines cannot take: a
+    device mesh (their multi-GPU runs go one process per rank, `sim_ber`
+    without a mesh), a trainable constellation or masked pilots, which they
+    cannot receive (the JAX package's baselines cannot either)."""
     why = None
     ct = p.channel_type_name
-    if mesh is not None:
-        why = "a device mesh is the multi-GPU slice's (ROADMAP A6)"
+    if baseline and mesh is not None:
+        why = ("the classical baselines take no mesh: a multi-GPU run gives "
+               "them one process per rank (sim_ber without a mesh)")
     elif baseline and (p.custom_constellation or p.mask_pilots):
         why = ("the classical baselines send fixed QAM with pilots: no "
                "trainable constellation, no masked pilots")
@@ -87,6 +104,20 @@ def refuse_unported(p, mesh=None, baseline: bool = False):
             and p.channel_num_tx != p.max_num_tx:
         raise ValueError(f"{ct} is a {p.channel_num_tx}-user channel, the "
                          f"configuration has {p.max_num_tx} users")
+
+
+def data_block(mesh, *tensors) -> list:
+    """This rank's data block (batch rows) of each global draw; None and
+    0-dim tensors pass."""
+    return [x if x is None or x.dim() == 0 else constrain(x, mesh)
+            for x in tensors]
+
+
+def training_block(d: dict, mesh) -> dict:
+    """`E2EModel.draw_training`'s dict cut to this rank's data block."""
+    *bits, h, noise, fo = data_block(mesh, *d["bits"], d["h"], d["noise"],
+                                     d["fo"])
+    return dict(d, bits=bits, h=h, noise=noise, fo=fo)
 
 
 class EvalLink:
@@ -185,13 +216,26 @@ class E2EModel(EvalLink):
 
     def __init__(self, sys_parameters, training: bool = False, mesh=None,
                  kernels: bool = True, device="cuda"):
-        refuse_unported(sys_parameters, mesh)
+        check_mesh(mesh)
+        refuse_unported(sys_parameters)
         super().__init__(sys_parameters, device)
         self.training = training
         self.receiver = receiver_for(self.p, kernels=kernels,
                                      device=self.device)
+        self.mesh = mesh
         rg = self.transmitter.resource_grid
         self._num_slots = rg.num_slots_per_frame
+
+    @property
+    def mesh(self):
+        """The ("data", "grid") mesh the model runs on, or None."""
+        return self._mesh
+
+    @mesh.setter
+    def mesh(self, mesh):
+        check_mesh(mesh)
+        self._mesh = mesh
+        self.receiver.mesh = mesh
 
     def init_params(self, generator: torch.Generator) -> dict:
         """Seed-made parameters: the receiver's {"cgnn": tree} and, with a
@@ -302,10 +346,18 @@ class E2EModel(EvalLink):
         """One batch: the draws from `generator` (on the model's device),
         then `forward`. Eval: `draw`, every port active. Training:
         `draw_training` at ebno_db (a number or a tensor [b]) with the
-        ports of active_dmrs [b, T] active (default all)."""
+        ports of active_dmrs [b, T] active (default all). On a mesh the
+        draws are of the global batch batch_size, and this rank computes
+        its data block: the returns hold its rows (mcs_ue_mask and
+        active_dmrs are global too)."""
         order = eval_order(mcs_arr_eval_idx, mcs_ue_mask, self.num_mcs)
+        if self._mesh is not None:
+            mcs_ue_mask, active_dmrs = data_block(self._mesh, mcs_ue_mask,
+                                                  active_dmrs)
         if not self.training:
             bits, h, noise = self.draw(generator, batch_size, ebno_db, order)
+            if self._mesh is not None:
+                *bits, h, noise = data_block(self._mesh, *bits, h, noise)
             return self.forward(params, bits, h, noise, fast_ldpc=fast_ldpc,
                                 output_nrx_h_hat=output_nrx_h_hat,
                                 num_it=num_it,
@@ -314,6 +366,8 @@ class E2EModel(EvalLink):
         ebno = torch.as_tensor(ebno_db, dtype=torch.float32,
                                device=self.device).expand(batch_size)
         d = self.draw_training(generator, batch_size, ebno, order)
+        if self._mesh is not None:
+            d = training_block(d, self._mesh)
         return self.forward(params, d["bits"], d["h"], d["noise"],
                             active_dmrs=active_dmrs, num_it=num_it,
                             mcs_arr_eval_idx=mcs_arr_eval_idx,

@@ -9,8 +9,19 @@ Wilson interval of a BLER and the results pickle keyed
 (system, num_tx, mcs_idx) in the JAX package's format.
 
 One `torch.Generator` on the model's device, seeded with `seed`, feeds
-every step of a sweep in turn. A device mesh and several processes are the
-multi-GPU slice's and raise.
+every step of a sweep in turn.
+
+Several processes (`dist/`), two modes as in the JAX package, never
+combined:
+(a) a mesh that spans the ranks (`mesh=`, an `E2EModel`): every rank seeds
+    its generator with `seed` and draws the global batch, computes its data
+    block (`E2EModel(mesh=)`), and the counters are summed over the data
+    group; the result is the single-device run's;
+(b) no mesh and a world of several processes: each rank draws its own
+    stream (`dist.multihost.host_generator(seed)`) and evaluates
+    batch_size items a step; the four counters are summed over every rank
+    each step, so every rank stops on the global counts.
+Only rank 0 prints.
 """
 
 from __future__ import annotations
@@ -22,6 +33,9 @@ import warnings
 
 import numpy as np
 import torch
+
+from ..dist import multihost
+from ..dist.mesh import all_reduce, sum_over_data
 
 
 def make_eval_step(model, fast_ldpc: bool = False, num_it: int | None = None,
@@ -66,16 +80,50 @@ def sim_ber(model, params, ebno_dbs, batch_size: int,
     or after `max_mc_iter` steps; the sweep stops after the first point
     whose BLER is below `target_bler`. point_callback(ebno_db, ber, bler)
     fires after every finished point, so a caller can save partial sweeps.
+
+    mesh: a `dist.mesh.Mesh` over every rank, for an `E2EModel` (mode (a)
+    of the module's docstring; batch_size is the global batch); without
+    one, several processes run mode (b).
     """
-    if mesh is not None or (torch.distributed.is_available()
-                            and torch.distributed.is_initialized()
-                            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            "a mesh or several processes are the multi-GPU slice's "
-            "(ROADMAP A6)")
+    rank, n_proc = multihost.world()
+    if mesh is not None:
+        if not hasattr(model, "mesh"):
+            raise NotImplementedError(
+                f"{type(model).__name__} takes no mesh: run it one process "
+                "per rank, without a mesh")
+        kept = model.mesh
+        try:
+            model.mesh = mesh  # checks its type
+            if mesh.data * mesh.grid != n_proc:
+                raise ValueError(f"the mesh spans {mesh.data * mesh.grid} "
+                                 f"ranks of {n_proc}")
+            return sim_ber(model, params, ebno_dbs, batch_size, max_mc_iter,
+                           num_target_block_errors, target_bler, num_it,
+                           seed, verbose, None,
+                           mcs_arr_eval_idx, fast_ldpc, return_counts,
+                           point_callback)
+        finally:
+            model.mesh = kept
+    on_mesh = getattr(model, "mesh", None)
+    verbose = verbose and rank == 0
     step = make_eval_step(model, fast_ldpc=fast_ldpc, num_it=num_it,
                           mcs_arr_eval_idx=mcs_arr_eval_idx)
-    generator = torch.Generator(device=model.device).manual_seed(seed)
+    if on_mesh is not None:  # mode (a): the data blocks' counters
+        def reduce(r):
+            return sum_over_data(torch.as_tensor(r, device=_comm_device(
+                on_mesh.backend, model.device)), on_mesh).cpu().numpy()
+        generator = torch.Generator(device=model.device).manual_seed(seed)
+    elif n_proc > 1:  # mode (b): per-rank streams, global counters
+        backend = torch.distributed.get_backend()
+
+        def reduce(r):
+            return all_reduce(torch.as_tensor(r, device=_comm_device(
+                backend, model.device)), None, backend).cpu().numpy()
+        generator = multihost.host_generator(seed, model.device)
+    else:
+        def reduce(r):
+            return r
+        generator = torch.Generator(device=model.device).manual_seed(seed)
     ebno_dbs = np.asarray(ebno_dbs, np.float32)
     bers = np.full(len(ebno_dbs), np.nan)
     blers = np.full(len(ebno_dbs), np.nan)
@@ -85,7 +133,8 @@ def sim_ber(model, params, ebno_dbs, batch_size: int,
         total = np.zeros(4, np.int64)
         t0 = time.time()
         for _ in range(max_mc_iter):
-            total += step(params, generator, batch_size, float(ebno))
+            total += reduce(step(params, generator, batch_size,
+                                 float(ebno)))
             if total[2] >= num_target_block_errors:
                 break
         be, nb, ble, nbl = (int(v) for v in total)
@@ -103,6 +152,12 @@ def sim_ber(model, params, ebno_dbs, batch_size: int,
     if return_counts:
         return bers, blers, blk_errs, blk_tot
     return bers, blers
+
+
+def _comm_device(backend: str | None, device) -> torch.device:
+    """Where a backend's collective takes the counters: the model's card
+    under NCCL, else the host."""
+    return torch.device(device) if backend == "nccl" else torch.device("cpu")
 
 
 def bler_confidence_interval(block_errors: int, num_blocks: int,

@@ -13,6 +13,11 @@ backward pass and one `torch.optim.Adam` update (optax's defaults: beta
 re-initialises Adam, as the JAX package does; a "chunk" of steps is the
 logging unit: the losses reach the host once a chunk.
 
+On a mesh (`make_step(mesh=)`, `dist/`) every rank draws the step's global
+batch from the same generator, as one device would, trains on its data
+block, and averages the gradients over the data group before Adam, so
+every rank holds the same parameters after every step.
+
 Checkpoints hold the parameters, Adam's state and the step in the port's
 own format (`torch.save`, read back with `weights_only=True`); the JAX
 package's pickles hold a JAX `PyTreeDef` and cannot be read without JAX.
@@ -30,7 +35,8 @@ import numpy as np
 import torch
 
 from .. import weights
-from .e2e import sample_active_dmrs
+from ..dist.mesh import sum_over_data
+from .e2e import data_block, sample_active_dmrs, training_block
 
 ADAM_BETAS = (0.9, 0.999)  # optax.adam's defaults
 ADAM_EPS = 1e-8
@@ -89,13 +95,21 @@ def make_adam(params, lr: float) -> torch.optim.Adam:
 
 def make_step(model, sys_parameters, optimizer, mcs_arr_training_idx,
               batch_size: int, double_readout: bool, weighting: float,
-              apply_multiloss: bool, train_tx: bool):
+              apply_multiloss: bool, train_tx: bool, mesh=None):
     """step(params, generator) -> (loss_data, loss_chest, loss), 0-dim
     device tensors: one SGD iteration of `model` (an E2EModel with
     training=True) updating params (trainable leaves, `trainable`) in
     place through `optimizer`. The per-user-count Eb/N0 range is
     `step.set_snr_range(lo, hi)` (one entry per user count from
-    min_num_tx; default [0, 1) dB)."""
+    min_num_tx; default [0, 1) dB).
+
+    mesh (a `dist.mesh.Mesh` with a grid axis of 1): batch_size is the
+    global batch, split over the data axis; the gradients (and the returned
+    losses) are averaged over the data group in one all-reduce before
+    Adam."""
+    if mesh is not None and mesh.grid != 1:
+        raise ValueError("training shards the batch alone: the mesh's grid "
+                         f"axis must be 1, not {mesh.grid}")
     p = sys_parameters
     num_mcs = len(p.mcs_index)
     dev = model.device
@@ -129,6 +143,9 @@ def make_step(model, sys_parameters, optimizer, mcs_arr_training_idx,
         snr_db, active, mcs_ue_mask = sample(generator)
         d = model.draw_training(generator, batch_size, snr_db,
                                 list(range(num_mcs)))
+        if mesh is not None:
+            active, mcs_ue_mask = data_block(mesh, active, mcs_ue_mask)
+            d = training_block(d, mesh)
         optimizer.zero_grad(set_to_none=True)
         loss_data, loss_chest = model.forward(
             params, d["bits"], d["h"], d["noise"], active_dmrs=active,
@@ -140,8 +157,11 @@ def make_step(model, sys_parameters, optimizer, mcs_arr_training_idx,
         if "constellation" in params and not train_tx:
             for c in params["constellation"]:
                 c.grad = torch.zeros_like(c)
+        losses = (loss_data.detach(), loss_chest.detach(), loss.detach())
+        if mesh is not None:
+            losses = average_over_data(params, losses, mesh)
         optimizer.step()
-        return loss_data.detach(), loss_chest.detach(), loss.detach()
+        return losses
 
     def set_snr_range(lo, hi):
         snr["lo"] = torch.as_tensor(lo, dtype=torch.float32, device=dev)
@@ -150,6 +170,23 @@ def make_step(model, sys_parameters, optimizer, mcs_arr_training_idx,
     step.set_snr_range = set_snr_range
     step.sample = sample
     return step
+
+
+def average_over_data(params, losses, mesh):
+    """Every leaf's gradient and the losses averaged over the data group in
+    one all-reduce (a leaf without a gradient counts as zeros); returns the
+    averaged losses."""
+    leaves = list(weights.flatten(params).values())
+    grads = [torch.zeros_like(v) if v.grad is None else v.grad
+             for v in leaves]
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [torch.stack(losses)])
+    flat = sum_over_data(flat, mesh) / mesh.data
+    at = 0
+    for v in leaves:
+        v.grad = flat[at:at + v.numel()].view_as(v).clone()
+        at += v.numel()
+    return tuple(flat[at:])
 
 
 def make_eval_loss_fn(model, sys_parameters, batch_size: int = 32):

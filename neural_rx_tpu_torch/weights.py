@@ -7,7 +7,9 @@ path, list indices as numbers), which this module reads with numpy alone.
 Leaves keep the JAX layout (depthwise kernels stay [3, 3, 1, C]). The port
 writes trained parameters in the same format (`save`): the CGNN's leaves
 under those names and a trainable constellation's point arrays as
-"constellation.0", ... (one per MCS).
+"constellation.0", ... (one per MCS). `load_tree` also reads the
+reference's own weight files (`compat/reference_weights.py`), onto the
+structure of a template tree.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import os
 import numpy as np
 import torch
 
-from .rx.neural_rx import resolve_device
+from .rx.neural_rx import _to, resolve_device
 
 WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "weights")
@@ -94,9 +96,21 @@ def from_jax_numpy(tree, device="cpu"):
     return conv(tree)
 
 
-def load_tree(path: str, device="cuda") -> dict:
+def load_tree(path: str, device="cuda", template: dict | None = None
+              ) -> dict:
     """{"cgnn": tree} of an `.npz` of named leaves, with "constellation":
-    [one (re, im) point array per MCS] where the file holds one."""
+    [one (re, im) point array per MCS] where the file holds one. A path
+    not ending in `.npz` is a reference weight file (a pickled Keras
+    `get_weights()` list), mapped onto the structure of template ({"cgnn":
+    tree[, "constellation": [...]]}, e.g. a model's `init_params`), which
+    such a file needs."""
+    if not path.endswith(".npz"):
+        if template is None:
+            raise ValueError(f"{path} is a reference weight file: its tree "
+                             "comes from a template")
+        from .compat.reference_weights import load_reference_weights
+        return _to(load_reference_weights(path, template),
+                   resolve_device(device))
     with np.load(path) as f:
         leaves = {k: f[k] for k in f.files}
     points = {k: v for k, v in leaves.items()

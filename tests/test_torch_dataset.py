@@ -18,8 +18,9 @@ JAX package.
   included), with JAX's seed-made parameters: the eval forward's refined
   channel estimate, its LS estimate and the true channel within 1e-5 of
   JAX's eval call's, b and the CRC equal; the training losses within 1e-5.
-- Covariances draw on the Dataset channel; `refuse_unported` accepts it
-  and still refuses a mesh; the configurations' dataset wiring
+- Covariances draw on the Dataset channel; `refuse_unported` accepts it;
+  a mesh that is not a `dist.mesh.Mesh` is refused; the configurations'
+  dataset wiring
   (`data_dir`, an absolute `tfrecord_filename`, `cir_max_records`).
 """
 
@@ -306,7 +307,7 @@ def test_dataset_channel_wiring(tmp_path, data_dir):
     assert isinstance(p.channel_model, DatasetChannel)
     assert p.channel_model.a.shape[0] == 200  # the eval trajectory
     E2EModel(p, device="cpu")  # the Dataset channel is no longer refused
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="multi-GPU"):  # not a mesh
         E2EModel(p, mesh=object(), device="cpu")
     p = Parameters("nrx_site_specific", training=True, data_dir=data_dir,
                    overrides={"cir_max_records": 100})

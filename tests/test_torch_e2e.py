@@ -43,6 +43,7 @@ from neural_rx_tpu.sim.e2e import E2EModel as JaxE2EModel
 from neural_rx_tpu.sim.training import load_weights
 from neural_rx_tpu_torch import entry as port_entry
 from neural_rx_tpu_torch import tables, weights
+from neural_rx_tpu_torch.dist.mesh import make_mesh
 from neural_rx_tpu_torch.sim import simber
 from neural_rx_tpu_torch.sim.config import CONFIG_DIR, Parameters
 from neural_rx_tpu_torch.sim.e2e import E2EModel
@@ -232,15 +233,21 @@ def test_second_step_builds_no_table(port_side, monkeypatch):
 
 @pytest.mark.parametrize("change,match", [
     ({"mesh": object()}, "multi-GPU"),
-    # the Dataset channel is ported; with a mesh the mesh still raises
+    # the Dataset channel is ported; a mesh of the wrong type still raises
     ({"mesh": object(), "channel_type_name": "Dataset"}, "multi-GPU")])
 def test_e2e_refuses_what_is_not_ported(cfg_dir, change, match):
+    """A mesh is ported (`dist/`): the model takes a `dist.mesh.Mesh` and
+    refuses anything else as its mesh."""
     p = Parameters("nrx_rt", training=False, config_dir=cfg_dir)
     kwargs = {k: change.pop(k) for k in ("training", "mesh") if k in change}
     for k, v in change.items():
         setattr(p, k, v)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(TypeError, match=match):
         E2EModel(p, device="cpu", **kwargs)
+    model = E2EModel(p, device="cpu", mesh=make_mesh())
+    assert model.receiver.mesh is model.mesh
+    with pytest.raises(TypeError, match=match):
+        model.mesh = object()
 
 
 @pytest.mark.parametrize("label,bits", [("nrx_rt_qpsk", 2),

@@ -33,6 +33,24 @@ def test_no_jax_imports(path):
         assert top not in FORBIDDEN, f"{path} imports {mod}"
 
 
+# the multi-GPU and tooling modules: each must stay among the files checked
+DIST_AND_TOOLS = ("dist/__init__.py", "dist/mesh.py", "dist/multihost.py",
+                  "dist/fused_sharded.py", "dist/launch.py",
+                  "dist/checks.py", "utils/__init__.py",
+                  "utils/profiling.py", "utils/debug.py",
+                  "compat/__init__.py", "compat/reference_weights.py",
+                  "phy/sources.py", "phy/nr/ldpc_oracle.py",
+                  "sim/metrics.py")
+
+
+@pytest.mark.parametrize("rel", DIST_AND_TOOLS)
+def test_dist_and_tool_modules_are_checked(rel):
+    path = os.path.join(PORT, *rel.split("/"))
+    assert path in PY_FILES
+    assert not [m for m in _imported_modules(path)
+                if m.split(".")[0] in FORBIDDEN]
+
+
 def test_no_library_kernel_in_place_of_ours():
     for path in PY_FILES:
         src = open(path).read()
