@@ -143,11 +143,34 @@ Phases, each printing one JSON line with its seconds:
      launches asserted; `chained_device_time_ms` of `entry()` at batch 1 beside its
      event time; nrx_rt's weights through the reference format and back
      equal, a served call from them equal;
- 14. times: CUDA-event device time per kernel launch (kernel and plain) at
+ 14. modes_path: the JAX package's layer modes at 132 PRB, nrx_rt, committed
+     EMA weights (`conv_mxu`, the folded-tap form of the stack kernel, and
+     `stencil_lp`, the depthwise taps summed in bf16, of the stack,
+     iteration and whole-CGNN kernels): each kernel in its mode equal bit
+     for bit to its plain version in the mode, and different from the
+     kernel in the normal mode on the same inputs (the stack's folded form
+     in bf16 and float32 on the init and update stacks at N = 2 with
+     sc_valid None and (5, 1500), its bf16 stencil there too; the
+     iteration's stencil at batch 16 in state and readout modes; the whole
+     CGNN's at batch 1); fused_iteration refusing mxu; the receiver's
+     routes, the modes set in its `CGNNConfig`, equal bit for bit to their
+     plain routes with the launches counted by mode (batch 1 under
+     NRX_CONV_MXU=1: 3 folded stack launches; batch 16 with conv_mxu in
+     the configuration and the knob unset: 3 stack launches, 1 folded, no
+     iteration launch, a warning; batch 16 with stencil_lp: 1 stack and 2
+     iteration launches, all in the mode; mega at batch 1 with stencil_lp:
+     1 whole-CGNN launch in the mode); each mode's device time beside the
+     normal mode's in turns on one card (the stack over a batch-1 slot and
+     at N = 32 in bf16, folded in float32 at N = 60, the iteration at batch
+     16, the whole CGNN at batch 1), with its bound (folded: 2 x 9 x c_in x
+     c_out FLOP per position and layer); the new instances' registers and
+     spills;
+ 15. times: CUDA-event device time per kernel launch (kernel and plain) at
      the shapes the main path gives it, with its bound, achieved TFLOP/s
      and share of the bound (the sepconv stack at N = 2 and on the batch-16
      route's init stack at N = 32, the whole-CGNN kernel at batch 1 and
-     16, the LDPC kernel at the baseline path's 1-user launch), per call
+     16, the LDPC kernel at the baseline path's 1-user launch and at a
+     dist-path rank's 75 codewords), per call
      and slot on each route, and the eval path's call split into receiver
      and decode for each decoder.
 Every kernel_check record carries the share of output elements that differ
@@ -2170,6 +2193,299 @@ def dist_path(dev, card, peaks, counts, reset):
     return launches, shard_k
 
 
+MODES_SEED = 3
+MODE_ENV = ("NRX_CONV_MXU", "NRX_STENCIL_LP")
+
+
+def fold_flops(widths) -> int:
+    """FLOPs of the folded-tap stack per position: the product over the
+    nine taps, 2 x 9 x c_in x c_out per layer."""
+    return sum(2 * 9 * ci * co for ci, co in zip(widths[:-1], widths[1:]))
+
+
+def ptxas_entries(lines) -> dict:
+    """{mangled kernel name: its register and spill lines} from ptxas' -v
+    report."""
+    out, name = {}, None
+    for ln in lines:
+        if "Compiling entry" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln
+            out[name] = []
+        elif name is not None and ("registers" in ln or "spill" in ln):
+            out[name].append(ln)
+    return out
+
+
+def modes_path(dev, card, peaks, counts, reset, ptxas):
+    """The layer modes of the JAX package at 132 PRB, nrx_rt, committed EMA
+    weights: the folded-tap form of K1 (conv_mxu) and the bf16 depthwise sum
+    of K1, K3 and K4 (stencil_lp). Each kernel against its plain version in
+    the mode; the receiver's routes with the modes against their plain
+    routes, launches counted by mode; each mode's device time beside the
+    normal mode's in turns (normal, mode, mode, normal), with its bound;
+    the new instances' registers and spills. Returns (launches by route,
+    times, launches by mode)."""
+    import dataclasses
+    import warnings
+
+    import torch
+    from neural_rx_tpu_torch.entry import load_params, make_receiver
+    from neural_rx_tpu_torch.kernels import cgnn_iter, sepconv
+
+    t0 = time.perf_counter()
+    saved_env = {k: os.environ.pop(k, None) for k in MODE_ENV}
+    bf, f32 = torch.bfloat16, torch.float32
+    params = load_params(device=dev)
+    cgnn = params["cgnn"]
+    stacks = {"init": cgnn["s_init"][0],
+              "update0": cgnn["iterations"][0]["update"],
+              "update1": cgnn["iterations"][1]["update"]}
+    gen = torch.Generator(device=dev).manual_seed(MODES_SEED)
+    h, w = N_SYM, N_SC
+    rx = make_receiver(device=dev)
+    pe = rx.pe.to(bf)
+    d_s = cgnn["iterations"][0]["agg"]["hidden"][0]["w"].shape[0]
+    by_mode = {"sepconv_stack": sepconv.launches_by_mode,
+               "cgnn_iter": cgnn_iter.iter_launches_by_mode,
+               "cgnn_full": cgnn_iter.full_launches_by_mode}
+
+    def reset_modes():
+        reset()
+        for d in by_mode.values():
+            for k in d:
+                d[k] = 0
+
+    def modes_now():
+        return {k: dict(v) for k, v in by_mode.items()}
+
+    # 1. each kernel in each mode against its plain version
+    checks = []
+
+    def check(kernel, got, ref, normal, dtype, tol, **what):
+        """got: the kernel in the mode; ref: its plain version in the mode;
+        normal: the kernel in the normal mode on the same inputs. The kernel
+        must equal its plain version bit for bit, and differ from the normal
+        mode (a dropped mode flag would run the normal instance)."""
+        got, ref, normal = (t if isinstance(t, tuple) else (t,)
+                            for t in (got, ref, normal))
+        torch.cuda.synchronize()
+        rec = compare(got, ref, dtype, tol)
+        rec["share_vs_normal"] = differences(got, normal)[0]
+        rec["ok"] = rec["ok"] and rec["differing_share"] == 0 \
+            and rec["share_vs_normal"] > 0
+        scv = what.get("sc_valid")
+        if scv is not None and kernel == "sepconv_stack":
+            lo, hi = scv
+            rec["ok"] = rec["ok"] and not got[0][:, :, :lo].any() \
+                and not got[0][:, :, hi:].any()
+        checks.append({"kernel": kernel, **what, **rec})
+        assert rec["ok"], checks[-1]
+
+    for sname in ("init", "update0"):
+        p = stacks[sname]
+        x32 = torch.randn((2, h, w, widths_of(p)[0]), generator=gen,
+                          device=dev)
+        for dtype, tol in ((bf, TOL_BF16), (f32, TOL_F32)):
+            x = x32.to(dtype)
+            for scv in SC_VALID_CASES:
+                check("sepconv_stack",
+                      sepconv.fused_conv_stack(p, x, scv, mxu=True),
+                      sepconv.sepconv_stack_reference(p, x, scv, mxu=True),
+                      sepconv.fused_conv_stack(p, x, scv, mxu=False,
+                                               lp_stencil=False),
+                      dtype, tol, mode="mxu", stack=sname, sc_valid=scv)
+        x = x32.to(bf)
+        for scv in SC_VALID_CASES:
+            check("sepconv_stack",
+                  sepconv.fused_conv_stack(p, x, scv, lp_stencil=True),
+                  sepconv.sepconv_stack_reference(p, x, scv,
+                                                  lp_stencil=True),
+                  sepconv.fused_conv_stack(p, x, scv, mxu=False,
+                                           lp_stencil=False),
+                  bf, TOL_BF16, mode="lp", stack=sname, sc_valid=scv)
+    s16 = (4.0 * torch.randn((16, N_TX, h, w, d_s), generator=gen,
+                             device=dev)).to(bf)
+    act16 = torch.ones((16, N_TX), device=dev)
+    readouts = (cgnn["readout_llrs"][0], cgnn["readout_chest"])
+    for mode, it_p, ro in (("state", cgnn["iterations"][0], ()),
+                           ("readout", cgnn["iterations"][1], readouts)):
+        check("cgnn_iter",
+              cgnn_iter.fused_iteration(it_p, s16, pe, act16, None, *ro,
+                                        lp_stencil=True),
+              cgnn_iter.fused_iteration_reference(it_p, s16, pe, act16, None,
+                                                  *ro, lp_stencil=True),
+              cgnn_iter.fused_iteration(it_p, s16, pe, act16, None, *ro,
+                                        lp_stencil=False),
+              bf, TOL_BF16, mode="lp", iteration=mode, batch=16)
+    z1 = torch.randn((1, N_TX, h, w, 18), generator=gen, device=dev).to(bf)
+    act1 = torch.ones((1, N_TX), device=dev)
+    check("cgnn_full",
+          cgnn_iter.fused_cgnn_full(cgnn, z1, pe, act1, lp_stencil=True),
+          cgnn_iter.fused_cgnn_full_reference(cgnn, z1, pe, act1,
+                                              lp_stencil=True),
+          cgnn_iter.fused_cgnn_full(cgnn, z1, pe, act1, lp_stencil=False),
+          bf, TOL_BF16, mode="lp", batch=1)
+    refused = False
+    try:
+        cgnn_iter.fused_iteration(cgnn["iterations"][0], s16, pe, act16,
+                                  mxu=True)
+    except ValueError:
+        refused = True
+    assert refused, "fused_iteration took mxu=True"
+
+    # 2. the receiver's routes with the modes against their plain routes
+    rng = np.random.default_rng(MODES_SEED)
+    y1, y16 = (torch.as_tensor(rng.normal(size=(b, 4, h, w, 2)),
+                               dtype=torch.float32, device=dev)
+               for b in (1, 16))
+    routes = {
+        # name: (CGNNConfig fields, env, y, expected launches, by mode)
+        "b1_mxu_env": ({}, {"NRX_CONV_MXU": "1"}, y1,
+                       {"sepconv_stack": 3, "cgnn_iter": 0, "cgnn_full": 0},
+                       {"sepconv_stack": {"normal": 0, "lp": 0, "mxu": 3}}),
+        "b16_mxu_cfg": ({"conv_mxu": True}, {}, y16,
+                        {"sepconv_stack": 3, "cgnn_iter": 0, "cgnn_full": 0},
+                        {"sepconv_stack": {"normal": 2, "lp": 0, "mxu": 1}}),
+        "b16_lp": ({"stencil_lp": True}, {}, y16,
+                   {"sepconv_stack": 1, "cgnn_iter": 2, "cgnn_full": 0},
+                   {"sepconv_stack": {"normal": 0, "lp": 1, "mxu": 0},
+                    "cgnn_iter": {"normal": 0, "lp": 2}}),
+        "mega_b1_lp": ({"stencil_lp": True, "fused_full": True}, {}, y1,
+                       {"sepconv_stack": 0, "cgnn_iter": 0, "cgnn_full": 1},
+                       {"cgnn_full": {"normal": 0, "lp": 1}})}
+    launches, modes, route_recs = {}, {}, {}
+    for name, (kw, env, yy, want, want_modes) in routes.items():
+        os.environ.update(env)
+        try:
+            rx_k = make_receiver(device=dev)
+            rx_p = make_receiver(device=dev, kernels=False)
+            for r in (rx_k, rx_p):
+                r.cgnn_cfg = dataclasses.replace(r.cgnn_cfg, **kw)
+            reset_modes()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                llr, h_hat = rx_k.serve(params, yy)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in counts().items() if k in want}
+            launches[name], modes[name] = counts(), modes_now()
+            reset_modes()
+            llr_p, h_p = rx_p.serve(params, yy)
+            torch.cuda.synchronize()
+            assert counts() == dict.fromkeys(counts(), 0), counts()
+        finally:
+            for k in env:
+                os.environ.pop(k, None)
+        route_recs[name] = {
+            "batch": yy.shape[0], "config": kw, "env": env,
+            "launches": got, "by_mode": {k: modes[name][k]
+                                         for k in want_modes},
+            "warned": [str(c.message)[:60] for c in caught],
+            "rel_err_vs_plain": {"llr": rel_err(llr, llr_p),
+                                 "h_hat": rel_err(h_hat, h_p)},
+            "equal_to_plain": bool(torch.equal(llr, llr_p)
+                                   and torch.equal(h_hat, h_p)),
+            "finite": bool(torch.isfinite(llr).all()
+                           and torch.isfinite(h_hat).all())}
+        assert got == want, (name, got)
+        for k, v in want_modes.items():
+            assert modes[name][k] == v, (name, k, modes[name][k])
+        assert route_recs[name]["finite"], name
+        assert route_recs[name]["equal_to_plain"], (name, route_recs[name])
+    assert route_recs["b16_mxu_cfg"]["warned"], "no conv_mxu warning"
+    reset_modes()
+
+    # 3. device times, each mode beside the normal mode in turns
+    def ab(normal, moded, reps, warmup=3):
+        t = [cuda_ms(f, reps, warmup) for f in (normal, moded, moded,
+                                                normal)]
+        return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+    def rec(normal_ms, ms, plain_ms, work, rate="bf16_flops"):
+        b = bound(*work, peaks, rate)
+        return {"normal_ms": normal_ms, "kernel_ms": ms, "plain_ms": plain_ms,
+                **b, "pct_of_bound": 100.0 * b["bound_ms"] / ms}
+
+    times = {"card": card}
+    for mode, kw in (("mxu", {"mxu": True}), ("lp", {"lp_stencil": True})):
+        slot = []
+        for sname, p in stacks.items():
+            widths = widths_of(p)
+            x = torch.randn((2, h, w, widths[0]), generator=gen,
+                            device=dev).to(bf)
+            normal_ms, ms = ab(lambda: sepconv.fused_conv_stack(
+                p, x, mxu=False, lp_stencil=False),
+                lambda: sepconv.fused_conv_stack(p, x, **kw), 20)
+            nbytes, flops = stack_work(widths, 2, h, w, 2)
+            if mode == "mxu":
+                flops = fold_flops(widths) * 2 * h * w
+            slot.append({"stack": sname, **rec(
+                normal_ms, ms, cuda_ms(lambda: sepconv.sepconv_stack_reference(
+                    p, x, **kw), 3), (nbytes, flops))})
+        p = stacks["init"]
+        x = torch.randn((32, h, w, 18), generator=gen, device=dev).to(bf)
+        normal_ms, ms = ab(lambda: sepconv.fused_conv_stack(
+            p, x, mxu=False, lp_stencil=False),
+            lambda: sepconv.fused_conv_stack(p, x, **kw), 5)
+        nbytes, flops = stack_work(widths_of(p), 32, h, w, 2)
+        if mode == "mxu":
+            flops = fold_flops(widths_of(p)) * 32 * h * w
+        times[f"k1_{mode}"] = {
+            "slot": slot,
+            "slot_ms": sum(r["kernel_ms"] for r in slot),
+            "slot_normal_ms": sum(r["normal_ms"] for r in slot),
+            "slot_plain_ms": sum(r["plain_ms"] for r in slot),
+            "slot_bound_ms": sum(r["bound_ms"] for r in slot),
+            "n32": rec(normal_ms, ms, cuda_ms(
+                lambda: sepconv.sepconv_stack_reference(p, x, **kw), 2,
+                warmup=1), (nbytes, flops))}
+        del x
+    # K1 float32 folded at the Monte-Carlo launch (init stack, N = 60)
+    p = stacks["init"]
+    x60 = torch.randn((MC_BATCH * N_TX, h, w, 18), generator=gen,
+                      device=dev)
+    normal_ms, ms = ab(lambda: sepconv.fused_conv_stack(p, x60, mxu=False),
+                       lambda: sepconv.fused_conv_stack(p, x60, mxu=True), 3,
+                       warmup=1)
+    times["k1_mxu_f32_n60"] = rec(
+        normal_ms, ms, cuda_ms(lambda: sepconv.sepconv_stack_reference(
+            p, x60, mxu=True), 2, warmup=1),
+        (stack_work(widths_of(p), 60, h, w, 4)[0],
+         fold_flops(widths_of(p)) * 60 * h * w), rate="f32_flops")
+    del x60
+    it0 = cgnn["iterations"][0]
+    normal_ms, ms = ab(
+        lambda: cgnn_iter.fused_iteration(it0, s16, pe, act16,
+                                          lp_stencil=False),
+        lambda: cgnn_iter.fused_iteration(it0, s16, pe, act16,
+                                          lp_stencil=True), 5)
+    times["k3_lp_b16"] = rec(normal_ms, ms, cuda_ms(
+        lambda: cgnn_iter.fused_iteration_reference(
+            it0, s16, pe, act16, lp_stencil=True), 2, warmup=1),
+        iteration_work(it0, 16, pe.shape[-1], 2))
+    normal_ms, ms = ab(
+        lambda: cgnn_iter.fused_cgnn_full(cgnn, z1, pe, act1,
+                                          lp_stencil=False),
+        lambda: cgnn_iter.fused_cgnn_full(cgnn, z1, pe, act1,
+                                          lp_stencil=True), 20)
+    times["k4_lp_b1"] = rec(normal_ms, ms, cuda_ms(
+        lambda: cgnn_iter.fused_cgnn_full_reference(
+            cgnn, z1, pe, act1, lp_stencil=True), 3, warmup=1),
+        full_work(cgnn, 1, pe.shape[-1], 2))
+    del s16
+    reset_modes()
+
+    # 4. the new instances' registers and spills (ptxas -v)
+    regs = {k: v for k, v in ptxas_entries(ptxas).items()
+            if any(t in k for t in ("Li1EE", "Li2EE", "Lb1EE"))}
+    for k, v in saved_env.items():
+        if v is not None:
+            os.environ[k] = v
+    emit({"phase": "modes_path", "card": card, "checks": checks,
+          "routes": route_recs, "times": times, "ptxas_new": regs,
+          "seconds": time.perf_counter() - t0})
+    return launches, times, modes
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -2684,7 +3000,13 @@ def main() -> int:
     dist_launches, dist_shards = dist_path(dev, card, peaks, counts, reset)
     launches.update(dist_launches)
 
-    # 14. times (bf16, as served), at the shapes the main path gives each
+    # 14. the layer modes: the folded-tap stack and the bf16 stencil of
+    # the stack, iteration and whole-CGNN kernels
+    mode_launches, mode_times, by_mode = modes_path(dev, card, peaks, counts,
+                                                    reset, ptxas)
+    launches.update(mode_launches)
+
+    # 15. times (bf16, as served), at the shapes the main path gives each
     # kernel: stacks at N = 2 (batch 1), the iteration at batch 16, the
     # whole CGNN at batch 1
     t0 = time.perf_counter()
@@ -2813,6 +3135,16 @@ def main() -> int:
             code132, llr150, LDPC_ITER), 2, warmup=1),
         **bound(*ldpc_work(code132, llr150.shape[0]), peaks,
                 rate="f32_flops")})
+    # K5 at the dist path's launch: one rank's 75 codewords of a data-2
+    # mesh (batch 15 a rank, 5 code blocks a transport block)
+    llr75 = llr150[:75].contiguous()
+    dist_ldpc_75 = rates({
+        "codewords": 75,
+        "kernel_ms": cuda_ms(
+            lambda: k5.layered_decode(code132, llr75, LDPC_ITER), 10),
+        "plain_ms": cuda_ms(lambda: k5.layered_decode_reference(
+            code132, llr75, LDPC_ITER), 2, warmup=1),
+        **bound(*ldpc_work(code132, 75), peaks, rate="f32_flops")})
     # K5 at the 1-user baseline path's launch: e2e_baseline's 30 TBs x 6
     # code blocks of BG1, Z = 352 (20 iterations, no early stop, so random
     # LLRs take the time of real ones)
@@ -2853,6 +3185,7 @@ def main() -> int:
           "ldpc_decode": ldpc_time, "eval_path": eval_times,
           "mc_path_kernels": mc_kernels,
           "baseline_path_ldpc_1ue": base_ldpc_1ue,
+          "dist_path_ldpc_75": dist_ldpc_75,
           "seconds": time.perf_counter() - t0})
 
     def max_abs(kernel):
@@ -2891,6 +3224,37 @@ def main() -> int:
                         f"pct_of_bound_shard{n}": rec["pct_of_bound"]})
         return out
 
+    def mode_keys(kernel):
+        """The modes path's launches by mode and each mode's times beside
+        the normal mode's from the same turns (bf16; K1: the three stacks
+        of a batch-1 slot, N = 2, and the init stack at N = 32, folded also
+        in float32 at N = 60; K3 at batch 16; K4 at batch 1)."""
+        out = {"launches_by_mode": {
+            m: sum(by_mode[r][kernel][m] for r in by_mode)
+            for m in by_mode["b16_lp"][kernel]}}
+        if kernel == "sepconv_stack":
+            for m in ("mxu", "lp"):
+                t = mode_times[f"k1_{m}"]
+                out.update({f"launches_{m}": out["launches_by_mode"][m],
+                            f"ms_{m}": t["slot_ms"],
+                            f"ms_normal_vs_{m}": t["slot_normal_ms"],
+                            f"plain_ms_{m}": t["slot_plain_ms"],
+                            f"bound_ms_{m}": t["slot_bound_ms"],
+                            f"ms_{m}_n32": t["n32"]["kernel_ms"],
+                            f"ms_normal_vs_{m}_n32": t["n32"]["normal_ms"],
+                            f"bound_ms_{m}_n32": t["n32"]["bound_ms"]})
+            t = mode_times["k1_mxu_f32_n60"]
+            out.update({"ms_mxu_f32_n60": t["kernel_ms"],
+                        "ms_normal_vs_mxu_f32_n60": t["normal_ms"],
+                        "plain_ms_mxu_f32_n60": t["plain_ms"],
+                        "bound_ms_mxu_f32_n60": t["bound_ms"]})
+            return out
+        t = mode_times["k3_lp_b16" if kernel == "cgnn_iter" else "k4_lp_b1"]
+        out.update({"launches_lp": out["launches_by_mode"]["lp"],
+                    "ms_lp": t["kernel_ms"], "ms_normal_vs_lp": t["normal_ms"],
+                    "plain_ms_lp": t["plain_ms"], "bound_ms_lp": t["bound_ms"]})
+        return out
+
     st_bytes = sum(s["bytes_ms"] for s in per_stack)
     st_ops = sum(s["ops_ms"] for s in per_stack)
     by_path = {k: {r: launches[r][k] for r in launches} for k in
@@ -2912,7 +3276,7 @@ def main() -> int:
          "plain_ms_n32": stack_n32["plain_ms"],
          "bound_ms_n32": stack_n32["bound_ms"],
          **mc_keys("sepconv_stack"), **width_keys("sepconv_stack"),
-         **shard_keys("sepconv_stack"),
+         **shard_keys("sepconv_stack"), **mode_keys("sepconv_stack"),
          "note": "ms/plain_ms/bound_ms: sum over the 3 launches of one "
                  "batch-1 slot (init, update0, update1), bf16, N=2, "
                  "14x1584; *_n32: the batch-16 route's launch (init stack, "
@@ -2921,6 +3285,10 @@ def main() -> int:
                  "the 4- and 273-PRB buckets (bf16, N=2); *_shard2, "
                  "*_shard4: the dist path's launch on the extended shard "
                  "of 2 and 4 ranks (798 and 402 columns, bf16, N=2); "
+                 "*_mxu, *_lp: the folded-tap and bf16-stencil modes over "
+                 "the same slot (and *_n32, f32_n60) beside the normal "
+                 "mode's time from the same turns (ms_normal_vs_*), "
+                 "launches_by_mode from the modes path's routes; "
                  "library: no PyTorch call computes a separable stack"},
         {"name": "cgnn_iter", "route": "cuda",
          "source": "neural_rx_tpu_torch/csrc/cgnn_iter.cu",
@@ -2933,14 +3301,16 @@ def main() -> int:
          "bound_ms": iteration["bound_ms"],
          "bound_by": iteration["bound_by"], "library_ms": None,
          **mc_keys("cgnn_iter"), **width_keys("cgnn_iter"),
-         **shard_keys("cgnn_iter"),
+         **shard_keys("cgnn_iter"), **mode_keys("cgnn_iter"),
          "note": "one launch in state mode at batch 16 (b=16, T=2, "
                  "14x1584), bf16; *_mc: the mc path's launch (float32, "
                  "b=30); *_w48, *_w3276: the deploy engine's launch at the "
                  "4- and 273-PRB buckets (bf16, b=1, state mode); "
                  "*_shard2, *_shard4: the dist path's launch on the "
                  "extended shard of 2 and 4 ranks (798 and 402 columns, "
-                 "bf16, b=1, state mode); library: no PyTorch call "
+                 "bf16, b=1, state mode); *_lp: the bf16-stencil mode "
+                 "at batch 16 beside the normal mode's time from the same "
+                 "turns; library: no PyTorch call "
                  "computes the aggregation MLP, user sum and separable "
                  "stack"},
         {"name": "cgnn_full", "route": "cuda",
@@ -2958,10 +3328,13 @@ def main() -> int:
          "ms_8it": var_times["k4_8it"]["kernel_ms"],
          "plain_ms_8it": var_times["k4_8it"]["plain_ms"],
          "bound_ms_8it": var_times["k4_8it"]["bound_ms"],
+         **mode_keys("cgnn_full"),
          "note": "ms/plain_ms/bound_ms: one launch at batch 1 (b=1, T=2, "
                  "14x1584), bf16; *_b16: the mega route's launch at batch "
                  "16; *_8it: batch 1 with 8 seed-made iterations of "
-                 "nrx_large's widths; library: no PyTorch call computes "
+                 "nrx_large's widths; *_lp: the bf16-stencil mode at "
+                 "batch 1 beside the normal mode's time from the same "
+                 "turns; library: no PyTorch call computes "
                  "the whole CGNN"},
         {"name": "ldpc_decode", "route": "cuda",
          "source": "neural_rx_tpu_torch/csrc/ldpc_decode.cu",
@@ -2979,6 +3352,9 @@ def main() -> int:
          "ms_base_1ue": base_ldpc_1ue["kernel_ms"],
          "plain_ms_base_1ue": base_ldpc_1ue["plain_ms"],
          "bound_ms_base_1ue": base_ldpc_1ue["bound_ms"],
+         "ms_dist_75": dist_ldpc_75["kernel_ms"],
+         "plain_ms_dist_75": dist_ldpc_75["plain_ms"],
+         "bound_ms_dist_75": dist_ldpc_75["bound_ms"],
          "ms_var_qpsk": var_times["k5_qpsk"]["kernel_ms"],
          "plain_ms_var_qpsk": var_times["k5_qpsk"]["plain_ms"],
          "bound_ms_var_qpsk": var_times["k5_qpsk"]["bound_ms"],
@@ -2988,6 +3364,8 @@ def main() -> int:
                  "Monte-Carlo step, also each user's launch on the 2-user "
                  "baseline path); *_base_1ue: 180 codewords of BG1, Z=352 "
                  "(the 1-user baseline path's launch, e2e_baseline); "
+                 "*_dist_75: 75 codewords (a rank's launch on a data-2 "
+                 "mesh, batch 15); "
                  "*_var_qpsk: one user's MCS-9 (QPSK) codewords of a "
                  "batch-30 nrx_rt_var_mcs step; 20 iterations, float32; max_abs_err on hard bits "
                  "(0 or 1); bound: 10 f32 operations per edge, lane and "

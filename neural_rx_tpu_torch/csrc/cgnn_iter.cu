@@ -88,6 +88,12 @@
 // w_tile 10) and their bit-exact sums: TF32 would not hold float32's
 // tolerance.
 //
+// stencil_lp (the JAX package's lp_stencil argument of both kernels): the
+// bf16 instances with kLp sum every stack's depthwise taps in bf16
+// (nrx_tile.cuh, depthwise_pairs<true>): K3's update stack, and K4's init
+// stack and update stacks. The float32 instances need none: the mode
+// changes nothing there. Neither kernel takes the folded-tap mode.
+//
 // Launch set-up (shared-memory opt-in, the kernel's shared-memory
 // attribute, K4's occupancy) is queried once per device, kernel and size.
 
@@ -268,8 +274,9 @@ __device__ __forceinline__ uint4 add_chunks(uint4 x, uint4 y) {
 // One tile of one iteration: user t of batch item bi, core columns
 // [tile * w_tile, (tile + 1) * w_tile). s [b, T, H, W, d_s], pe [T, H, W,
 // d_pe], act [b, T] f32. State mode writes out [b, T, H, W, d_s]; readout
-// mode writes out (llr) and, if q.readout == 2, out2 (h_hat).
-template <typename T>
+// mode writes out (llr) and, if q.readout == 2, out2 (h_hat). kLp: the
+// update stack's taps in bf16 (stencil_lp).
+template <typename T, bool kLp = false>
 __device__ void iter_tile(const T* s, const T* pe, const float* act, T* out,
                           T* out2, const T* __restrict__ agg_w,
                           const T* __restrict__ upd_w,
@@ -384,7 +391,8 @@ __device__ void iter_tile(const T* s, const T* pe, const float* act, T* out,
   }
 
   // 4. Update stack.
-  nrx::run_stack<T, kMma>(buf_a, buf_b, upd_w, q.upd, H, E, g0, vlo, vhi, fx);
+  nrx::run_stack<T, kMma, kLp ? nrx::kLp : nrx::kNormal>(buf_a, buf_b, upd_w, q.upd, H, E,
+                                                        g0, vlo, vhi, fx);
 
   // 5. Residual; the state, or both readouts on it.
   const T* s_t = s_b + (size_t)t * img * d_s;
@@ -563,16 +571,16 @@ struct IterArgs {
   int H, W, lo, hi;
 };
 
-template <typename T>
+template <typename T, bool kLp>
 __global__ void __launch_bounds__(nrx::kThreads) cgnn_iter_kernel(IterArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int bt = blockIdx.y;
-  iter_tile<T>(a.s, a.pe, a.act, a.out, a.out2, a.agg_w, a.upd_w, a.ro_w, a.ch_w,
+  iter_tile<T, kLp>(a.s, a.pe, a.act, a.out, a.out2, a.agg_w, a.upd_w, a.ro_w, a.ch_w,
                a.q, a.H, a.W, a.lo, a.hi, bt / a.q.n_users, bt % a.q.n_users,
                blockIdx.x, smem_raw);
 }
 
-template <typename T>
+template <typename T, bool kLp>
 cudaError_t launch_iter(IterArgs<T> a, int b, cudaStream_t stream) {
   static KernelSetup setup[kMaxDevices];
   if (kUseMma<T> && !mma_fits(a.q)) return cudaErrorInvalidValue;
@@ -584,11 +592,11 @@ cudaError_t launch_iter(IterArgs<T> a, int b, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     if (!iter_tiles(&a.q, a.H, a.W, sizeof(T), kUseMma<T>, d.optin))
       return cudaErrorInvalidValue;
-    err = allow_smem(cgnn_iter_kernel<T>, setup[dev], a.q.smem);
+    err = allow_smem(cgnn_iter_kernel<T, kLp>, setup[dev], a.q.smem);
     if (err != cudaSuccess) return err;
   }
   dim3 grid((a.W + a.q.w_tile - 1) / a.q.w_tile, b * a.q.n_users);
-  cgnn_iter_kernel<T><<<grid, nrx::kThreads, a.q.smem, stream>>>(a);
+  cgnn_iter_kernel<T, kLp><<<grid, nrx::kThreads, a.q.smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -617,7 +625,7 @@ struct FullArgs {
 // toolkit accepts.
 static_assert(sizeof(FullArgs<float>) <= 4096, "FullArgs exceeds 4 KB");
 
-template <typename T>
+template <typename T, bool kLp>
 __global__ void __launch_bounds__(nrx::kThreads) cgnn_full_kernel(FullArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
@@ -627,9 +635,9 @@ __global__ void __launch_bounds__(nrx::kThreads) cgnn_full_kernel(FullArgs<T> a)
   // Stage 0: the init stack, z0 -> state[0].
   const int tiles0 = (a.W + a.init_w_tile - 1) / a.init_w_tile;
   for (int item = blockIdx.x; item < n_img * tiles0; item += gridDim.x)
-    nrx::stack_tile<T, kUseMma<T>>(a.z0, a.init_w, a.state[0], a.init, a.H, a.W,
-                                   a.init_w_tile, a.lo, a.hi, item / tiles0,
-                                   item % tiles0, smem_raw);
+    nrx::stack_tile<T, kUseMma<T>, kLp ? nrx::kLp : nrx::kNormal>(
+        a.z0, a.init_w, a.state[0], a.init, a.H, a.W, a.init_w_tile, a.lo, a.hi,
+        item / tiles0, item % tiles0, smem_raw);
 
   // Stages 1..num_it: the iterations, the last one with both readouts.
   for (int i = 0; i < a.num_it; ++i) {
@@ -640,14 +648,14 @@ __global__ void __launch_bounds__(nrx::kThreads) cgnn_full_kernel(FullArgs<T> a)
     const int tiles = (a.W + q.w_tile - 1) / q.w_tile;
     for (int item = blockIdx.x; item < n_img * tiles; item += gridDim.x) {
       const int bt = item / tiles;
-      iter_tile<T>(src, a.pe, a.act, dst, a.hh, a.agg_w[i], a.upd_w[i], a.ro_w,
+      iter_tile<T, kLp>(src, a.pe, a.act, dst, a.hh, a.agg_w[i], a.upd_w[i], a.ro_w,
                    a.ch_w, q, a.H, a.W, a.lo, a.hi, bt / n_users, bt % n_users,
                    item % tiles, smem_raw);
     }
   }
 }
 
-template <typename T>
+template <typename T, bool kLp>
 cudaError_t launch_full(FullArgs<T>& a, cudaStream_t stream) {
   static KernelSetup setup[kMaxDevices];
   constexpr bool kMma = kUseMma<T>;
@@ -675,11 +683,11 @@ cudaError_t launch_full(FullArgs<T>& a, cudaStream_t stream) {
       if (n > items) items = n;
     }
     KernelSetup& k = setup[dev];
-    err = allow_smem(cgnn_full_kernel<T>, k, smem);
+    err = allow_smem(cgnn_full_kernel<T, kLp>, k, smem);
     if (err != cudaSuccess) return err;
     if (k.per_sm == 0 || k.occ_smem != smem) {
       int per_sm = 0;
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cgnn_full_kernel<T>,
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cgnn_full_kernel<T, kLp>,
                                                           nrx::kThreads, smem);
       if (err != cudaSuccess) return err;
       if (per_sm < 1) return cudaErrorInvalidConfiguration;
@@ -690,7 +698,7 @@ cudaError_t launch_full(FullArgs<T>& a, cudaStream_t stream) {
     blocks = k.per_sm * d.n_sm < items ? k.per_sm * d.n_sm : items;
   }
   void* args[] = {&a};
-  cudaError_t err = cudaLaunchCooperativeKernel((const void*)cgnn_full_kernel<T>,
+  cudaError_t err = cudaLaunchCooperativeKernel((const void*)cgnn_full_kernel<T, kLp>,
                                                 dim3(blocks), dim3(nrx::kThreads),
                                                 args, smem, stream);
   if (err != cudaSuccess) return err;
@@ -709,14 +717,15 @@ extern "C" {
 // w, ro_dims[2]] and, if ch_w is given, out2 = h_hat [b, t, h, w,
 // ch_dims[2]]. Dims arrays live on the host. In bfloat16 every packed
 // weight buffer is followed by its products' B fragments (the wrapper's
-// pack_mlp_mma / pack_stack_mma). Launches on `stream`, allocates nothing,
-// does not synchronise; returns cudaGetLastError().
+// pack_mlp_mma / pack_stack_mma). lp: the stencil_lp mode (bfloat16; no
+// effect in float32). Launches on `stream`, allocates nothing, does not
+// synchronise; returns cudaGetLastError().
 int nrx_cgnn_iter(const void* s, const void* pe, const void* act, void* out,
                   void* out2, const void* agg_w, const void* agg_dims,
                   const void* upd_w, int n_layers, const void* widths,
                   const void* ro_w, const void* ro_dims, const void* ch_w,
                   const void* ch_dims, int dtype, int b, int t, int h, int w,
-                  int d_s, int d_pe, int lo, int hi, void* stream) {
+                  int d_s, int d_pe, int lo, int hi, int lp, void* stream) {
   if (b < 1 || (size_t)b * t > 65535 || h < 1 || w < 1) return (int)cudaErrorInvalidValue;
   if ((ro_w == nullptr) != (ro_dims == nullptr) || (ch_w == nullptr) != (ch_dims == nullptr) ||
       (ch_w != nullptr && ro_w == nullptr))
@@ -734,7 +743,7 @@ int nrx_cgnn_iter(const void* s, const void* pe, const void* act, void* out,
                   static_cast<T*>(out2), static_cast<const T*>(agg_w),
                   static_cast<const T*>(upd_w), static_cast<const T*>(ro_w),
                   static_cast<const T*>(ch_w), q, h, w, lo, hi};
-    return (int)launch_iter<T>(a, b, st);
+    return (int)launch_iter<T, false>(a, b, st);
   }
   if (dtype == 1) {
     using T = __nv_bfloat16;
@@ -743,7 +752,7 @@ int nrx_cgnn_iter(const void* s, const void* pe, const void* act, void* out,
                   static_cast<T*>(out2), static_cast<const T*>(agg_w),
                   static_cast<const T*>(upd_w), static_cast<const T*>(ro_w),
                   static_cast<const T*>(ch_w), q, h, w, lo, hi};
-    return (int)launch_iter<T>(a, b, st);
+    return lp ? (int)launch_iter<T, true>(a, b, st) : (int)launch_iter<T, false>(a, b, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -756,8 +765,9 @@ int nrx_cgnn_iter(const void* s, const void* pe, const void* act, void* out,
 // packed aggregation MLPs and update stacks, agg_dims {in, hid, out} per
 // iteration, upd_widths n_upd + 1 ints per iteration; ro_w, ch_w: packed
 // readout MLPs, in bfloat16 each followed by its B fragments as for
-// nrx_cgnn_iter. Host arrays for every dims argument. Launches on `stream`,
-// allocates nothing, does not synchronise; returns the launch's error.
+// nrx_cgnn_iter. Host arrays for every dims argument. lp: the stencil_lp
+// mode, as for nrx_cgnn_iter. Launches on `stream`, allocates nothing, does
+// not synchronise; returns the launch's error.
 int nrx_cgnn_full(const void* z0, const void* pe, const void* act, void* state_a,
                   void* state_b, void* llr, void* hh, const void* init_w,
                   int n_init, const void* init_widths, const void* agg_w,
@@ -765,7 +775,7 @@ int nrx_cgnn_full(const void* z0, const void* pe, const void* act, void* state_a
                   const void* upd_widths, const void* ro_w, const void* ro_dims,
                   const void* ch_w, const void* ch_dims, int num_it, int dtype,
                   int b, int t, int h, int w, int d_s, int d_pe, int lo, int hi,
-                  void* stream) {
+                  int lp, void* stream) {
   if (num_it < 1 || num_it > kMaxIt || b < 1 || h < 1 || w < 1)
     return (int)cudaErrorInvalidValue;
   StackDesc init;
@@ -814,12 +824,13 @@ int nrx_cgnn_full(const void* z0, const void* pe, const void* act, void* state_a
   if (dtype == 0) {
     FullArgs<float> a{};
     fill(&a);
-    return (int)launch_full<float>(a, st);
+    return (int)launch_full<float, false>(a, st);
   }
   if (dtype == 1) {
     FullArgs<__nv_bfloat16> a{};
     fill(&a);
-    return (int)launch_full<__nv_bfloat16>(a, st);
+    return lp ? (int)launch_full<__nv_bfloat16, true>(a, st)
+              : (int)launch_full<__nv_bfloat16, false>(a, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -30,6 +30,19 @@
 //     rounded output are summed again in order (see pointwise_mma). The
 //     depthwise taps round exactly as on the CUDA-core path. Rows are
 //     `row_ld(c, true)` elements apart (see there).
+//
+// Three layer modes, chosen at compile time by the kMode template argument
+// (the JAX package's `mxu` and `lp_stencil` arguments of _run_stack):
+//   - kNormal: the depthwise step, then the product, as above;
+//   - kLp (bf16 tiles only; a no-op in float32, where the host takes
+//     kNormal): the depthwise taps summed in bf16, each product and each
+//     partial sum rounded to bf16 (`depthwise_pairs<true>`: packed bf16x2
+//     mul.rn / add.rn, never a fused multiply-add);
+//   - kFold (the stack kernel only): no depthwise step; the layer is one
+//     product over the nine shifted copies of its input with the folded
+//     weights W_s = round(dw_s[:, None] * pw), each tap's sum in f32 and
+//     added to the sum of the earlier taps in tap order (`folded_mma`,
+//     `folded_fma`). Its layers ping-pong between A and B.
 
 #pragma once
 
@@ -50,6 +63,11 @@ constexpr int kMaxTile = 64;
 // rest of a CGNN tile, spill under __launch_bounds__(512)'s 128).
 constexpr int kMmaMaxK = 128;
 
+// Layer modes of a stack (see the header).
+constexpr int kNormal = 0;
+constexpr int kLp = 1;
+constexpr int kFold = 2;
+
 // Channel stride of an activation row in shared memory. CUDA cores: c.
 // Tensor cores: ldmatrix needs 16-byte row addresses, so c is rounded up to
 // 8 elements, plus 8 more when that is an even number of 16-byte chunks: an
@@ -63,14 +81,17 @@ __host__ __device__ constexpr int row_ld(int c, bool mma) {
 // Values of one product's B fragments in a packed buffer (the wrapper's
 // `mma_fragments`): 16-wide slabs of output channels x 16-deep k-steps x 32
 // lanes x 8 bf16.
-inline int frag_size(int cin, int cout) {
+__host__ __device__ inline int frag_size(int cin, int cout) {
   return (cout + 15) / 16 * ((cin + 15) / 16) * 32 * 8;
 }
 
 // A separable-conv stack in a packed weight buffer: per layer dw [9][c_in]
 // (tap-major, ky * 3 + kx), pw [c_in][c_out], b [c_out]; in bf16 for the
 // tensor-core path, then from the next multiple of 8 values each layer's
-// pw as B fragments (frag_off).
+// pw as B fragments (frag_off). In the folded mode frag_off[l] is instead
+// where layer l's nine folded matrices W_s (tap-major) start: as B
+// fragments (frag_size values each) in bf16, as rows [c_in][c_out] in
+// float32 (the wrapper's pack_stack_folded).
 struct StackDesc {
   int n_layers;
   int widths[kMaxLayers + 1];
@@ -93,7 +114,8 @@ inline MlpDesc make_mlp_desc(int in, int hid, int out) {
   return MlpDesc{in, hid, out, f1, f1 + frag_size(in, hid)};
 }
 
-inline bool make_stack_desc(int n_layers, const int* widths, StackDesc* d) {
+inline bool make_stack_desc(int n_layers, const int* widths, StackDesc* d,
+                            bool folded = false, bool fragments = true) {
   if (n_layers < 1 || n_layers > kMaxLayers) return false;
   *d = StackDesc{};
   d->n_layers = n_layers;
@@ -112,8 +134,9 @@ inline bool make_stack_desc(int n_layers, const int* widths, StackDesc* d) {
   }
   off = (off + 7) / 8 * 8;
   for (int l = 0; l < n_layers; ++l) {
+    const int cin = d->widths[l], cout = d->widths[l + 1];
     d->frag_off[l] = off;
-    off += frag_size(d->widths[l], d->widths[l + 1]);
+    off += (folded ? 9 : 1) * (fragments ? frag_size(cin, cout) : cin * cout);
   }
   return true;
 }
@@ -339,6 +362,115 @@ struct HiddenEpi {
   }
 };
 
+// One M tile's sums on the tensor cores to epi: this lane's C fragment
+// (rows m0 + g and m0 + g + 8, columns o and o + 1) with the error bounds
+// eta * mag; each rounded value that the bound certifies goes to the
+// epilogue. Returns the uncertified ones: bit r for C register r.
+template <typename Epi>
+__device__ __forceinline__ uint32_t certify_tile(const float (&acc)[4], const float (&mag)[4],
+                                                 float eta, int m0, int P, int o, int cout,
+                                                 const __nv_bfloat16* __restrict__ bias,
+                                                 const Epi& epi) {
+  const int g = (threadIdx.x & 31) >> 2;
+  uint32_t need = 0;
+  if (o >= cout) return 0;
+  const float b0 = to_f(bias[o]);
+  const float b1 = o + 1 < cout ? to_f(bias[o + 1]) : 0.f;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int p = m0 + g + 8 * hf;
+    if (p >= P) continue;
+    const int r = 2 * hf;
+    __nv_bfloat16 v0, v1;
+    const bool ok0 = certify(acc[r], eta * mag[r], b0, &v0);
+    const bool ok1 = certify(acc[r + 1], eta * mag[r + 1], b1, &v1) & (o + 1 < cout);
+    const typename Epi::Row rw = epi.row(p);
+    if (ok0 && ok1) {
+      epi.put2(rw, o, v0, v1);
+    } else {
+      if (ok0) epi.put(rw, o, v0);
+      else need |= 1u << r;
+      if (ok1) epi.put(rw, o + 1, v1);
+      else if (o + 1 < cout) need |= 1u << (r + 1);
+    }
+  }
+  return need;
+}
+
+// Queues the lane's flagged outputs of the M tile at m0 (need: bit r for C
+// register r, column o of the 16-wide slab at n_base) in the warp's list,
+// one a lane and round, and re-sums whenever 32 are queued; with done (and
+// need 0: no tile) the rest. resum(top, n) sums list[top - n, top) again.
+// Warp-uniform.
+template <typename Resum>
+__device__ __forceinline__ void queue_resum(uint32_t need, int m0, int o, int n_base,
+                                            bool done, uint16_t* list, int& pending,
+                                            Resum& resum) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  for (;;) {
+    const unsigned ballot = __ballot_sync(0xffffffffu, need != 0);
+    if (ballot == 0 && !(done && pending > 0)) break;
+    if (need != 0) {
+      const int r = __ffs(need) - 1;
+      need &= need - 1;
+      const int p = m0 + g + (r >> 1) * 8;
+      list[pending + __popc(ballot & ((1u << lane) - 1))] =
+          (uint16_t)(p * 16 + o - n_base + (r & 1));
+    }
+    pending += __popc(ballot);
+    if (pending >= 32 || (done && ballot == 0)) {
+      const int n = min(pending, 32);
+      resum(pending, n);
+      pending -= n;
+    }
+  }
+}
+
+// In-order f32 sum from acc of a[k] * w[k][column] over k < cin: a, a row
+// in shared memory; col, the column's 8-byte word in the lanes 4g..4g+3 of
+// the fragments of k-step 0 (see pointwise_mma's resum).
+__device__ __forceinline__ float column_sum(float acc, const __nv_bfloat16* a,
+                                           const uint2* __restrict__ col, int cin) {
+  const int steps = (cin + 15) / 16;
+  for (int s = 0; s < steps; ++s) {
+    uint2 v[4];
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq) v[qq] = __ldg(col + 2 * (s * 32 + qq));
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) {
+        const int k = 16 * s + 8 * hf + 2 * qq;
+        const uint32_t wv = hf ? v[qq].y : v[qq].x;
+        const uint32_t av = *reinterpret_cast<const uint32_t*>(a + k);
+        if (k < cin) acc = fmaf(bf16_lo(av), bf16_lo(wv), acc);
+        if (k + 1 < cin) acc = fmaf(bf16_hi(av), bf16_hi(wv), acc);
+      }
+  }
+  return acc;
+}
+
+// The A fragments of k-step s of one M tile (row: this lane's ldmatrix row
+// address), the lanes of the last k-step past cin zeroed in registers
+// (pad lanes, or the next row's first channels: nothing in them reaches a
+// sum, 0 x NaN), and their magnitudes.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], uint32_t (&a_abs)[4],
+                                       const __nv_bfloat16* row, int s, int steps, int cin) {
+  const int q = threadIdx.x & 3;
+  ldmatrix_x4(a, row + 16 * s);
+  if (s == steps - 1) {
+    // k = 16 s + {0, 0, 8, 8}[r] + 2q and k + 1: low and high half
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int k = 16 * s + (r >> 1) * 8 + 2 * q;
+      a[r] &= (k < cin ? 0xffffu : 0u) | (k + 1 < cin ? 0xffff0000u : 0u);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) a_abs[r] = a[r] & 0x7fff7fffu;  // clears both signs
+}
+
 // The contract of `pointwise` on the tensor cores, with the same rounded
 // results: y[p][o] = sum_c src[p * stride + c] * w[c * cout + o] for p < P,
 // o < cout, handed to epi per row as bf16(y + bias[o]) (see the
@@ -372,7 +504,6 @@ __device__ __forceinline__ void pointwise_mma(const __nv_bfloat16* src, int stri
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
-  const int g = lane >> 2;  // row (A, C) or column (B) of the fragment
   const int q = lane & 3;   // pair of k (A, B) or of columns (C)
   const int steps = (cin + 15) / 16;
   const int n_tiles = (cout + 7) / 8;
@@ -401,24 +532,8 @@ __device__ __forceinline__ void pointwise_mma(const __nv_bfloat16* src, int stri
         // column e & 15: bit 3 picks the half of the 16-byte words of the
         // lanes 4g..4g+3 (g = e & 7), whose (x, y) hold k = 16 s + 2 qq
         // (+1) and 16 s + 8 + 2 qq (+1)
-        const uint2* col = frag + (e & 7) * 8 + ((e >> 3) & 1);
-        const __nv_bfloat16* a = src + (size_t)p * stride;
-        float acc = 0.f;
-        for (int s = 0; s < steps; ++s) {
-          uint2 v[4];
-#pragma unroll
-          for (int qq = 0; qq < 4; ++qq) v[qq] = __ldg(col + 2 * (s * 32 + qq));
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-            for (int qq = 0; qq < 4; ++qq) {
-              const int k = 16 * s + 8 * hf + 2 * qq;
-              const uint32_t wv = hf ? v[qq].y : v[qq].x;
-              const uint32_t av = *reinterpret_cast<const uint32_t*>(a + k);
-              if (k < cin) acc = fmaf(bf16_lo(av), bf16_lo(wv), acc);
-              if (k + 1 < cin) acc = fmaf(bf16_hi(av), bf16_hi(wv), acc);
-            }
-        }
+        const float acc =
+            column_sum(0.f, src + (size_t)p * stride, frag + (e & 7) * 8 + ((e >> 3) & 1), cin);
         epi.put(epi.row(p), o, __float2bfloat16_rn(acc + to_f(bias[o])));
       }
       __syncwarp();
@@ -440,67 +555,246 @@ __device__ __forceinline__ void pointwise_mma(const __nv_bfloat16* src, int stri
         for (int s = 0; s < kSteps; ++s) {
           if (s >= steps) break;
           uint32_t a[4], a_abs[4];
-          ldmatrix_x4(a, row + 16 * s);
-          if (s == steps - 1) {
-            // k = 16 s + {0, 0, 8, 8}[r] + 2q and k + 1: low and high half
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              const int k = 16 * s + (r >> 1) * 8 + 2 * q;
-              a[r] &= (k < cin ? 0xffffu : 0u) | (k + 1 < cin ? 0xffff0000u : 0u);
-            }
-          }
-#pragma unroll
-          for (int r = 0; r < 4; ++r) a_abs[r] = a[r] & kAbs;
+          load_a(a, a_abs, row, s, steps, cin);
           const uint32_t b_abs[2] = {b[s][0] & kAbs, b[s][1] & kAbs};
           mma_bf16(acc, a, b[s]);
           mma_bf16(mag, a_abs, b_abs);
         }
         // C fragment: rows g and g + 8 (hf), columns o and o + 1 (registers
         // 2 hf and 2 hf + 1)
-        if (o < cout) {
-          const float b0 = to_f(bias[o]);
-          const float b1 = o + 1 < cout ? to_f(bias[o + 1]) : 0.f;
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int p = m0 + g + 8 * hf;
-            if (p >= P) continue;
-            const int r = 2 * hf;
-            __nv_bfloat16 v0, v1;
-            const bool ok0 = certify(acc[r], kMmaEta * mag[r], b0, &v0);
-            const bool ok1 = certify(acc[r + 1], kMmaEta * mag[r + 1], b1, &v1) &
-                             (o + 1 < cout);
-            const typename Epi::Row rw = epi.row(p);
-            if (ok0 && ok1) {
-              epi.put2(rw, o, v0, v1);
-            } else {
-              if (ok0) epi.put(rw, o, v0);
-              else need |= 1u << r;
-              if (ok1) epi.put(rw, o + 1, v1);
-              else if (o + 1 < cout) need |= 1u << (r + 1);
-            }
-          }
-        }
+        need = certify_tile(acc, mag, kMmaEta, m0, P, o, cout, bias, epi);
       }
-      // queue the flagged (p, o), one a lane and round; re-sum whenever 32
-      // are queued, and the rest after the last tile
-      for (;;) {
-        const unsigned ballot = __ballot_sync(0xffffffffu, need != 0);
-        if (ballot == 0 && !(done && pending > 0)) break;
-        if (need != 0) {
-          const int r = __ffs(need) - 1;
-          need &= need - 1;
-          const int p = m0 + g + (r >> 1) * 8;
-          list[pending + __popc(ballot & ((1u << lane) - 1))] =
-              (uint16_t)(p * 16 + o - n_base + (r & 1));
-        }
-        pending += __popc(ballot);
-        if (pending >= 32 || (done && ballot == 0)) {
-          const int n = min(pending, 32);
-          resum(pending, n);
-          pending -= n;
-        }
-      }
+      // queue the flagged (p, o); re-sum whenever 32 are queued, and the
+      // rest after the last tile
+      queue_resum(need, m0, o, n_base, done, list, pending, resum);
       if (done) break;
+    }
+  }
+}
+
+// The folded mode's bound on |tensor-core sum - in-order sum| as a share of
+// S = sum_s sum_c |a_c w_c|: each tap's sum within kMmaEta of its own S_s
+// (as pointwise_mma's), plus the nine f32 additions of the taps (each
+// rounding half an ulp of a partial sum <= S, in both sums): 2^-20 + 9 x
+// 2^-24 < 2^-18.
+constexpr float kFoldEta = 1.0f / 262144.0f;  // 2^-18
+
+// The folded mode's layer on the tensor cores: y[p][o] = sum over taps s =
+// 3 (dy + 1) + (dx + 1) of sum_c a[h + dy][col + dx][c] * W_s[c][o] for
+// positions p = h * wl + col - c_lo (wl columns from c_lo, H rows), rows
+// h + dy outside [0, H) adding nothing; each tap's sum in f32, added to the
+// sum of the earlier taps in tap order; handed to epi per row as bf16(y +
+// bias[o]) as pointwise_mma does. a: [H][E][lda] in shared memory (columns
+// c_lo - 1 .. c_lo + wl all in [0, E)); wf: the layer's nine fragment sets
+// W_0..W_8, frag_size(cin, cout) values each; cin <= kMmaMaxK, H * wl <=
+// kMmaMaxP. The caller synchronises.
+//
+// As pointwise_mma, with the A fragments of tap s loaded by ldmatrix from
+// the shifted rows (a lane whose row falls outside [0, H) addresses a row
+// inside and the owners of that fragment row zero it in registers, so it
+// adds nothing). The nine taps' B fragments do not fit in registers: a warp
+// streams them a tap at a time from device memory (L2) for kMt M tiles at
+// once. Each tap's product runs from a zero accumulator and is added to the
+// tile's f32 sum (FADD, in tap order); the magnitude product sums over all
+// taps. Outputs within kFoldEta * S of a bf16 rounding boundary are summed
+// again in order: per tap, over c in order from zero, then added to the sum
+// of the earlier taps (the JAX package's _sepconv_mxu order).
+template <typename Epi>
+__device__ __forceinline__ void folded_mma(const __nv_bfloat16* a, int lda, int H, int E,
+                                           int wl, int c_lo,
+                                           const __nv_bfloat16* __restrict__ wf,
+                                           const __nv_bfloat16* __restrict__ bias,
+                                           int cin, int cout, FixList fx, Epi epi) {
+  constexpr int kSteps = kMmaMaxK / 16;
+  constexpr int kMt = 2;  // M tiles a pass over the taps' fragments
+  constexpr uint32_t kAbs = 0x7fff7fffu;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const int steps = (cin + 15) / 16;
+  const int n_tiles = (cout + 7) / 8;
+  const int groups = n_tiles >= n_warps ? 1 : n_warps / n_tiles;
+  const int P = H * wl;
+  const int m_tiles = (P + 15) / 16;
+  // 8-byte words of one tap's fragment set
+  const int tap_words = frag_size(cin, cout) / 4;
+  uint16_t* list = fx.base + warp * kFixPerWarp;
+  for (int unit = warp; unit < n_tiles * groups; unit += n_warps) {
+    const int nt = unit % n_tiles;
+    const int o0 = 8 * nt;
+    const int n_base = o0 & ~15;
+    const uint2* frag = reinterpret_cast<const uint2*>(
+        reinterpret_cast<const uint4*>(wf) + (size_t)(nt >> 1) * steps * 32);
+
+    // In-order sums of list[top - n, top): per tap in order, the sum over c
+    // from zero, added to the earlier taps' sum. Warp-uniform.
+    auto resum = [&](int top, int n) {
+      __syncwarp();
+      if (lane < n) {
+        const int e = list[top - n + lane];
+        const int p = e >> 4;
+        const int o = n_base + (e & 15);
+        const int h = p / wl;
+        const int col = c_lo + p % wl;
+        const uint2* colw = frag + (e & 7) * 8 + ((e >> 3) & 1);
+        float y = 0.f;
+        for (int s = 0; s < 9; ++s) {
+          const int hh = h + s / 3 - 1;
+          if (hh < 0 || hh >= H) continue;
+          const float t = column_sum(0.f, a + ((size_t)hh * E + col + s % 3 - 1) * lda,
+                                     colw + (size_t)s * tap_words, cin);
+          y = __fadd_rn(y, t);
+        }
+        epi.put(epi.row(p), o, __float2bfloat16_rn(__fadd_rn(y, to_f(bias[o]))));
+      }
+      __syncwarp();
+    };
+
+    const int o = o0 + 2 * q;
+    int pending = 0;
+    for (int mt0 = unit / n_tiles;; mt0 += kMt * groups) {
+      if (mt0 >= m_tiles) {
+        queue_resum(0u, 0, o, n_base, true, list, pending, resum);
+        break;
+      }
+      // per M tile j: this lane's ldmatrix row (buffer row h * E + col of
+      // tap (1, 1), and its h), and the h of its fragment rows g and g + 8
+      int base[kMt], h_l[kMt], h_g[kMt][2];
+      float acc[kMt][4], mag[kMt][4];
+#pragma unroll
+      for (int j = 0; j < kMt; ++j) {
+        const int m0 = 16 * (mt0 + j * groups);
+        const int p = min(m0 + (lane & 15), P - 1);
+        h_l[j] = p / wl;
+        base[j] = h_l[j] * E + c_lo + p % wl;
+        h_g[j][0] = min(m0 + g, P - 1) / wl;
+        h_g[j][1] = min(m0 + g + 8, P - 1) / wl;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[j][r] = mag[j][r] = 0.f;
+      }
+#pragma unroll 1
+      for (int s = 0; s < 9; ++s) {
+        const int dy = s / 3 - 1;
+        const int dx = s % 3 - 1;
+        uint32_t b[kSteps][2];
+        load_fragments<0, kSteps>(b, frag + (size_t)s * tap_words + 2 * lane + (nt & 1),
+                                  steps);
+#pragma unroll
+        for (int j = 0; j < kMt; ++j) {
+          if (mt0 + j * groups >= m_tiles) break;  // warp-uniform
+          const int hh = min(max(h_l[j] + dy, 0), H - 1);
+          const __nv_bfloat16* row =
+              a + (size_t)(base[j] + (hh - h_l[j]) * E + dx) * lda + (lane >> 4) * 8;
+          // fragment registers 0, 2: row g; 1, 3: row g + 8
+          const uint32_t keep0 = (unsigned)(h_g[j][0] + dy) < (unsigned)H ? ~0u : 0u;
+          const uint32_t keep1 = (unsigned)(h_g[j][1] + dy) < (unsigned)H ? ~0u : 0u;
+          float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int st = 0; st < kSteps; ++st) {
+            if (st >= steps) break;
+            uint32_t af[4], aa[4];
+            load_a(af, aa, row, st, steps, cin);
+            af[0] &= keep0;
+            af[2] &= keep0;
+            af[1] &= keep1;
+            af[3] &= keep1;
+            aa[0] &= keep0;
+            aa[2] &= keep0;
+            aa[1] &= keep1;
+            aa[3] &= keep1;
+            const uint32_t b_abs[2] = {b[st][0] & kAbs, b[st][1] & kAbs};
+            mma_bf16(t, af, b[st]);
+            mma_bf16(mag[j], aa, b_abs);
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[j][r] = __fadd_rn(acc[j][r], t[r]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kMt; ++j) {
+        if (mt0 + j * groups >= m_tiles) break;
+        const int m0 = 16 * (mt0 + j * groups);
+        const uint32_t need = certify_tile(acc[j], mag[j], kFoldEta, m0, P, o, cout, bias, epi);
+        queue_resum(need, m0, o, n_base, false, list, pending, resum);
+      }
+    }
+  }
+}
+
+// The folded mode's layer on the CUDA cores (float32 tiles): the same
+// function as folded_mma, each tap's sum over c in order with FMA from
+// zero, added to the earlier taps' sum in tap order; epi(p, o, y) takes
+// each sum before the bias. w: the layer's nine matrices W_s [cin][cout],
+// tap-major. Each thread computes 4-position x 4-channel register tiles.
+// The caller synchronises.
+template <typename T, typename Epi>
+__device__ __forceinline__ void folded_fma(const T* a, int lda, int H, int E, int wl,
+                                           int c_lo, const T* __restrict__ w, int cin,
+                                           int cout, Epi epi) {
+  const int P = H * wl;
+  const int G = (cout + 3) / 4;
+  const int Q = (P + 3) / 4;
+  for (int item = threadIdx.x; item < G * Q; item += blockDim.x) {
+    const int o0 = (item % G) * 4;
+    const int p0 = (item / G) * 4;
+    int hk[4], ck[4], oc[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int p = min(p0 + k, P - 1);
+      hk[k] = p / wl;
+      ck[k] = c_lo + p % wl;
+      oc[k] = min(o0 + k, cout - 1);
+    }
+    float acc[4][4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[k][j] = 0.f;
+#pragma unroll 1
+    for (int s = 0; s < 9; ++s) {
+      const int dy = s / 3 - 1;
+      const int dx = s % 3 - 1;
+      const T* ar[4];
+      bool ok[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int hh = hk[k] + dy;
+        ok[k] = hh >= 0 && hh < H;
+        ar[k] = a + ((size_t)(ok[k] ? hh : hk[k]) * E + ck[k] + dx) * lda;
+      }
+      const T* ws = w + (size_t)s * cin * cout;
+      float t[4][4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) t[k][j] = 0.f;
+      for (int c = 0; c < cin; ++c) {
+        const T* wrow = ws + (size_t)c * cout;
+        float av[4], bv[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) av[k] = ok[k] ? to_f(ar[k][c]) : 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bv[j] = to_f(wrow[oc[j]]);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) t[k][j] = fmaf(av[k], bv[j], t[k][j]);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[k][j] = __fadd_rn(acc[k][j], t[k][j]);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (p0 + k >= P) break;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (o0 + j >= cout) break;
+        epi(p0 + k, o0 + j, acc[k][j]);
+      }
     }
   }
 }
@@ -521,14 +815,32 @@ __device__ __forceinline__ void product(const T* src, int stride, int P,
   }
 }
 
+// bf16x2 multiply and add, each correctly rounded (round to nearest even)
+// and never contracted into a fused multiply-add: for bf16 operands the
+// bits of "f32 op, then round to bf16", as the plain version computes.
+__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t bf16x2_add(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
 // Depthwise step of the tensor-core path: A [h][col][lda] -> B [p][ldb],
 // p = h * wl + col - c_lo, for cin <= 2 * blockDim.x. Each thread keeps one
 // channel pair (c, c + 1) and its 9 taps in registers and walks pairs of
 // adjacent output columns of one row, blockDim.x / pairs at a time: the two
 // outputs share their 3 x 4 input pairs (32-bit loads; bf16 pairs stored as
 // 32-bit words). Arithmetic as on the CUDA-core path: per output and channel
-// an f32 sum from 0 in tap order, multiply then add, rounded once. For odd
-// cin the last pair's second lane is a pad lane (tap 0, value unused).
+// an f32 sum from 0 in tap order, multiply then add, rounded once. kBf16Sum
+// (the stencil_lp mode): the sum in bf16 from 0 in the same order, each product
+// and each sum rounded, the two channels of a pair in one bf16x2 register.
+// For odd cin the last pair's second lane is a pad lane (tap 0, value
+// unused).
+template <bool kBf16Sum = false>
 __device__ __forceinline__ void depthwise_pairs(const __nv_bfloat16* a, __nv_bfloat16* b,
                                                 const __nv_bfloat16* __restrict__ dw,
                                                 int H, int E, int wl, int c_lo, int cin,
@@ -538,58 +850,76 @@ __device__ __forceinline__ void depthwise_pairs(const __nv_bfloat16* a, __nv_bfl
   if ((int)threadIdx.x >= rows * pairs) return;
   const int c = 2 * (threadIdx.x % pairs);
   float k0[9], k1[9];
+  uint32_t kp[9];  // kBf16Sum: the taps of (c, c + 1) as a bf16 pair
 #pragma unroll
   for (int t = 0; t < 9; ++t) {
-    k0[t] = to_f(dw[t * cin + c]);
-    k1[t] = c + 1 < cin ? to_f(dw[t * cin + c + 1]) : 0.f;
+    const __nv_bfloat16 w0 = dw[t * cin + c];
+    const __nv_bfloat16 w1 = c + 1 < cin ? dw[t * cin + c + 1] : __ushort_as_bfloat16(0);
+    k0[t] = to_f(w0);
+    k1[t] = to_f(w1);
+    kp[t] = (uint32_t)__bfloat16_as_ushort(w0) | ((uint32_t)__bfloat16_as_ushort(w1) << 16);
   }
   const int wp = (wl + 1) / 2;  // column pairs a row
   for (int it = threadIdx.x / pairs; it < H * wp; it += rows) {
     const int h = it / wp;
     const int cc = 2 * (it - h * wp);  // first output column - c_lo
     const bool two = cc + 1 < wl;
-    // acc[column][channel]
+    // acc[column][channel]; kBf16Sum: lp[column] (both channels)
     float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    uint32_t lp[2] = {0u, 0u};
 #pragma unroll
     for (int dy = 0; dy < 3; ++dy) {
       const int hh = h + dy - 1;
       if (hh < 0 || hh >= H) continue;  // SAME zero padding in time
       const __nv_bfloat16* in = a + ((size_t)hh * E + c_lo + cc - 1) * lda + c;
-      float x0[4], x1[4];
+      uint32_t v[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        uint32_t v = 0;
-        if (k < 3 || two) v = *reinterpret_cast<const uint32_t*>(in + (size_t)k * lda);
-        x0[k] = bf16_lo(v);
-        x1[k] = bf16_hi(v);
+        v[k] = 0;
+        if (k < 3 || two) v[k] = *reinterpret_cast<const uint32_t*>(in + (size_t)k * lda);
       }
 #pragma unroll
       for (int dx = 0; dx < 3; ++dx) {
         const int t = dy * 3 + dx;
 #pragma unroll
         for (int m = 0; m < 2; ++m) {
-          acc[m][0] = __fadd_rn(acc[m][0], __fmul_rn(x0[dx + m], k0[t]));
-          acc[m][1] = __fadd_rn(acc[m][1], __fmul_rn(x1[dx + m], k1[t]));
+          if constexpr (kBf16Sum) {
+            lp[m] = bf16x2_add(lp[m], bf16x2_mul(v[dx + m], kp[t]));
+          } else {
+            acc[m][0] = __fadd_rn(acc[m][0], __fmul_rn(bf16_lo(v[dx + m]), k0[t]));
+            acc[m][1] = __fadd_rn(acc[m][1], __fmul_rn(bf16_hi(v[dx + m]), k1[t]));
+          }
         }
       }
     }
-    __nv_bfloat16* out = b + (size_t)(h * wl + cc) * ldb + c;
-    *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(acc[0][0], acc[0][1]);
-    if (two)
-      *reinterpret_cast<__nv_bfloat162*>(out + ldb) = __floats2bfloat162_rn(acc[1][0], acc[1][1]);
+    uint32_t* out = reinterpret_cast<uint32_t*>(b + (size_t)(h * wl + cc) * ldb + c);
+    if constexpr (kBf16Sum) {
+      out[0] = lp[0];
+      if (two) out[ldb / 2] = lp[1];
+    } else {
+      const __nv_bfloat162 r0 = __floats2bfloat162_rn(acc[0][0], acc[0][1]);
+      const __nv_bfloat162 r1 = __floats2bfloat162_rn(acc[1][0], acc[1][1]);
+      out[0] = *reinterpret_cast<const uint32_t*>(&r0);
+      if (two) out[ldb / 2] = *reinterpret_cast<const uint32_t*>(&r1);
+    }
   }
 }
 
 // Every layer of the stack on the tile in A ([H][E][widths[0]], row stride
-// row_ld(widths[0], kMma), columns outside the valid range already zero);
-// the output [H][E][widths[L]] is left in A, valid on the core columns
-// [L, E - L). g0: grid column of buffer column 0; [vlo, vhi): valid grid
-// columns.
-template <typename T, bool kMma = false>
-__device__ void run_stack(T* buf_a, T* buf_b, const T* __restrict__ wts,
-                          const StackDesc& d, int H, int E, int g0, int vlo,
-                          int vhi, FixList fx = FixList{}) {
+// row_ld(widths[0], kMma), columns outside the valid range already zero),
+// in layer mode kMode (kLp on bf16 tiles only). Returns the buffer that
+// holds the output [H][E][widths[L]], valid on the core columns [L, E - L):
+// A, or in the folded mode (whose layers read one buffer and write the
+// other) A or B by the parity of L. g0: grid column of buffer column 0;
+// [vlo, vhi): valid grid columns.
+template <typename T, bool kMma = false, int kMode = kNormal>
+__device__ T* run_stack(T* buf_a, T* buf_b, const T* __restrict__ wts,
+                        const StackDesc& d, int H, int E, int g0, int vlo,
+                        int vhi, FixList fx = FixList{}) {
+  static_assert(kMode != kLp || kMma, "stencil_lp: bf16 tiles only");
   const int L = d.n_layers;
+  T* in = buf_a;
+  T* other = buf_b;
   for (int l = 0; l < L; ++l) {
     const int cin = d.widths[l];
     const int cout = d.widths[l + 1];
@@ -602,9 +932,24 @@ __device__ void run_stack(T* buf_a, T* buf_b, const T* __restrict__ wts,
     const T* pw = wts + d.pw_off[l];
     const T* bias = wts + d.b_off[l];
 
+    if constexpr (kMode == kFold) {
+      // A product over the nine shifted inputs: in -> other [h][col][cout].
+      const StackEpi<T> epi{other, bias, E, wl, c_lo, g0, vlo, vhi, ld_out, l < L - 1};
+      if constexpr (kMma) {
+        folded_mma(in, ld_in, H, E, wl, c_lo, wts + d.frag_off[l], bias, cin, cout, fx, epi);
+      } else {
+        folded_fma<T>(in, ld_in, H, E, wl, c_lo, wts + d.frag_off[l], cin, cout, epi);
+      }
+      __syncthreads();
+      T* tmp = in;
+      in = other;
+      other = tmp;
+      continue;
+    }
+
     // Depthwise: A [h][col][cin] -> B [p][cin], p = h * wl + col - c_lo.
     if constexpr (kMma) {
-      depthwise_pairs(buf_a, buf_b, dw, H, E, wl, c_lo, cin, ld_in, ld_in);
+      depthwise_pairs<kMode == kLp>(buf_a, buf_b, dw, H, E, wl, c_lo, cin, ld_in, ld_in);
     } else {
       for (int i = threadIdx.x; i < P * cin; i += blockDim.x) {
         const int c = i % cin;
@@ -634,14 +979,15 @@ __device__ void run_stack(T* buf_a, T* buf_b, const T* __restrict__ wts,
                      StackEpi<T>{buf_a, bias, E, wl, c_lo, g0, vlo, vhi, ld_out, l < L - 1});
     __syncthreads();
   }
+  return in;
 }
 
-// One tile of the stack (the body of the stack kernel): image n of x
-// [N, H, W, widths[0]] -> out [N, H, W, widths[L]], core columns
-// [tile * w_tile, (tile + 1) * w_tile). Shared memory: on the tensor-core
-// path the re-sum list (kFixBytes), then A and B, each
+// One tile of the stack (the body of the stack kernel) in layer mode kMode:
+// image n of x [N, H, W, widths[0]] -> out [N, H, W, widths[L]], core
+// columns [tile * w_tile, (tile + 1) * w_tile). Shared memory: on the
+// tensor-core path the re-sum list (kFixBytes), then A and B, each
 // [H][w_tile + 2L][row_ld(cmax, kMma)].
-template <typename T, bool kMma = false>
+template <typename T, bool kMma = false, int kMode = kNormal>
 __device__ void stack_tile(const T* x, const T* __restrict__ wts, T* out,
                            const StackDesc& d, int H, int W, int w_tile,
                            int lo, int hi, int n, int tile,
@@ -683,7 +1029,7 @@ __device__ void stack_tile(const T* x, const T* __restrict__ wts, T* out,
     }
   }
   __syncthreads();
-  run_stack<T, kMma>(buf_a, buf_b, wts, d, H, E, g0, vlo, vhi, fx);
+  const T* res = run_stack<T, kMma, kMode>(buf_a, buf_b, wts, d, H, E, g0, vlo, vhi, fx);
 
   const int cl = d.widths[L];
   const int ldl = row_ld(cl, kMma);
@@ -699,7 +1045,7 @@ __device__ void stack_tile(const T* x, const T* __restrict__ wts, T* out,
       const int g = w0 + cc;
       if (g < W)
         *reinterpret_cast<uint4*>(on + ((size_t)h * W + g) * cl + c) =
-            *reinterpret_cast<const uint4*>(buf_a + ((size_t)h * E + L + cc) * ldl + c);
+            *reinterpret_cast<const uint4*>(res + ((size_t)h * E + L + cc) * ldl + c);
     }
   } else {
     for (int i = threadIdx.x; i < H * w_tile * cl; i += blockDim.x) {
@@ -708,14 +1054,15 @@ __device__ void stack_tile(const T* x, const T* __restrict__ wts, T* out,
       const int h = i / (cl * w_tile);
       const int g = w0 + cc;
       if (g < W)
-        on[((size_t)h * W + g) * cl + c] = buf_a[((size_t)h * E + L + cc) * ldl + c];
+        on[((size_t)h * W + g) * cl + c] = res[((size_t)h * E + L + cc) * ldl + c];
     }
   }
-  __syncthreads();  // A is free for the next tile
+  __syncthreads();  // A and B are free for the next tile
 }
 
 // Largest tile width (core columns) whose two buffers fit in `smem` bytes,
-// then narrowed to equal tiles over W; 0 if none fits.
+// then narrowed to equal tiles over W; 0 if none fits. Every layer mode
+// takes the same two buffers (the folded mode ping-pongs between them).
 inline int stack_w_tile(const StackDesc& d, int H, int W, size_t itemsize,
                         size_t smem, bool mma = false) {
   const size_t per_col = 2 * (size_t)H * row_ld(stack_cmax(d), mma) * itemsize;

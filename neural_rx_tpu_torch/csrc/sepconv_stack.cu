@@ -44,6 +44,21 @@
 // wider bf16 stack. float32 (the eval path) keeps the CUDA-core tile (16
 // warps of 4x4 f32 FMA register tiles, W_t = 10), bit for bit.
 //
+// Layer modes (nrx_tile.cuh; the JAX package's `lp_stencil` and `mxu`
+// arguments, one kernel instance each): normal; stencil_lp (bf16: the taps
+// summed in packed bf16x2, nrx::depthwise_pairs<true>; float32 takes the
+// normal instance, where the mode changes nothing); and the folded-tap form
+// (conv_mxu): per layer one product over the nine shifted copies of the
+// input with the folded weights W_s = round(dw_s[:, None] * pw) that the
+// wrapper packs (kernels/sepconv.py, pack_stack_folded) -- nrx::folded_mma
+// on the tensor cores in bf16, the nine taps' B fragments streamed a tap at
+// a time from L2 (9 x the pointwise weights: 465,408 B for nrx_rt's init
+// stack, 686,592 B for an update stack), with its own re-sum bound;
+// nrx::folded_fma on the CUDA cores in float32 (in-order FMA, no TF32).
+// Both buffers stay (the folded layers ping-pong between A and B), so
+// every mode has the same tile. Its bound is set by operations: 2 x 9 x
+// c_in x c_out FLOP per position and layer.
+//
 // What bounds it on this card: at the nrx_rt shapes a launch at N = 2 does
 // 2.5 (init) or 3.7 (update) GFLOP against 6.6 or 15 MB of device traffic,
 // so a batch-1 slot's three launches are bound by their bytes (~12 us),
@@ -60,17 +75,17 @@ namespace {
 
 using nrx::StackDesc;
 
-template <typename T>
+template <typename T, int kMode>
 __global__ void __launch_bounds__(nrx::kThreads)
     sepconv_stack_kernel(const T* __restrict__ x, const T* __restrict__ wts,
                          T* __restrict__ out, StackDesc d, int H, int W,
                          int w_tile, int lo, int hi) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  nrx::stack_tile<T, nrx::kUseMma<T>>(x, wts, out, d, H, W, w_tile, lo, hi, blockIdx.y,
-                                      blockIdx.x, smem_raw);
+  nrx::stack_tile<T, nrx::kUseMma<T>, kMode>(x, wts, out, d, H, W, w_tile, lo, hi,
+                                             blockIdx.y, blockIdx.x, smem_raw);
 }
 
-template <typename T>
+template <typename T, int kMode>
 cudaError_t launch(const void* x, const void* w, void* out, const StackDesc& d,
                    int n, int h, int wc, int lo, int hi, cudaStream_t stream) {
   static nrx::KernelSetup setup[nrx::kMaxDevices];
@@ -87,11 +102,11 @@ cudaError_t launch(const void* x, const void* w, void* out, const StackDesc& d,
     w_tile = nrx::stack_w_tile(d, h, wc, sizeof(T), ds.optin, kMma);
     if (w_tile < 1) return cudaErrorInvalidValue;
     smem = nrx::stack_smem(d, h, w_tile, sizeof(T), kMma);
-    err = nrx::allow_smem(sepconv_stack_kernel<T>, setup[dev], smem);
+    err = nrx::allow_smem(sepconv_stack_kernel<T, kMode>, setup[dev], smem);
     if (err != cudaSuccess) return err;
   }
   dim3 grid((wc + w_tile - 1) / w_tile, n);
-  sepconv_stack_kernel<T><<<grid, nrx::kThreads, smem, stream>>>(
+  sepconv_stack_kernel<T, kMode><<<grid, nrx::kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out), d,
       h, wc, w_tile, lo, hi);
   return cudaGetLastError();
@@ -106,18 +121,34 @@ extern "C" {
 // packed stack, per layer dw [9][c_in], pw [c_in][c_out], b [c_out] in the
 // same type; in bfloat16 followed by every layer's B fragments (the
 // wrapper's pack_stack_mma), and no layer wider than 128 input channels.
+// mode: 0 normal, 1 stencil_lp, 2 folded taps; the folded mode reads the
+// wrapper's pack_stack_folded (the same buffer followed by every layer's
+// nine folded matrices: B fragments in bfloat16, rows in float32).
 // widths: host array of n_layers + 1 ints. Launches on `stream`,
 // allocates nothing, does not synchronise; returns cudaGetLastError().
 int nrx_sepconv_stack(const void* x, const void* w, void* out, int dtype, int n,
                       int h, int wc, int n_layers, const void* widths, int lo,
-                      int hi, void* stream) {
+                      int hi, int mode, void* stream) {
   if (n < 1 || n > 65535 || h < 1 || wc < 1) return (int)cudaErrorInvalidValue;
+  if (mode < nrx::kNormal || mode > nrx::kFold) return (int)cudaErrorInvalidValue;
   StackDesc d;
-  if (!nrx::make_stack_desc(n_layers, static_cast<const int*>(widths), &d))
+  if (!nrx::make_stack_desc(n_layers, static_cast<const int*>(widths), &d,
+                            mode == nrx::kFold, dtype == 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(x, w, out, d, n, h, wc, lo, hi, s);
-  if (dtype == 1) return (int)launch<__nv_bfloat16>(x, w, out, d, n, h, wc, lo, hi, s);
+  if (dtype == 0) {
+    // stencil_lp changes nothing in float32
+    if (mode == nrx::kFold)
+      return (int)launch<float, nrx::kFold>(x, w, out, d, n, h, wc, lo, hi, s);
+    return (int)launch<float, nrx::kNormal>(x, w, out, d, n, h, wc, lo, hi, s);
+  }
+  if (dtype == 1) {
+    using B = __nv_bfloat16;
+    if (mode == nrx::kFold)
+      return (int)launch<B, nrx::kFold>(x, w, out, d, n, h, wc, lo, hi, s);
+    if (mode == nrx::kLp) return (int)launch<B, nrx::kLp>(x, w, out, d, n, h, wc, lo, hi, s);
+    return (int)launch<B, nrx::kNormal>(x, w, out, d, n, h, wc, lo, hi, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -38,19 +38,20 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> (restype, argtypes)
 _SIGNATURES = {
-    # x, w, out, dtype, n, h, w_cols, n_layers, widths, lo, hi, stream
+    # x, w, out, dtype, n, h, w_cols, n_layers, widths, lo, hi, mode,
+    # stream
     "nrx_sepconv_stack": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I,
-                               _P]),
+                               _I, _P]),
     # s, pe, act, out, out2, agg_w, agg_dims, upd_w, n_layers, widths,
     # ro_w, ro_dims, ch_w, ch_dims, dtype, b, t, h, w, d_s, d_pe, lo, hi,
-    # stream
+    # lp, stream
     "nrx_cgnn_iter": (_I, [_P] * 8 + [_I, _P, _P, _P, _P, _P]
-                      + [_I] * 9 + [_P]),
+                      + [_I] * 10 + [_P]),
     # z0, pe, act, state_a, state_b, llr, hh, init_w, n_init, init_widths,
     # agg_w, agg_dims, upd_w, n_upd, upd_widths, ro_w, ro_dims, ch_w,
-    # ch_dims, num_it, dtype, b, t, h, w, d_s, d_pe, lo, hi, stream
+    # ch_dims, num_it, dtype, b, t, h, w, d_s, d_pe, lo, hi, lp, stream
     "nrx_cgnn_full": (_I, [_P] * 8 + [_I, _P, _P, _P, _P, _I]
-                      + [_P] * 5 + [_I] * 10 + [_P]),
+                      + [_P] * 5 + [_I] * 11 + [_P]),
     # llr, out, state, row_ptr, cols, shifts, n, z, n_cols, n_rows,
     # n_edges, num_iter, stream
     "nrx_ldpc_layered_decode": (_I, [_P] * 6 + [_I] * 6 + [_P]),

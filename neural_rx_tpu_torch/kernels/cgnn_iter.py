@@ -3,9 +3,13 @@ CUDA kernels and their plain versions.
 
 Counterpart of `neural_rx_tpu/kernels/cgnn_iter_pallas.py` (`fused_iteration`
 and `fused_cgnn_full`), kernels in `csrc/cgnn_iter.cu`. The signatures are the
-JAX package's without its TPU tiling and mode arguments (`w_blk`,
-`interpret`, `mxu`, `lp_stencil`): the CUDA kernels size their own tiles,
-and the folded-tap and low-precision stencil modes are not ported.
+JAX package's without its TPU tiling arguments (`w_blk`, `interpret`): the
+CUDA kernels size their own tiles. Both take the JAX package's
+`lp_stencil` mode (the update stacks' and K4's init stack's depthwise taps
+summed in the activation dtype, `kernels/sepconv.py`), None deferring to
+the `NRX_STENCIL_LP` knob. The folded-tap mode is the stack kernel's
+alone, as in the JAX package: `fused_iteration` raises ValueError when its
+`mxu` resolves true (also through `NRX_CONV_MXU`), and K4 never takes it.
 
 Parameters follow the JAX tree: an iteration {"agg": mlp, "update": stack},
 an MLP {"hidden": [{"w", "b"}], "out": {"w", "b"}} with exactly one hidden
@@ -34,15 +38,19 @@ import ctypes
 import torch
 
 from . import _build
-from .sepconv import (_DTYPE_CODES, _layers, _valid_range, with_fragments,
-                      sepconv_stack_reference, stack_weights)
+from .sepconv import (_DTYPE_CODES, _layers, _valid_range, lp_default,
+                      mxu_default, sepconv_stack_reference, stack_weights,
+                      with_fragments)
 
 MAX_ITERATIONS = 8  # K4: csrc/cgnn_iter.cu kMaxIt
 MAX_USERS = 8
 
-# Kernel launches since the last reset; each wrapper adds one per launch.
+# Kernel launches since the last reset; each wrapper adds one per launch,
+# and one to its mode's count.
 iter_launches = 0
 full_launches = 0
+iter_launches_by_mode = {"normal": 0, "lp": 0}
+full_launches_by_mode = {"normal": 0, "lp": 0}
 
 
 def _dense(p, what: str):
@@ -107,7 +115,8 @@ def aggregate_reference(agg_p, s: torch.Tensor, active_tx: torch.Tensor
 
 def fused_iteration_reference(it_p, s: torch.Tensor, pe: torch.Tensor,
                               active_tx: torch.Tensor, sc_valid=None,
-                              readout_p=None, chest_p=None):
+                              readout_p=None, chest_p=None,
+                              lp_stencil: bool = False):
     """Plain PyTorch version of `fused_iteration` (same arguments, same
     returns). Columns outside the valid range enter the update stack as
     zeros; the residual adds the state as given."""
@@ -116,7 +125,8 @@ def fused_iteration_reference(it_p, s: torch.Tensor, pe: torch.Tensor,
     pe_b = pe.to(s.dtype)[None].expand((b,) + pe.shape)
     z = torch.cat([a, s, pe_b], dim=-1)
     u = sepconv_stack_reference(it_p["update"],
-                                z.reshape((b * t,) + z.shape[2:]), sc_valid)
+                                z.reshape((b * t,) + z.shape[2:]), sc_valid,
+                                lp_stencil=lp_stencil)
     s_new = u.reshape((b, t) + u.shape[1:]) + s
     if readout_p is None:
         return s_new
@@ -128,25 +138,30 @@ def fused_iteration_reference(it_p, s: torch.Tensor, pe: torch.Tensor,
 
 def fused_cgnn_full_reference(params, z0: torch.Tensor, pe: torch.Tensor,
                               active_tx: torch.Tensor, sc_valid=None,
-                              num_it: int | None = None):
+                              num_it: int | None = None,
+                              lp_stencil: bool = False):
     """Plain PyTorch version of `fused_cgnn_full`: the init stack's plain
     version, then `fused_iteration_reference` per iteration, the last with
-    both readouts."""
+    both readouts, every stack in the lp_stencil mode given."""
     b, t = z0.shape[:2]
     its = params["iterations"][:num_it]
     s = sepconv_stack_reference(params["s_init"][0],
-                                z0.reshape((b * t,) + z0.shape[2:]), sc_valid)
+                                z0.reshape((b * t,) + z0.shape[2:]), sc_valid,
+                                lp_stencil=lp_stencil)
     s = s.reshape((b, t) + s.shape[1:])
     for it_p in its[:-1]:
-        s = fused_iteration_reference(it_p, s, pe, active_tx, sc_valid)
+        s = fused_iteration_reference(it_p, s, pe, active_tx, sc_valid,
+                                      lp_stencil=lp_stencil)
     return fused_iteration_reference(
         its[-1], s, pe, active_tx, sc_valid,
-        readout_p=params["readout_llrs"][0], chest_p=params["readout_chest"])
+        readout_p=params["readout_llrs"][0], chest_p=params["readout_chest"],
+        lp_stencil=lp_stencil)
 
 
 def fused_iteration(it_params, s: torch.Tensor, pe: torch.Tensor,
                     active_tx: torch.Tensor, sc_valid=None, readout_p=None,
-                    chest_p=None):
+                    chest_p=None, mxu: bool | None = None,
+                    lp_stencil: bool | None = None):
     """One CGNN iteration: aggregation MLP, masked sum over the other users,
     concat [a, s, pe], update stack, residual.
 
@@ -154,35 +169,49 @@ def fused_iteration(it_params, s: torch.Tensor, pe: torch.Tensor,
     active_tx: [b, T]; sc_valid: None, a leading-valid column count or a
     (lo, hi) pair. Returns the next state [b, T, H, W, d_s] in s.dtype; with
     readout_p (final iteration) the LLRs [b, T, H, W, bits] instead, and
-    with chest_p as well (llr, h_hat [b, T, H, W, 2*rx_ant]). CPU tensors
-    take the plain version; CUDA tensors launch the kernel."""
+    with chest_p as well (llr, h_hat [b, T, H, W, 2*rx_ant]). mxu: the
+    folded-tap mode, which the iteration does not take (ValueError when it
+    resolves true); lp_stencil: the update stack's depthwise taps in the
+    activation dtype; None defers to the env knobs. CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    if mxu_default(mxu):
+        raise ValueError("fused_iteration: conv_mxu is not supported (the "
+                         "folded-tap mode is the stack kernel's; use "
+                         "fused_conv_stack or the plain layers)")
+    lp_stencil = lp_default(lp_stencil)
     if chest_p is not None and readout_p is None:
         raise ValueError("chest_p requires readout_p")
     if s.device.type == "cpu":
         return fused_iteration_reference(it_params, s, pe, active_tx,
-                                         sc_valid, readout_p, chest_p)
+                                         sc_valid, readout_p, chest_p,
+                                         lp_stencil)
     if s.device.type != "cuda":
         raise ValueError(f"unsupported device {s.device}")
     return _launch_iteration(it_params, s, pe, active_tx, sc_valid,
-                             readout_p, chest_p)
+                             readout_p, chest_p, lp_stencil)
 
 
 def fused_cgnn_full(params, z0: torch.Tensor, pe: torch.Tensor,
                     active_tx: torch.Tensor, sc_valid=None,
-                    num_it: int | None = None):
+                    num_it: int | None = None,
+                    lp_stencil: bool | None = None):
     """The whole deployed CGNN in one kernel: init stack, every iteration,
     LLR and channel readouts. z0: [b, T, H, W, C_in] (normalised inputs, see
-    rx/cgnn.cgnn_apply); pe: [T, H, W, d_pe]; active_tx: [b, T]. Returns
-    (llr [b, T, H, W, bits], h_hat [b, T, H, W, 2*rx_ant]) in z0.dtype. CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    rx/cgnn.cgnn_apply); pe: [T, H, W, d_pe]; active_tx: [b, T]; lp_stencil:
+    every stack's depthwise taps in the activation dtype (None: the env
+    knob). Returns (llr [b, T, H, W, bits], h_hat [b, T, H, W, 2*rx_ant])
+    in z0.dtype. CPU tensors take the plain version; CUDA tensors launch
+    the kernel."""
     if num_it is None:
         num_it = len(params["iterations"])
+    lp_stencil = lp_default(lp_stencil)
     if z0.device.type == "cpu":
         return fused_cgnn_full_reference(params, z0, pe, active_tx, sc_valid,
-                                         num_it)
+                                         num_it, lp_stencil)
     if z0.device.type != "cuda":
         raise ValueError(f"unsupported device {z0.device}")
-    return _launch_full(params, z0, pe, active_tx, sc_valid, num_it)
+    return _launch_full(params, z0, pe, active_tx, sc_valid, num_it,
+                        lp_stencil)
 
 
 def _ints(values) -> ctypes.Array:
@@ -243,7 +272,8 @@ def _on(x: torch.Tensor, dev: torch.device, what: str) -> torch.Tensor:
     return x
 
 
-def _launch_iteration(it_p, s, pe, active_tx, sc_valid, readout_p, chest_p):
+def _launch_iteration(it_p, s, pe, active_tx, sc_valid, readout_p, chest_p,
+                      lp_stencil=False):
     global iter_launches
     _check(s, 5, "fused_iteration")
     b, t, h, w, d_s = s.shape
@@ -278,18 +308,20 @@ def _launch_iteration(it_p, s, pe, active_tx, sc_valid, readout_p, chest_p):
         None if ro_dims is None else _ptr(ro_dims),
         None if ch_w is None else ch_w.data_ptr(),
         None if ch_dims is None else _ptr(ch_dims), _DTYPE_CODES[dtype],
-        b, t, h, w, d_s, pe.shape[-1], lo, hi,
+        b, t, h, w, d_s, pe.shape[-1], lo, hi, int(lp_stencil),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("cgnn_iter launch failed: "
                            + lib.nrx_cuda_error_string(rc).decode())
     iter_launches += 1
+    iter_launches_by_mode["lp" if lp_stencil else "normal"] += 1
     if readout_p is None:
         return out
     return out if chest_p is None else (out, out2)
 
 
-def _launch_full(params, z0, pe, active_tx, sc_valid, num_it):
+def _launch_full(params, z0, pe, active_tx, sc_valid, num_it,
+                 lp_stencil=False):
     global full_launches
     _check(z0, 5, "fused_cgnn_full")
     b, t, h, w, _ = z0.shape
@@ -335,10 +367,11 @@ def _launch_full(params, z0, pe, active_tx, sc_valid, num_it):
         len(shapes[0][1]) - 1, _ptr(_ints(upd_widths)),
         ro_w.data_ptr(), _ptr(_ints(ro_dims)), ch_w.data_ptr(),
         _ptr(_ints(ch_dims)), num_it, _DTYPE_CODES[dtype], b, t, h, w, d_s,
-        pe.shape[-1], *_valid_range(sc_valid, w),
+        pe.shape[-1], *_valid_range(sc_valid, w), int(lp_stencil),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("cgnn_full launch failed: "
                            + lib.nrx_cuda_error_string(rc).decode())
     full_launches += 1
+    full_launches_by_mode["lp" if lp_stencil else "normal"] += 1
     return llr, h_hat

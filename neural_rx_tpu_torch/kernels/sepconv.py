@@ -2,7 +2,20 @@
 
 Counterpart of `neural_rx_tpu/kernels/sepconv_pallas.py` (`fused_conv_stack`
 and `fused_conv_stack_blocked`, one Hopper kernel for both:
-`csrc/sepconv_stack.cu`).
+`csrc/sepconv_stack.cu`), with its three ways of computing a layer:
+
+- normal: the depthwise taps summed in float32 and rounded, then the
+  pointwise product;
+- `lp_stencil`: the taps summed in the activation dtype, each product and
+  each partial sum rounded (bfloat16; a no-op in float32);
+- `mxu`: the folded-tap form, y = sum over the nine taps s of
+  shift_s(x) @ W_s with W_s = dw_s[:, None] * pw (folded in float32 and
+  rounded to x.dtype), one float32 sum per tap added in tap order, no
+  depthwise step; it takes precedence over `lp_stencil`.
+
+The modes are opt-in and off by default, as in the JAX package: None
+resolves through `mxu_default` / `lp_default`, which read the
+`NRX_CONV_MXU` / `NRX_STENCIL_LP` knobs at each call.
 
 A stack `p` is {"hidden": [layer, ...], "out": layer} with each layer
 {"dw": [3, 3, 1, C], "pw": [C, O], "b": [O]} (the JAX layout). Activations
@@ -14,7 +27,9 @@ as `pack_stack`; bfloat16, whose tile runs its products on the tensor cores
 (as the CGNN kernels' bfloat16 tiles do), as `pack_stack_mma`, the same
 buffer followed by every layer's pointwise weights in MMA fragment order
 (`mma_fragments`). That tile takes at most `MMA_MAX_K` input channels a
-layer: the wrapper refuses a wider bfloat16 stack.
+layer: the wrapper refuses a wider bfloat16 stack. The folded mode reads
+`pack_stack_folded`: the same buffer followed by every layer's nine folded
+matrices (fragments in bfloat16, rows in float32).
 
 Dispatch: a CPU tensor goes to the plain PyTorch version, a CUDA tensor
 launches the kernel or raises. The plain version is the kernel's oracle.
@@ -23,6 +38,7 @@ launches the kernel or raises. The plain version is the kernel's oracle.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 import torch.nn.functional as F
@@ -33,8 +49,32 @@ MAX_LAYERS = 4
 MMA_MAX_K = 128  # nrx::kMmaMaxK: input channels of a tensor-core product
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches since the last reset; the wrapper adds one per launch.
+# the kernel's `mode` argument (csrc/sepconv_stack.cu)
+MODES = {"normal": 0, "lp": 1, "mxu": 2}
+
+# Kernel launches since the last reset; the wrapper adds one per launch to
+# `launches` and to its mode's count.
 launches = 0
+launches_by_mode = dict.fromkeys(MODES, 0)
+
+
+def mxu_default(mxu: bool | None) -> bool:
+    """None -> the env opt-in NRX_CONV_MXU=1 (read at each call)."""
+    if mxu is None:
+        return os.environ.get("NRX_CONV_MXU", "0") == "1"
+    return bool(mxu)
+
+
+def lp_default(lp_stencil: bool | None) -> bool:
+    """None -> the env opt-in NRX_STENCIL_LP=1 (read at each call)."""
+    if lp_stencil is None:
+        return os.environ.get("NRX_STENCIL_LP", "0") == "1"
+    return bool(lp_stencil)
+
+
+def mode_of(mxu: bool, lp_stencil: bool) -> str:
+    """The mode a layer runs in: the folded form wins over the stencil."""
+    return "mxu" if mxu else "lp" if lp_stencil else "normal"
 
 
 def _layers(p):
@@ -53,14 +93,27 @@ def _valid_range(sc_valid, w: int) -> tuple[int, int]:
     return 0, int(sc_valid)
 
 
-def sepconv_stack_reference(p, x: torch.Tensor, sc_valid=None
+def folded_taps(lp, dtype: torch.dtype) -> torch.Tensor:
+    """W [9, C, O] of a layer in `dtype`: W[s] = dw[s][:, None] * pw, the
+    product of the dtype-rounded weights in float32, rounded to dtype."""
+    dw = lp["dw"].reshape(9, -1).to(dtype).float()
+    pw = lp["pw"].to(dtype).float()
+    return (dw[:, :, None] * pw[None]).to(dtype)
+
+
+def sepconv_stack_reference(p, x: torch.Tensor, sc_valid=None,
+                            mxu: bool = False, lp_stencil: bool = False
                             ) -> torch.Tensor:
-    """Plain PyTorch version of the stack, with the kernel's rounding points:
-    depthwise taps accumulated in float32 in the reference's order and
-    rounded to x.dtype, pointwise product in float32 plus the bias, ReLU on
-    hidden layers, rounded to x.dtype. Weights are rounded to x.dtype first.
-    Columns outside [lo, hi) are zeroed before every layer and after the
-    last."""
+    """Plain PyTorch version of the stack, with the kernel's rounding points.
+    Weights are rounded to x.dtype first. Per layer, by mode:
+    normal: depthwise taps accumulated in float32 from zero in tap order
+    (dy outer, dx inner), rounded to x.dtype, then the pointwise product in
+    float32; lp_stencil: the taps accumulated in x.dtype, each product and
+    each sum rounded, then the same product; mxu (wins over lp_stencil):
+    per tap s the float32 product shift_s(x) @ W_s (`folded_taps`), added
+    to a float32 sum in tap order. Then the bias in float32, ReLU on hidden
+    layers, one rounding to x.dtype. Columns outside [lo, hi) are zeroed
+    before every layer and after the last."""
     dtype = x.dtype
     n, h, w, _ = x.shape
     lo, hi = _valid_range(sc_valid, w)
@@ -69,16 +122,27 @@ def sepconv_stack_reference(p, x: torch.Tensor, sc_valid=None
     zero = torch.zeros((), dtype=dtype, device=x.device)
     x = torch.where(valid, x, zero)
     layers = _layers(p)
+    acc_dtype = dtype if lp_stencil else torch.float32
     for li, lp in enumerate(layers):
-        dw = lp["dw"][:, :, 0, :].to(dtype).float()
-        pw = lp["pw"].to(dtype).float()
         b = lp["b"].to(dtype).float()
-        xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
-        acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-        for dy in range(3):
-            for dx in range(3):
-                acc = acc + xp[:, dy:dy + h, dx:dx + w, :] * dw[dy, dx]
-        y = torch.matmul(acc.to(dtype).float(), pw) + b
+        xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+        if mxu:
+            taps = folded_taps(lp, dtype).float()
+            y = torch.zeros(x.shape[:-1] + taps.shape[-1:],
+                            dtype=torch.float32, device=x.device)
+            for s in range(9):
+                dy, dx = divmod(s, 3)
+                y = y + torch.matmul(xp[:, dy:dy + h, dx:dx + w, :].float(),
+                                     taps[s])
+        else:
+            dw = lp["dw"][:, :, 0, :].to(dtype).to(acc_dtype)
+            xp = xp.to(acc_dtype)
+            acc = torch.zeros(x.shape, dtype=acc_dtype, device=x.device)
+            for dy in range(3):
+                for dx in range(3):
+                    acc = acc + xp[:, dy:dy + h, dx:dx + w, :] * dw[dy, dx]
+            y = torch.matmul(acc.to(dtype).float(), lp["pw"].to(dtype).float())
+        y = y + b
         if li < len(layers) - 1:
             y = torch.relu(y)
         x = torch.where(valid, y.to(dtype), zero)
@@ -122,12 +186,16 @@ def mma_fragments(w: torch.Tensor) -> torch.Tensor:
     return wp[k, n].reshape(-1)
 
 
-def with_fragments(plain: torch.Tensor, mats) -> torch.Tensor:
+def with_fragments(plain: torch.Tensor, mats,
+                   fragments: bool = True) -> torch.Tensor:
     """plain, zero-padded to a multiple of 8 values (16 bytes), then the
     fragments of each matrix: the bfloat16 layout of the tensor-core
-    kernels, whose offsets `csrc/nrx_tile.cuh` computes alike."""
+    kernels, whose offsets `csrc/nrx_tile.cuh` computes alike. With
+    fragments=False each matrix follows as its rows instead (the CUDA-core
+    folded tile)."""
     pad = plain.new_zeros((-plain.numel()) % 8)
-    return torch.cat([plain, pad] + [mma_fragments(m.to(plain.dtype))
+    lay = mma_fragments if fragments else (lambda m: m.reshape(-1))
+    return torch.cat([plain, pad] + [lay(m.to(plain.dtype))
                                      for m in mats]).contiguous()
 
 
@@ -142,27 +210,49 @@ def pack_stack_mma(p) -> torch.Tensor:
     return cache["mma"]
 
 
-def stack_weights(p, dtype: torch.dtype) -> torch.Tensor:
-    """The stack's weights as the kernels read them in `dtype`."""
+def pack_stack_folded(p, dtype: torch.dtype) -> torch.Tensor:
+    """`pack_stack` in `dtype` followed by the nine folded matrices W_s
+    (`folded_taps`) of every layer, layer by layer and tap by tap: as B
+    fragments in bfloat16 (the tensor-core tile), as [C][O] rows in float32.
+    The weights of the folded mode. Built once and kept in p["packed"]."""
+    cache = p.setdefault("packed", {})
+    key = ("folded", dtype)
+    if key not in cache:
+        mats = [m for lp in _layers(p) for m in folded_taps(lp, dtype)]
+        cache[key] = with_fragments(pack_stack(p, dtype), mats,
+                                    fragments=dtype == torch.bfloat16)
+    return cache[key]
+
+
+def stack_weights(p, dtype: torch.dtype, mode: str = "normal"
+                  ) -> torch.Tensor:
+    """The stack's weights as the kernels read them in `dtype` and mode."""
+    if mode == "mxu":
+        return pack_stack_folded(p, dtype)
     return pack_stack_mma(p) if dtype == torch.bfloat16 else \
         pack_stack(p, dtype)
 
 
-def fused_conv_stack(p, x: torch.Tensor, sc_valid=None) -> torch.Tensor:
+def fused_conv_stack(p, x: torch.Tensor, sc_valid=None,
+                     mxu: bool | None = None,
+                     lp_stencil: bool | None = None) -> torch.Tensor:
     """The stack applied to x [N, H, W, C_in] -> [N, H, W, C_out].
 
     sc_valid: None, a leading-valid column count or a (lo, hi) pair;
     columns outside the valid range are re-zeroed before every layer and
-    after the last. CPU tensors take the plain version; CUDA tensors launch
-    the kernel."""
+    after the last. mxu, lp_stencil: the layer modes (module docstring),
+    None deferring to the env knobs. CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
+    mxu, lp_stencil = mxu_default(mxu), lp_default(lp_stencil)
     if x.device.type == "cpu":
-        return sepconv_stack_reference(p, x, sc_valid)
+        return sepconv_stack_reference(p, x, sc_valid, mxu, lp_stencil)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    return _launch(p, x, sc_valid)
+    return _launch(p, x, sc_valid, mode_of(mxu, lp_stencil))
 
 
-def _launch(p, x: torch.Tensor, sc_valid) -> torch.Tensor:
+def _launch(p, x: torch.Tensor, sc_valid, mode: str = "normal"
+            ) -> torch.Tensor:
     global launches
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"sepconv_stack takes float32 or bfloat16, not "
@@ -178,7 +268,7 @@ def _launch(p, x: torch.Tensor, sc_valid) -> torch.Tensor:
     if x.dtype == torch.bfloat16 and max(widths[:-1]) > MMA_MAX_K:
         raise ValueError(f"the bfloat16 tile takes at most {MMA_MAX_K} "
                          f"input channels a layer, got {widths}")
-    w = stack_weights(p, x.dtype)
+    w = stack_weights(p, x.dtype, mode)
     if w.device != x.device:
         raise ValueError(f"weights on {w.device}, activations on {x.device}")
     n, h, wc, _ = x.shape
@@ -189,9 +279,10 @@ def _launch(p, x: torch.Tensor, sc_valid) -> torch.Tensor:
     rc = lib.nrx_sepconv_stack(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), _DTYPE_CODES[x.dtype],
         n, h, wc, len(layers), ctypes.cast(c_widths, ctypes.c_void_p),
-        lo, hi, torch.cuda.current_stream(x.device).cuda_stream)
+        lo, hi, MODES[mode], torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("sepconv_stack launch failed: "
                            + lib.nrx_cuda_error_string(rc).decode())
     launches += 1
+    launches_by_mode[mode] += 1
     return out

@@ -97,6 +97,19 @@ class ResourceGrid:
         flat = grid.reshape(grid.shape[:-3] + (-1, grid.shape[-1]))
         return flat[..., idx, :]
 
+    @property
+    def effective_subcarrier_ind(self) -> np.ndarray:
+        """Indices of the effective (non-nulled) subcarriers. A PUSCH
+        bandwidth-part grid has no guard or DC nulls, so every subcarrier
+        is effective: the identity, kept for parity with the reference's
+        RemoveNulledSubcarriers."""
+        return np.arange(self.num_subcarriers)
+
+    def remove_nulled_subcarriers(self, grid: torch.Tensor) -> torch.Tensor:
+        """grid [..., sc] restricted to the effective subcarriers (the
+        identity for PUSCH grids)."""
+        return grid[..., self.effective_subcarrier_ind]
+
     def dmrs_grid_slot(self, slot_idx, device=None) -> torch.Tensor:
         """DMRS grid of one slot: [num_tx, 14, sc] complex64. slot_idx: an
         int, or a 0-dim integer tensor on `device` (a slot drawn on the

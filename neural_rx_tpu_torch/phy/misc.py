@@ -1,4 +1,5 @@
-"""Small PHY utilities: SNR conversion, AWGN, bit sources.
+"""Small PHY utilities: SNR conversion, AWGN, bit sources, the
+zero-forcing precoder.
 
 The port's copy of `neural_rx_tpu/phy/misc.py`. The random functions take
 an explicit `torch.Generator` and draw on its device where the JAX
@@ -48,3 +49,14 @@ def binary_source(shape, generator: torch.Generator) -> torch.Tensor:
     device."""
     return torch.randint(0, 2, shape, generator=generator,
                          device=generator.device).to(torch.float32)
+
+
+def zf_precoder(h: torch.Tensor) -> torch.Tensor:
+    """Zero-forcing precoding matrices with per-column normalization
+    (reference ZFPrecoder): h [..., rx, tx] complex -> W = h^H (h h^H)^-1
+    [..., tx, rx], each column scaled to unit norm (norms clamped at
+    1e-12)."""
+    hh = h @ h.conj().transpose(-1, -2)  # H H^H
+    w = h.conj().transpose(-1, -2) @ torch.linalg.inv(hh)
+    norm = torch.sqrt((w.abs() ** 2).sum(dim=-2, keepdim=True))
+    return w / torch.clamp(norm, min=1e-12)

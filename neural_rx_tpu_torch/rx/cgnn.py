@@ -17,24 +17,35 @@ separable-conv stacks (`fused_convs`, `kernels/sepconv.py`), each iteration
 (`fused_iteration`), the last one with both readouts (`fused_readout`), or
 the whole CGNN in one kernel (`fused_full`, both in
 `kernels/cgnn_iter.py`). A fused route runs its CUDA kernel, or its plain
-version when `CGNNConfig.kernels` is False. Training (`training=True`)
-takes none of them, whatever the flags say: it runs the plain layers under
-autograd, as the JAX package trains on its XLA layers (its Pallas kernels
-have no VJP). `cgnn_apply(mesh=)` runs on a subcarrier shard of a mesh's
-grid axis (`dist/`).
+version when `CGNNConfig.kernels` is False; `conv_mxu` and `stencil_lp`
+pick the kernels' layer modes (`kernels/sepconv.py`) as the JAX package
+routes them. Training (`training=True`) takes none of them, whatever the
+flags say: it runs the plain layers under autograd, as the JAX package
+trains on its XLA layers (its Pallas kernels have no VJP). The plain
+layers' separable conv has the JAX package's two lowerings: the stack's
+plain version, or with `NRX_SEPCONV_FOLDED=1` (`sepconv_folded`) one full
+3x3 convolution of the folded kernel dw[:, :, 0, :, None] * pw per layer.
+`cgnn_apply(mesh=)` runs on a subcarrier shard of a mesh's grid axis
+(`dist/`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import os
+import warnings
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..dist import fused_sharded
 from ..dist.mesh import sum_over_grid
 from ..kernels import cgnn_iter
-from ..kernels.sepconv import fused_conv_stack, sepconv_stack_reference
+from ..kernels.sepconv import (_layers, _valid_range, fused_conv_stack,
+                               lp_default, mxu_default,
+                               sepconv_stack_reference)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +69,10 @@ class CGNNConfig:
     fused_full: bool = False    # the whole CGNN in one kernel
     kernels: bool = True        # False: fused routes take the kernels'
     # plain versions (the kernels' oracle on the GPU)
+    conv_mxu: bool | None = None  # the init stacks' folded-tap mode (the
+    # stack kernel's only); None defers to the NRX_CONV_MXU env knob
+    stencil_lp: bool | None = None  # depthwise taps summed in the
+    # activation dtype; None defers to the NRX_STENCIL_LP env knob
 
     @property
     def num_mcs(self):
@@ -140,13 +155,59 @@ def count_params(params) -> int:
     return sum(count_params(v) for v in params)
 
 
-def _apply_conv_stack(p, x, fused: bool = False, sc_valid=None, mesh=None):
-    """Separable-conv stack, ReLU after each hidden layer, through the
-    kernel if `fused`, else its plain version. sc_valid (optional): columns
-    outside the valid range are re-zeroed per layer (exact pad-to-bucket
-    dispatch). mesh (grid axis > 1): x is a subcarrier shard, extended by
-    its neighbours' halos first."""
-    stack = fused_conv_stack if fused else sepconv_stack_reference
+def sepconv_folded() -> bool:
+    """Whether the plain layers take the folded lowering: the env knob
+    NRX_SEPCONV_FOLDED=1, read at each call (the JAX package reads it once
+    at import)."""
+    return os.environ.get("NRX_SEPCONV_FOLDED", "0") == "1"
+
+
+def sepconv_stack_folded(p, x: torch.Tensor, sc_valid=None) -> torch.Tensor:
+    """The stack by the JAX package's folded lowering of its XLA layers: per
+    layer one full 3x3 "SAME" convolution of x with the kernel
+    dw[:, :, 0, :, None] * pw (both in x.dtype, the product rounded there),
+    computed as one product of the nine shifted copies of x (im2col,
+    [.., 9 C]) with the kernel as [9 C, O], plus the bias in x.dtype; ReLU
+    on hidden layers. Differentiable: the gradients reach dw and pw through
+    the fold. Columns outside the valid range are zeroed after every layer
+    (the input as given, as the JAX package's XLA layers take it)."""
+    dtype = x.dtype
+    n, h, w, _ = x.shape
+    lo, hi = _valid_range(sc_valid, w)
+    col = torch.arange(w, device=x.device)
+    valid = ((col >= lo) & (col < hi))[None, None, :, None].to(dtype)
+    layers = _layers(p)
+    for li, lp in enumerate(layers):
+        k = lp["dw"].to(dtype)[:, :, 0, :, None] * lp["pw"].to(dtype)
+        xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+        cols = torch.cat([xp[:, dy:dy + h, dx:dx + w]
+                          for dy in range(3) for dx in range(3)], dim=-1)
+        y = cols @ k.reshape(-1, k.shape[-1]) + lp["b"].to(dtype)
+        if li < len(layers) - 1:
+            y = torch.relu(y)
+        x = y * valid
+    return x
+
+
+def _apply_conv_stack(p, x, fused: bool = False, sc_valid=None, mesh=None,
+                      kernels: bool = True, mxu: bool | None = None,
+                      lp_stencil: bool | None = None):
+    """Separable-conv stack, ReLU after each hidden layer. fused: through
+    the stack kernel in the modes mxu / lp_stencil (None: the env knobs),
+    or with kernels=False its plain version in the same modes; else the
+    plain layers (`sepconv_stack_folded` under `sepconv_folded()`, else the
+    stack's plain version). sc_valid (optional): columns outside the valid
+    range are re-zeroed per layer (exact pad-to-bucket dispatch). mesh
+    (grid axis > 1): x is a subcarrier shard, extended by its neighbours'
+    halos first."""
+    if fused:
+        stack = functools.partial(
+            fused_conv_stack if kernels else sepconv_stack_reference,
+            mxu=mxu_default(mxu), lp_stencil=lp_default(lp_stencil))
+    elif sepconv_folded():
+        stack = sepconv_stack_folded
+    else:
+        stack = sepconv_stack_reference
     if mesh is not None:
         return fused_sharded.sharded_stack(stack, p, x, mesh)
     return stack(p, x, sc_valid=sc_valid)
@@ -172,13 +233,15 @@ def _aggregate_user_states(p, s, active_tx, dtype):
 
 
 def _update_state(p, s, a, pe, fused: bool = False, sc_valid=None,
-                  mesh=None):
-    """Conv state update with residual skip."""
+                  mesh=None, kernels: bool = True):
+    """Conv state update with residual skip. A fused stack here takes no
+    mode argument, as in the JAX package: its modes come from the env
+    knobs alone."""
     b, t = s.shape[0], s.shape[1]
     pe_b = pe[None].expand((b,) + pe.shape)
     z = torch.cat([a, s, pe_b], dim=-1)
     z = z.reshape((b * t,) + z.shape[2:])
-    z = _apply_conv_stack(p, z, fused, sc_valid, mesh)
+    z = _apply_conv_stack(p, z, fused, sc_valid, mesh, kernels)
     return z.reshape((b, t) + z.shape[1:]) + s
 
 
@@ -210,6 +273,14 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
     JAX package falls back to its plain layers. With `training` no fused
     route is taken (plain layers, differentiable), and with
     `apply_multiloss` the readouts follow every iteration.
+
+    Layer modes, routed as in the JAX package: `fused_full` takes
+    `stencil_lp` (never the folded mode); the init stacks take both
+    `conv_mxu` and `stencil_lp`; an iteration kernel takes `stencil_lp`.
+    With `fused_iteration` and `conv_mxu` resolved true the iterations warn
+    and take the non-fused route, whose update stacks (`_update_state`)
+    pass no mode: they run in the modes of the env knobs alone. The plain
+    layers (no fused route) take no mode.
 
     mesh (`dist.mesh.Mesh`, optional): y, pe and h_hat are this rank's
     block of the subcarrier axis, split over the mesh's grid axis (the
@@ -248,8 +319,9 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
     n_sc = y.shape[2]
     its = params["iterations"][:num_it]
     single = cfg.num_mcs == 1 and not cfg.var_mcs_masking
-    fused_convs = cfg.fused_convs and cfg.kernels and not training
+    fused_convs = cfg.fused_convs and not training
     fused_iteration = cfg.fused_iteration and not training
+    mxu, lp = mxu_default(cfg.conv_mxu), lp_default(cfg.stencil_lp)
 
     sc_mask = None
     if sc_valid is not None:
@@ -289,17 +361,22 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
     if cfg.fused_full and single and not training and mesh is None:
         full = (cgnn_iter.fused_cgnn_full if cfg.kernels
                 else cgnn_iter.fused_cgnn_full_reference)
-        llr, h_out = full(params, z0, pe, active_tx, sc_valid, num_it)
+        llr, h_out = full(params, z0, pe, active_tx, sc_valid, num_it,
+                          lp_stencil=lp)
         return [[llr.float()]], [h_out.float()]
 
     # K4's route on a shard: K1, then K3, the last iteration with readouts
+    # (K4 never takes the folded mode)
     full_on_shard = cfg.fused_full and single and not training
-    fused_convs = fused_convs or (full_on_shard and cfg.kernels)
+    fused_convs = fused_convs or full_on_shard
     fused_iteration = fused_iteration or full_on_shard
     fused_readout = cfg.fused_readout or full_on_shard
+    if full_on_shard:
+        mxu = False
 
     def run_init(p):
-        s = _apply_conv_stack(p, z0_flat, fused_convs, sc_valid, mesh)
+        s = _apply_conv_stack(p, z0_flat, fused_convs, sc_valid, mesh,
+                              cfg.kernels, mxu, lp)
         return s.reshape((b, t) + s.shape[1:])
 
     if cfg.var_mcs_masking:
@@ -319,8 +396,17 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
             llr = [_apply_mlp(p, s).float() for p in params["readout_llrs"]]
         return llr, _apply_mlp(params["readout_chest"], s).float()
 
-    iterate = (cgnn_iter.fused_iteration if cfg.kernels
-               else cgnn_iter.fused_iteration_reference)
+    if fused_iteration and mxu:
+        # the folded mode is the stack kernel's alone: the iterations take
+        # the non-fused route, as in the JAX package
+        warnings.warn("fused_iteration requested with conv_mxu resolved "
+                      "true; conv_mxu is unsupported in the iteration "
+                      "kernel: using the non-fused iteration route instead")
+        fused_iteration = False
+    iterate = (functools.partial(cgnn_iter.fused_iteration, mxu=False,
+                                 lp_stencil=lp) if cfg.kernels
+               else functools.partial(cgnn_iter.fused_iteration_reference,
+                                      lp_stencil=lp))
     if mesh is not None:
         kernel = iterate
 
@@ -343,7 +429,7 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
                 # conv would bleed it into the last valid column
                 a = a * sc_mask[None].to(a.dtype)
             s = _update_state(it_p["update"], s, a, pe, fused_convs,
-                              sc_valid, mesh)
+                              sc_valid, mesh, cfg.kernels)
         if (training and apply_multiloss) or i == num_it - 1:
             llr, h_out = readouts(s)
             llrs.append(llr)

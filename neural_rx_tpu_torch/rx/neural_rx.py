@@ -29,7 +29,7 @@ from ..dist.mesh import constrain, gather_grid
 from ..kernels.ldpc import tb_decode_fast
 from ..phy.chest import LSChannelEstimator
 from ..phy.nr.tb import tb_decode
-from .cgnn import (CGNNConfig, cgnn_apply, init_cgnn_params,
+from .cgnn import (CGNNConfig, cgnn_apply, count_params, init_cgnn_params,
                    pilot_positional_encoding)
 
 
@@ -146,6 +146,11 @@ class NeuralPUSCHReceiver:
     @property
     def num_mcs(self) -> int:
         return self.cgnn_cfg.num_mcs
+
+    def num_params(self, params) -> int:
+        """Number of parameter values in params (`rx.cgnn.count_params`;
+        nrx_rt: 142,922)."""
+        return count_params(params)
 
     def init_params(self, generator: torch.Generator) -> dict:
         """{"cgnn": tree} of seed-made parameters (`init_cgnn_params`) on

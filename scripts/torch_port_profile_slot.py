@@ -14,12 +14,17 @@ temporary directory; --flooding as for --eval), under
 device time per kernel name (summed over the window, per call), the
 device-busy share of the window, the host time per call and the memory
 copies per call by kind (pageable host-to-device among them). With
---trace, the Chrome trace is written to that path.
+--trace, the Chrome trace is written to that path. --conv-mxu and
+--stencil-lp set the layer-mode knobs NRX_CONV_MXU=1 and NRX_STENCIL_LP=1
+for the run, which the kernels' wrappers read at each call and route as
+the JAX package does (with conv_mxu the batch > 4 route's iterations take
+the stack kernel, not the iteration kernel).
 
     python3 scripts/torch_port_profile_slot.py [--batch 1] [--slots 10] \
         [--mega | --eval [--flooding] | --mc [--flooding] \
          | --baseline SYSTEM [--config nrx_rt] [--num-tx-eval T] \
-           [--ebno 4] [--flooding]] [--trace slot_trace.json]
+           [--ebno 4] [--flooding]] [--conv-mxu] [--stencil-lp] \
+        [--trace slot_trace.json]
 """
 
 import argparse
@@ -46,7 +51,12 @@ def main() -> int:
     ap.add_argument("--ebno", type=float, default=4.0)
     ap.add_argument("--flooding", action="store_true")
     ap.add_argument("--trace", default=None)
+    ap.add_argument("--conv-mxu", action="store_true")
+    ap.add_argument("--stencil-lp", action="store_true")
     args = ap.parse_args()
+    for flag, knob in ((args.conv_mxu, "NRX_CONV_MXU"),
+                       (args.stencil_lp, "NRX_STENCIL_LP")):
+        os.environ[knob] = "1" if flag else "0"
     import torch
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -102,6 +112,7 @@ def main() -> int:
         "eval": args.eval, "mc": args.mc, "baseline": args.baseline,
         "config": args.config if args.baseline else "nrx_rt",
         "flooding": args.flooding,
+        "conv_mxu": args.conv_mxu, "stencil_lp": args.stencil_lp,
         "slots": args.slots,
         "window_ms_per_slot": window_ms / args.slots,
         "device_busy_ms_per_slot": busy_ms / args.slots,

@@ -10,11 +10,18 @@ the fused iteration at batch 16 in state mode and the whole-CGNN kernel at
 batch 1 and 16; in float32 the layered LDPC decoder on one user's batch-16
 load (80 BG1/Z = 384 codewords at 10 dB, 20 iterations). Beside the times:
 the elements of the stack slot and the hard bits of the decode that differ
-from the plain versions. Prints one JSON line. It uses only what
-`chip_smoke.py` has had since the LDPC kernel came, so a copy of it also
-times an older checkout of the repository.
+from the plain versions. Prints one JSON line. It passes the wrappers
+their layer modes, so an older checkout, whose wrappers take none, is timed
+with that checkout's own copy of this script.
 
-    python3 scripts/torch_port_time_kernels.py [--reps 10]
+With --conv-mxu the stacks run in the folded-tap mode (`mxu=True`; the
+iteration and whole-CGNN kernels do not take it), with --stencil-lp the
+stacks, the iteration and the whole CGNN sum their depthwise taps in
+bfloat16 (`lp_stencil=True`); the output names the mode. Run it once per
+mode in one call to compare the modes on one card.
+
+    python3 scripts/torch_port_time_kernels.py [--reps 10] \
+        [--conv-mxu] [--stencil-lp]
 """
 
 import argparse
@@ -32,7 +39,11 @@ N_TX, N_SYM, N_SC = 2, 14, 1584
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--conv-mxu", action="store_true")
+    ap.add_argument("--stencil-lp", action="store_true")
     args = ap.parse_args()
+    stack_kw = {"mxu": args.conv_mxu, "lp_stencil": args.stencil_lp}
+    cgnn_kw = {"lp_stencil": args.stencil_lp}
     import torch
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -65,29 +76,36 @@ def main() -> int:
         return {**rec, "tflops": rec["flops"] / rec["kernel_ms"] / 1e9,
                 "pct_of_bound": 100.0 * rec["bound_ms"] / rec["kernel_ms"]}
 
-    out = {"card": card, "nvcc_seconds": info.seconds, "ptxas": ptxas}
+    out = {"card": card, "nvcc_seconds": info.seconds, "ptxas": ptxas,
+           "modes": {"conv_mxu": args.conv_mxu,
+                     "stencil_lp": args.stencil_lp}}
     stacks = [cgnn["s_init"][0]] + [it["update"] for it in cgnn["iterations"]]
     xs = [rand((N_TX, N_SYM, N_SC, cs.widths_of(p)[0])) for p in stacks]
     out["sepconv_slot_ms"] = sum(
-        cs.cuda_ms(lambda p=p, x=x: sepconv.fused_conv_stack(p, x), args.reps)
+        cs.cuda_ms(lambda p=p, x=x: sepconv.fused_conv_stack(p, x, **stack_kw),
+                   args.reps)
         for p, x in zip(stacks, xs))
     # elements that differ from the plain version, over the slot's stacks
     out["sepconv_slot_differing"] = sum(
-        int((sepconv.fused_conv_stack(p, x)
-             != sepconv.sepconv_stack_reference(p, x)).sum())
+        int((sepconv.fused_conv_stack(p, x, **stack_kw)
+             != sepconv.sepconv_stack_reference(p, x, **stack_kw)).sum())
         for p, x in zip(stacks, xs))
     x32 = rand((32, N_SYM, N_SC, 18))
+    work = cs.stack_work(cs.widths_of(stacks[0]), 32, N_SYM, N_SC, 2)
+    if args.conv_mxu:  # the folded form's products: 2 x 9 x c_in x c_out
+        work = (work[0], cs.fold_flops(cs.widths_of(stacks[0]))
+                * 32 * N_SYM * N_SC)
     rec = {"kernel_ms": cs.cuda_ms(
-        lambda: sepconv.fused_conv_stack(stacks[0], x32), args.reps),
-        **cs.bound(*cs.stack_work(cs.widths_of(stacks[0]), 32, N_SYM, N_SC,
-                                  2), peaks)}
+        lambda: sepconv.fused_conv_stack(stacks[0], x32, **stack_kw),
+        args.reps), **cs.bound(*work, peaks)}
     out["sepconv_init_n32"] = rates(rec)
     del x32
     it0 = cgnn["iterations"][0]
     s16 = rand((16, N_TX, N_SYM, N_SC, 56), 4.0)
     act16 = torch.ones((16, N_TX), device=dev)
     rec = {"kernel_ms": cs.cuda_ms(
-        lambda: cgnn_iter.fused_iteration(it0, s16, pe, act16), args.reps),
+        lambda: cgnn_iter.fused_iteration(it0, s16, pe, act16, **cgnn_kw),
+        args.reps),
         **cs.bound(*cs.iteration_work(it0, 16, pe.shape[-1], 2), peaks)}
     out["cgnn_iter_b16"] = rates(rec)
     del s16
@@ -95,7 +113,8 @@ def main() -> int:
         z = rand((b, N_TX, N_SYM, N_SC, 18))
         act = torch.ones((b, N_TX), device=dev)
         rec = {"kernel_ms": cs.cuda_ms(
-            lambda: cgnn_iter.fused_cgnn_full(cgnn, z, pe, act), args.reps),
+            lambda: cgnn_iter.fused_cgnn_full(cgnn, z, pe, act, **cgnn_kw),
+            args.reps),
             **cs.bound(*cs.full_work(cgnn, b, pe.shape[-1], 2), peaks)}
         out[f"cgnn_full_b{b}"] = rates(rec)
     # one user's batch-16 transport blocks: 16 x 5 codewords, BPSK at 10 dB

@@ -134,7 +134,7 @@ def test_stack_launch_takes_the_fragment_buffer(cgnn, monkeypatch):
     seen = []
 
     def nrx_sepconv_stack(x, w, out, dtype, n, h, wc, n_layers, widths, lo,
-                          hi, stream):
+                          hi, mode, stream):
         arr = (ctypes.c_int * (n_layers + 1)).from_address(widths.value)
         seen.append((w, dtype, list(arr)))
         return 0
