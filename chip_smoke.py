@@ -165,7 +165,27 @@ Phases, each printing one JSON line with its seconds:
      16, the whole CGNN at batch 1), with its bound (folded: 2 x 9 x c_in x
      c_out FLOP per position and layer); the new instances' registers and
      spills;
- 15. times: CUDA-event device time per kernel launch (kernel and plain) at
+ 15. completion_path: the last of the JAX package. e2e_rt at 132 PRB
+     (seed-made parameters, one user): K1 on its 130-channel update stack
+     (bf16 in the normal, stencil_lp and folded modes, sc_valid None and
+     (5, 1500) in the normal mode), K3 at batch 16 in state and readout
+     modes and K4 at batch 1 (normal and stencil_lp), each equal bit for
+     bit to its plain version, and in float32 within TOL_F32; e2e_large's
+     K4 at 8 iterations; the receiver's batch-1 (5 stack launches),
+     batch-16 (1 stack, 4 iteration launches) and mega routes (1 whole-CGNN
+     launch) equal to their plain routes; nrx_rt with full 3x3 conv layers
+     (`layer_type_conv = "conv"`, seed-made) on the batch-1, batch-16 and
+     mega routes in bf16 and float32, no kernel launched, equal to the
+     plain route, with device ms, and one conv-layer training step at
+     batch 128, 4 PRB (finite loss and gradients); the fused routes where
+     the JAX package's gates fail (an aggregation MLP of two hidden layers:
+     2 stack and 1 iteration launches at batch 16, 3 stack launches on the
+     mega route; apply_multiloss: 3 stack launches with fused_full, 1 stack
+     and 2 iteration launches with the fused readout) equal to their plain
+     routes; each e2e kernel's time beside its bound and plain version;
+     the wide instances' registers and spills, and no spill in any
+     instance;
+ 16. times: CUDA-event device time per kernel launch (kernel and plain) at
      the shapes the main path gives it, with its bound, achieved TFLOP/s
      and share of the bound (the sepconv stack at N = 2 and on the batch-16
      route's init stack at N = 32, the whole-CGNN kernel at batch 1 and
@@ -391,8 +411,8 @@ def widths_of(p):
         lp["pw"].shape[1] for lp in p["hidden"]] + [p["out"]["pw"].shape[1]]
 
 
-def iteration_work(it_p, b, d_pe, itemsize, readouts=(), w=N_SC):
-    """(bytes, flops) of one CGNN iteration at 14 x w with b*T images:
+def iteration_work(it_p, b, d_pe, itemsize, readouts=(), w=N_SC, t=N_TX):
+    """(bytes, flops) of one CGNN iteration at 14 x w with b*t images:
     state and pe read once, the state (or the readouts) written once,
     weights read once; per position the aggregation MLP, the user sum,
     difference and scale (3 ops a channel), the update stack and the
@@ -400,37 +420,37 @@ def iteration_work(it_p, b, d_pe, itemsize, readouts=(), w=N_SC):
     agg = mlp_dims(it_p["agg"])
     widths = widths_of(it_p["update"])
     d_s = agg[0]
-    n_pos = b * N_TX * N_SYM * w
+    n_pos = b * t * N_SYM * w
     out_ch = sum(mlp_dims(r)[2] for r in readouts) if readouts else d_s
     flops = n_pos * (mlp_flops(agg) + 3 * d_s + stack_flops(widths) + d_s
                      + sum(mlp_flops(mlp_dims(r)) for r in readouts))
     n_w = mlp_params(agg) + stack_params(widths) + sum(
         mlp_params(mlp_dims(r)) for r in readouts)
-    nbytes = (n_pos * (d_s + out_ch) + N_TX * N_SYM * w * d_pe + n_w) \
-        * itemsize + b * N_TX * 4
+    nbytes = (n_pos * (d_s + out_ch) + t * N_SYM * w * d_pe + n_w) \
+        * itemsize + b * t * 4
     return nbytes, flops
 
 
-def full_work(cgnn, b, d_pe, itemsize):
-    """(bytes, flops) of the whole CGNN: z0 and pe read once, llr and h_hat
-    written once, weights read once; the init stack, every iteration and
-    both readouts per position."""
+def full_work(cgnn, b, d_pe, itemsize, t=N_TX):
+    """(bytes, flops) of the whole CGNN with t users: z0 and pe read once,
+    llr and h_hat written once, weights read once; the init stack, every
+    iteration and both readouts per position."""
     init_w = widths_of(cgnn["s_init"][0])
     its = cgnn["iterations"]
     readouts = (cgnn["readout_llrs"][0], cgnn["readout_chest"])
-    n_pos = b * N_TX * N_SYM * N_SC
+    n_pos = b * t * N_SYM * N_SC
     flops = n_pos * stack_flops(init_w)
     n_w = stack_params(init_w)
     for i, it_p in enumerate(its):
         _, f = iteration_work(it_p, b, d_pe, itemsize,
-                              readouts if i == len(its) - 1 else ())
+                              readouts if i == len(its) - 1 else (), t=t)
         flops += f
         n_w += mlp_params(mlp_dims(it_p["agg"])) + stack_params(
             widths_of(it_p["update"]))
     n_w += sum(mlp_params(mlp_dims(r)) for r in readouts)
     out_ch = sum(mlp_dims(r)[2] for r in readouts)
-    nbytes = (n_pos * (init_w[0] + out_ch) + N_TX * N_SYM * N_SC * d_pe
-              + n_w) * itemsize + b * N_TX * 4
+    nbytes = (n_pos * (init_w[0] + out_ch) + t * N_SYM * N_SC * d_pe
+              + n_w) * itemsize + b * t * 4
     return nbytes, flops
 
 
@@ -2474,9 +2494,10 @@ def modes_path(dev, card, peaks, counts, reset, ptxas):
     del s16
     reset_modes()
 
-    # 4. the new instances' registers and spills (ptxas -v)
+    # 4. the mode instances' registers and spills (ptxas -v; mangled
+    # template tails: stack mode 1 or 2, CGNN kLp true, then kWide)
     regs = {k: v for k, v in ptxas_entries(ptxas).items()
-            if any(t in k for t in ("Li1EE", "Li2EE", "Lb1EE"))}
+            if any(t in k for t in ("Li1ELb", "Li2ELb", "Lb1ELb"))}
     for k, v in saved_env.items():
         if v is not None:
             os.environ[k] = v
@@ -2484,6 +2505,291 @@ def modes_path(dev, card, peaks, counts, reset, ptxas):
           "routes": route_recs, "times": times, "ptxas_new": regs,
           "seconds": time.perf_counter() - t0})
     return launches, times, modes
+
+
+COMPLETION_SEED = 5
+WIDE_INSTANCE = "ELb1EE"  # mangled template tail of a kWide instance
+
+
+def completion_path(dev, card, peaks, counts, reset, ptxas):
+    """The last of the JAX package on the card. e2e_rt at 132 PRB with
+    seed-made parameters, bf16: K1 on its 130-channel update stack (normal,
+    stencil_lp and folded modes), K3 at batch 16 (state and readout modes)
+    and K4 at batch 1 (4 iterations), both normal and stencil_lp, and
+    e2e_large's K4 at 8 iterations, each equal bit for bit to its plain
+    version (K1/K3/K4 also in float32, within TOL_F32); the receiver's
+    batch-1, batch-16 and mega routes equal to their plain routes, with
+    their launches. nrx_rt with full 3x3 conv layers (seed-made, 132 PRB)
+    on those routes in bf16 and float32: no kernel launched, equal to the
+    plain route, finite, device ms; one conv-layer training step at batch
+    128, 4 PRB. The fused routes where JAX's gates fail (a two-hidden-layer
+    aggregation MLP; apply_multiloss): the launches the gates imply, equal
+    to the plain route. Each e2e kernel's time beside its bound and plain
+    version; the registers and spills of the wide instances, and no spill
+    in any instance. Returns (launches by route, times)."""
+    import dataclasses
+
+    import torch
+    from neural_rx_tpu_torch.entry import train_entry
+    from neural_rx_tpu_torch.kernels import cgnn_iter, sepconv
+    from neural_rx_tpu_torch.rx.cgnn import cgnn_apply
+    from neural_rx_tpu_torch.rx.neural_rx import receiver_for
+    from neural_rx_tpu_torch.sim.config import Parameters
+    from neural_rx_tpu_torch.weights import flatten
+
+    t0 = time.perf_counter()
+    bf, f32 = torch.bfloat16, torch.float32
+    h, w = N_SYM, N_SC
+    gen = torch.Generator(device=dev).manual_seed(COMPLETION_SEED)
+    rng = np.random.default_rng(COMPLETION_SEED)
+    y1, y16 = (torch.as_tensor(rng.normal(size=(b, 4, h, w, 2)),
+                               dtype=torch.float32, device=dev)
+               for b in (1, 16))
+    stack_modes = {"normal": {"mxu": False, "lp_stencil": False},
+                   "lp": {"mxu": False, "lp_stencil": True},
+                   "mxu": {"mxu": True, "lp_stencil": False}}
+
+    # 1. the e2e kernels past 128 input channels against their plain versions
+    checks = []
+
+    def check(kernel, got, ref, dtype, **what):
+        """bf16: equal bit for bit; float32: within TOL_F32."""
+        got, ref = (t if isinstance(t, tuple) else (t,) for t in (got, ref))
+        torch.cuda.synchronize()
+        rec = compare(got, ref, dtype, TOL_BF16 if dtype == bf else TOL_F32)
+        if dtype == bf:
+            rec["ok"] = rec["ok"] and rec["differing_share"] == 0
+        checks.append({"kernel": kernel, **what, **rec})
+        assert rec["ok"], checks[-1]
+
+    p_e2e = Parameters("e2e_rt", training=False)
+    rx_e2e = receiver_for(p_e2e, bf, device=dev)
+    params = rx_e2e.init_params(gen)
+    cgnn = params["cgnn"]
+    upd = cgnn["iterations"][0]["update"]
+    assert widths_of(upd) == [130, 128, 128, 64], widths_of(upd)
+    assert len(cgnn["iterations"]) == 4
+    readouts = (cgnn["readout_llrs"][0], cgnn["readout_chest"])
+    t_e = rx_e2e.max_num_tx  # e2e_rt evaluates one user
+    # K1 as the batch-1 route launches it on an update stack (N = t_e)
+    x32 = torch.randn((t_e, h, w, 130), generator=gen, device=dev)
+    s32 = 4.0 * torch.randn((16, t_e, h, w, 64), generator=gen, device=dev)
+    z32 = torch.randn((1, t_e, h, w, 10), generator=gen, device=dev)
+    act16 = torch.ones((16, t_e), device=dev)
+    act1 = torch.ones((1, t_e), device=dev)
+    for dtype in (bf, f32):
+        x, s16, z1, pe = (t.to(dtype) for t in (x32, s32, z32, rx_e2e.pe))
+        for mode, kw in stack_modes.items():
+            if dtype == f32 and mode != "normal":
+                continue
+            for scv in SC_VALID_CASES if mode == "normal" else (None,):
+                check("sepconv_stack",
+                      sepconv.fused_conv_stack(upd, x, scv, **kw),
+                      sepconv.sepconv_stack_reference(upd, x, scv, **kw),
+                      dtype, config="e2e_rt", stack="update0", mode=mode,
+                      sc_valid=scv)
+            if mode == "mxu":
+                continue
+            lp = {"lp_stencil": kw["lp_stencil"]}
+            for imode, it_p, ro in (("state", cgnn["iterations"][0], ()),
+                                    ("readout", cgnn["iterations"][3],
+                                     readouts)):
+                check("cgnn_iter",
+                      cgnn_iter.fused_iteration(it_p, s16, pe, act16, None,
+                                                *ro, **lp),
+                      cgnn_iter.fused_iteration_reference(
+                          it_p, s16, pe, act16, None, *ro, **lp),
+                      dtype, config="e2e_rt", iteration=imode, batch=16,
+                      mode=mode)
+            check("cgnn_full",
+                  cgnn_iter.fused_cgnn_full(cgnn, z1, pe, act1, **lp),
+                  cgnn_iter.fused_cgnn_full_reference(cgnn, z1, pe, act1,
+                                                      **lp),
+                  dtype, config="e2e_rt", batch=1, iterations=4, mode=mode)
+    rx_large = receiver_for(Parameters("e2e_large", training=False), bf,
+                            device=dev)
+    cgnn_l = rx_large.init_params(gen)["cgnn"]
+    assert len(cgnn_l["iterations"]) == 8 and rx_large.max_num_tx == t_e
+    z1, pe_l = z32.to(bf), rx_large.pe.to(bf)
+    for mode in ("normal", "lp"):
+        lp = {"lp_stencil": mode == "lp"}
+        check("cgnn_full",
+              cgnn_iter.fused_cgnn_full(cgnn_l, z1, pe_l, act1, **lp),
+              cgnn_iter.fused_cgnn_full_reference(cgnn_l, z1, pe_l, act1,
+                                                  **lp),
+              bf, config="e2e_large", batch=1, iterations=8, mode=mode)
+    reset()
+
+    # 2. routes against their plain routes, launches counted
+    launches, route_recs = {}, {}
+
+    def route(name, fn, fn_plain, want):
+        reset()
+        out = fn()
+        torch.cuda.synchronize()
+        got = counts()
+        reset()
+        ref = fn_plain()
+        torch.cuda.synchronize()
+        plain_counts = counts()
+        reset()
+        launches[name] = got
+        route_recs[name] = {
+            "launches": {k: v for k, v in got.items() if v},
+            "equal_to_plain": all(torch.equal(a, b)
+                                  for a, b in zip(out, ref)),
+            "finite": all(bool(torch.isfinite(a).all()) for a in out)}
+        assert got == {**dict.fromkeys(got, 0), **want}, (name, got)
+        assert plain_counts == dict.fromkeys(plain_counts, 0), plain_counts
+        assert route_recs[name]["equal_to_plain"], (name, route_recs[name])
+        assert route_recs[name]["finite"], name
+        return out
+
+    def pair(p, dtype, **kw):
+        return (receiver_for(p, dtype, device=dev, **kw),
+                receiver_for(p, dtype, device=dev, kernels=False, **kw))
+
+    times = {"card": card}
+    (rk, rp), (mk, mp) = pair(p_e2e, bf), pair(p_e2e, bf, fused_full=True)
+    n_it = len(cgnn["iterations"])
+    for b, y in ((1, y1), (16, y16)):
+        route(f"e2e_rt_b{b}", lambda: rk.serve(params, y),
+              lambda: rp.serve(params, y),
+              {"sepconv_stack": 1 + n_it} if b == 1 else
+              {"sepconv_stack": 1, "cgnn_iter": n_it})
+        route(f"e2e_rt_mega_b{b}", lambda: mk.serve(params, y),
+              lambda: mp.serve(params, y), {"cgnn_full": 1})
+
+    # full 3x3 conv layers: nrx_rt's widths, no kernel on any route
+    p_conv = Parameters("nrx_rt", training=False,
+                        overrides={"layer_type_conv": "conv"})
+    params_c = None
+    conv_ms = {}
+    for dtype in (bf, f32):
+        dt = "bf16" if dtype == bf else "f32"
+        (ck, cp), (cmk, cmp) = pair(p_conv, dtype), pair(p_conv, dtype,
+                                                          fused_full=True)
+        if params_c is None:
+            params_c = ck.init_params(gen)
+            assert "w" in params_c["cgnn"]["s_init"][0]["out"]
+        for b, y in ((1, y1), (16, y16)):
+            route(f"conv_{dt}_b{b}", lambda: ck.serve(params_c, y),
+                  lambda: cp.serve(params_c, y), {})
+            route(f"conv_{dt}_mega_b{b}", lambda: cmk.serve(params_c, y),
+                  lambda: cmp.serve(params_c, y), {})
+            conv_ms[f"{dt}_b{b}"] = cuda_ms(lambda: ck.serve(params_c, y),
+                                            3, warmup=1)
+        del ck, cp, cmk, cmp
+    fn_t, (params_t, gen_t) = train_entry(
+        TRAIN_LABEL, device=dev, batch=TRAIN_BATCH,
+        overrides={"layer_type_conv": "conv"})
+    reset()
+    losses = fn_t(params_t, gen_t)
+    torch.cuda.synchronize()
+    train_launches = counts()
+    grads = [v.grad for v in flatten(params_t["cgnn"]).values()]
+    conv_ms["train_step_b128"] = cuda_ms(lambda: fn_t(params_t, gen_t), 3,
+                                         warmup=1)
+    conv_train = {"losses": [float(x) for x in losses],
+                  "launches": {k: v for k, v in train_launches.items() if v},
+                  "grads_finite": all(g is not None
+                                      and bool(torch.isfinite(g).all())
+                                      for g in grads),
+                  "step_ms": conv_ms["train_step_b128"]}
+    assert train_launches == dict.fromkeys(train_launches, 0), train_launches
+    assert all(np.isfinite(conv_train["losses"])), conv_train
+    assert conv_train["grads_finite"], conv_train
+    times["conv_layers_ms"] = conv_ms
+    del params_t, fn_t
+
+    # the fused routes where JAX's gates fail: the fallbacks' launches
+    p_deep = Parameters("nrx_rt", training=False,
+                        overrides={"num_units_agg": [[64, 64], [64]]})
+    (dk, dp), (dmk, dmp) = pair(p_deep, bf), pair(p_deep, bf,
+                                                  fused_full=True)
+    params_d = dk.init_params(gen)
+    # batch 16: iteration 0 (two hidden layers) plain with its update
+    # stack in K1, iteration 1 in K3 with both readouts
+    route("c1_deep_agg_b16", lambda: dk.serve(params_d, y16),
+          lambda: dp.serve(params_d, y16),
+          {"sepconv_stack": 2, "cgnn_iter": 1})
+    route("c1_deep_agg_mega_b1", lambda: dmk.serve(params_d, y1),
+          lambda: dmp.serve(params_d, y1), {"sepconv_stack": 3})
+    rx_n = receiver_for(Parameters("nrx_rt", training=False), bf,
+                        device=dev)
+    params_n = rx_n.init_params(gen)
+
+    def multiloss(kernels, **flags):
+        y_in, h_in = rx_n._prepare_inputs(y16)
+        cfg = dataclasses.replace(rx_n.cgnn_cfg, kernels=kernels, **flags)
+        llrs, h_hats = cgnn_apply(
+            params_n["cgnn"], cfg, y_in, rx_n.pe, h_in,
+            torch.ones((16, N_TX), device=dev),
+            torch.ones((16, N_TX, 1), device=dev), dtype=bf,
+            apply_multiloss=True)
+        assert len(llrs) == 1
+        return llrs[-1][0], h_hats[-1]
+    route("c1_multiloss_full",
+          lambda: multiloss(True, fused_full=True),
+          lambda: multiloss(False, fused_full=True), {"sepconv_stack": 3})
+    route("c1_multiloss_readout",
+          lambda: multiloss(True, fused_iteration=True, fused_readout=True),
+          lambda: multiloss(False, fused_iteration=True,
+                            fused_readout=True),
+          {"sepconv_stack": 1, "cgnn_iter": 2})
+    del dk, dp, dmk, dmp, rx_n
+
+    # 3. the e2e kernels' device times with their bounds
+    def timed(name, fn, plain, work, rate="bf16_flops", reps=10):
+        times[name] = rates({"kernel_ms": cuda_ms(fn, reps),
+                             "plain_ms": cuda_ms(plain, 2, warmup=1),
+                             **bound(*work, peaks, rate)})
+
+    for dtype in (bf, f32):
+        dt, size = ("bf16", 2) if dtype == bf else ("f32", 4)
+        rate = "bf16_flops" if dtype == bf else "f32_flops"
+        x, s16, z1, pe = (t.to(dtype) for t in (x32, s32, z32, rx_e2e.pe))
+        it0 = cgnn["iterations"][0]
+        timed(f"k1_130_n2_{dt}",
+              lambda: sepconv.fused_conv_stack(upd, x, mxu=False,
+                                               lp_stencil=False),
+              lambda: sepconv.sepconv_stack_reference(upd, x),
+              stack_work(widths_of(upd), t_e, h, w, size), rate, 20)
+        timed(f"k3_e2e_b16_{dt}",
+              lambda: cgnn_iter.fused_iteration(it0, s16, pe, act16,
+                                                lp_stencil=False),
+              lambda: cgnn_iter.fused_iteration_reference(it0, s16, pe,
+                                                          act16),
+              iteration_work(it0, 16, pe.shape[-1], size, t=t_e), rate, 3)
+        timed(f"k4_e2e_b1_{dt}",
+              lambda: cgnn_iter.fused_cgnn_full(cgnn, z1, pe, act1,
+                                                lp_stencil=False),
+              lambda: cgnn_iter.fused_cgnn_full_reference(cgnn, z1, pe,
+                                                          act1),
+              full_work(cgnn, 1, pe.shape[-1], size, t=t_e), rate, 5)
+    z1 = z32.to(bf)
+    timed("k4_e2e_large_8it_b1_bf16",
+          lambda: cgnn_iter.fused_cgnn_full(cgnn_l, z1, pe_l, act1,
+                                            lp_stencil=False),
+          lambda: cgnn_iter.fused_cgnn_full_reference(cgnn_l, z1, pe_l,
+                                                      act1),
+          full_work(cgnn_l, 1, pe_l.shape[-1], 2, t=t_e), reps=5)
+    del s32, x32
+    reset()
+
+    # 4. registers and spills: the wide instances, and no spill anywhere
+    entries = ptxas_entries(ptxas)
+    spilled = {k: v for k, v in entries.items()
+               if any("spill" in ln and "0 bytes spill stores, 0 bytes "
+                      "spill loads" not in ln for ln in v)}
+    wide = {k: v for k, v in entries.items() if WIDE_INSTANCE in k}
+    emit({"phase": "completion_path", "card": card, "checks": checks,
+          "routes": route_recs, "conv_training": conv_train,
+          "times": times, "ptxas_wide": wide, "spilled": spilled,
+          "seconds": time.perf_counter() - t0})
+    assert len(wide) == 7, sorted(wide)  # K1 x 3 modes, K3 x 2, K4 x 2
+    assert not spilled, spilled
+    return launches, times
 
 
 def main() -> int:
@@ -3006,7 +3312,13 @@ def main() -> int:
                                                     reset, ptxas)
     launches.update(mode_launches)
 
-    # 15. times (bf16, as served), at the shapes the main path gives each
+    # 15. the last of the JAX package: e2e widths past 128 channels, full
+    # 3x3 conv layers, the fused routes' fallbacks
+    done_launches, done_times = completion_path(dev, card, peaks, counts,
+                                                reset, ptxas)
+    launches.update(done_launches)
+
+    # 16. times (bf16, as served), at the shapes the main path gives each
     # kernel: stacks at N = 2 (batch 1), the iteration at batch 16, the
     # whole CGNN at batch 1
     t0 = time.perf_counter()
@@ -3255,6 +3567,24 @@ def main() -> int:
                     "plain_ms_lp": t["plain_ms"], "bound_ms_lp": t["bound_ms"]})
         return out
 
+    def e2e_keys(kernel):
+        """The completion path's launches past 128 input channels (e2e_rt,
+        132 PRB, seed-made parameters; K4 also e2e_large's 8 iterations),
+        bf16 and float32."""
+        out = {}
+        for n in {"sepconv_stack": ("k1_130_n2",),
+                  "cgnn_iter": ("k3_e2e_b16",),
+                  "cgnn_full": ("k4_e2e_b1", "k4_e2e_large_8it_b1")}[kernel]:
+            for dt in ("bf16", "f32"):
+                rec = done_times.get(f"{n}_{dt}")
+                if rec is not None:
+                    out.update({f"ms_{n}_{dt}": rec["kernel_ms"],
+                                f"plain_ms_{n}_{dt}": rec["plain_ms"],
+                                f"bound_ms_{n}_{dt}": rec["bound_ms"],
+                                f"pct_of_bound_{n}_{dt}":
+                                    rec["pct_of_bound"]})
+        return out
+
     st_bytes = sum(s["bytes_ms"] for s in per_stack)
     st_ops = sum(s["ops_ms"] for s in per_stack)
     by_path = {k: {r: launches[r][k] for r in launches} for k in
@@ -3277,6 +3607,7 @@ def main() -> int:
          "bound_ms_n32": stack_n32["bound_ms"],
          **mc_keys("sepconv_stack"), **width_keys("sepconv_stack"),
          **shard_keys("sepconv_stack"), **mode_keys("sepconv_stack"),
+         **e2e_keys("sepconv_stack"),
          "note": "ms/plain_ms/bound_ms: sum over the 3 launches of one "
                  "batch-1 slot (init, update0, update1), bf16, N=2, "
                  "14x1584; *_n32: the batch-16 route's launch (init stack, "
@@ -3289,6 +3620,8 @@ def main() -> int:
                  "the same slot (and *_n32, f32_n60) beside the normal "
                  "mode's time from the same turns (ms_normal_vs_*), "
                  "launches_by_mode from the modes path's routes; "
+                 "*_k1_130_n2_*: e2e_rt's 130-channel update stack (N=2, "
+                 "bf16 and float32; the wide instance in bf16); "
                  "library: no PyTorch call computes a separable stack"},
         {"name": "cgnn_iter", "route": "cuda",
          "source": "neural_rx_tpu_torch/csrc/cgnn_iter.cu",
@@ -3302,6 +3635,7 @@ def main() -> int:
          "bound_by": iteration["bound_by"], "library_ms": None,
          **mc_keys("cgnn_iter"), **width_keys("cgnn_iter"),
          **shard_keys("cgnn_iter"), **mode_keys("cgnn_iter"),
+         **e2e_keys("cgnn_iter"),
          "note": "one launch in state mode at batch 16 (b=16, T=2, "
                  "14x1584), bf16; *_mc: the mc path's launch (float32, "
                  "b=30); *_w48, *_w3276: the deploy engine's launch at the "
@@ -3310,7 +3644,9 @@ def main() -> int:
                  "extended shard of 2 and 4 ranks (798 and 402 columns, "
                  "bf16, b=1, state mode); *_lp: the bf16-stencil mode "
                  "at batch 16 beside the normal mode's time from the same "
-                 "turns; library: no PyTorch call "
+                 "turns; *_k3_e2e_b16_*: e2e_rt's iteration (130-channel "
+                 "update stack) at batch 16, state mode, bf16 and float32; "
+                 "library: no PyTorch call "
                  "computes the aggregation MLP, user sum and separable "
                  "stack"},
         {"name": "cgnn_full", "route": "cuda",
@@ -3328,13 +3664,16 @@ def main() -> int:
          "ms_8it": var_times["k4_8it"]["kernel_ms"],
          "plain_ms_8it": var_times["k4_8it"]["plain_ms"],
          "bound_ms_8it": var_times["k4_8it"]["bound_ms"],
-         **mode_keys("cgnn_full"),
+         **mode_keys("cgnn_full"), **e2e_keys("cgnn_full"),
          "note": "ms/plain_ms/bound_ms: one launch at batch 1 (b=1, T=2, "
                  "14x1584), bf16; *_b16: the mega route's launch at batch "
                  "16; *_8it: batch 1 with 8 seed-made iterations of "
                  "nrx_large's widths; *_lp: the bf16-stencil mode at "
                  "batch 1 beside the normal mode's time from the same "
-                 "turns; library: no PyTorch call computes "
+                 "turns; *_k4_e2e_b1_*: e2e_rt (4 iterations, 130-channel "
+                 "update stacks) at batch 1, bf16 and float32; "
+                 "*_k4_e2e_large_8it_b1_bf16: e2e_large's 8 iterations; "
+                 "library: no PyTorch call computes "
                  "the whole CGNN"},
         {"name": "ldpc_decode", "route": "cuda",
          "source": "neural_rx_tpu_torch/csrc/ldpc_decode.cu",

@@ -7,8 +7,8 @@ Carlo).
                   baseline_perf_csi_lmmse|baseline_perf_csi_kbest] \
         [--snr 2 3 4] [--max-iter N] [--batch-size B] [--num-tx-eval T] \
         [--mcs-idx 0] [--fast-ldpc] [--target-block-errors K] \
-        [--target-bler X] [--weights PATH] [--results-dir DIR] \
-        [--data-dir DIR] [--device cuda|cpu]
+        [--target-bler X] [--weights PATH | --weights-dir DIR | --untrained] \
+        [--results-dir DIR] [--data-dir DIR] [--device cuda|cpu]
 
 Sweeps Eb/N0 over the configuration's [evaluation] grid unless --snr is
 given, with `sim.simber.sim_ber` on `sim.e2e.E2EModel` (system nrx) or
@@ -19,9 +19,12 @@ Receiver" for nrx and the system name for a baseline. --mcs-idx picks
 the evaluated MCS of a configuration with several (every user on it); an
 index out of range raises ValueError. The neural receiver runs the
 configuration's num_nrx_iter_eval iterations; its weights default to the
-committed weights (`weights.committed_weights`); a missing file is an error;
-a --weights file not ending in `.npz` is read as a reference weight file
-(`compat/reference_weights.py`).
+committed weights (`weights.committed_weights`, looked up in --weights-dir,
+default the repository's weights/); a missing file is an error; a
+--weights file not ending in `.npz` is read as a reference weight file
+(`compat/reference_weights.py`). --untrained evaluates the seed-0 init
+(`E2EModel.init_params` from a generator seeded 0 on the device, as the
+JAX package's PRNGKey(0): a plumbing check) and reads no weights.
 A baseline with the LMMSE channel estimate reads the covariances
 weights/{label}_{freq,time,space}_cov_mat.npy, and computes and writes them
 there if they are missing. The site-specific configurations read their
@@ -55,6 +58,10 @@ def main(argv=None):
     ap.add_argument("--fast-ldpc", action="store_true",
                     help="layered min-sum decoder (the LDPC kernel)")
     ap.add_argument("--weights", default=None)
+    ap.add_argument("--weights-dir", default=None,
+                    help="where the committed weights are looked up")
+    ap.add_argument("--untrained", action="store_true",
+                    help="evaluate the seed-0 init (plumbing checks)")
     ap.add_argument("--results-dir", default="results")
     ap.add_argument("--data-dir", default=None)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -66,7 +73,7 @@ def main(argv=None):
     import torch
 
     from .. import weights
-    from ..entry import load_params
+    from ..entry import load_params, pack_params
     from ..rx.neural_rx import resolve_device
     from ..sim.baseline_e2e import BaselineE2EModel
     from ..sim.config import Parameters
@@ -85,16 +92,22 @@ def main(argv=None):
         ebno_dbs = np.arange(p.snr_db_eval_min, p.snr_db_eval_max,
                              p.snr_db_eval_stepsize, dtype=np.float32)
     if args.system == "nrx":
-        wpath = args.weights or weights.committed_weights(p.label)
-        if not os.path.exists(wpath):
-            raise FileNotFoundError(
-                f"no weights at {wpath}: convert them with "
-                "scripts/torch_port_export_weights.py")
         model = E2EModel(p, device=device)
-        template = None if wpath.endswith(".npz") else model.init_params(
+        seed_made = model.init_params(
             torch.Generator(device=device).manual_seed(0))
-        params = load_params(dtype=p.nrx_dtype, device=device, path=wpath,
-                             template=template)
+        if args.untrained:
+            params = pack_params(seed_made, p.nrx_dtype)
+        else:
+            wpath = args.weights or weights.committed_weights(
+                p.label, args.weights_dir or weights.WEIGHTS_DIR)
+            if not os.path.exists(wpath):
+                raise FileNotFoundError(
+                    f"no weights at {wpath}: convert them with "
+                    "scripts/torch_port_export_weights.py, or pass "
+                    "--untrained")
+            params = load_params(
+                dtype=p.nrx_dtype, device=device, path=wpath,
+                template=None if wpath.endswith(".npz") else seed_made)
         name, num_it = "Neural Receiver", p.num_nrx_iter_eval
     else:
         model = BaselineE2EModel(p, args.system, device=device)

@@ -88,6 +88,15 @@
 // w_tile 10) and their bit-exact sums: TF32 would not hold float32's
 // tolerance.
 //
+// e2e_rt and e2e_large (d_s 64, no LS input) have update stacks of 2 x 64
+// + 2 = 130 input channels. Their bf16 tiles run the kWide instances
+// (nrx_tile.cuh: the k-steps past nrx::kMmaWideRegK stream their weights
+// from L2 per M tile), which cgnn_iter_wide.cu compiles in a translation
+// unit of its own; nrx_cgnn_iter and nrx_cgnn_full forward a bf16 launch
+// with a product past nrx::kMmaRegK there. Rows of 130 and of 128 channels
+// take one stride (136), so those tiles are nrx_rt's; with one user (their
+// eval configurations) an iteration's aggregation sums one user's MLP.
+//
 // stencil_lp (the JAX package's lp_stencil argument of both kernels): the
 // bf16 instances with kLp sum every stack's depthwise taps in bf16
 // (nrx_tile.cuh, depthwise_pairs<true>): K3's update stack, and K4's init
@@ -140,8 +149,9 @@ struct IterDesc {
 
 // One MLP over np positions: src [np][stride] -> epi (an epilogue object,
 // nrx_tile.cuh) of the output layer, whose bias it adds. Hidden layer in
-// hid_buf [np][row_ld(hid)].
-template <typename T, bool kMma, typename Epi>
+// hid_buf [np][row_ld(hid)]. kWide: products past nrx::kMmaRegK input
+// channels (nrx_tile.cuh).
+template <typename T, bool kMma, bool kWide = false, typename Epi>
 __device__ __forceinline__ void mlp(const T* src, int stride, int np,
                                     const T* __restrict__ w, const MlpDesc& m,
                                     T* hid_buf, nrx::FixList fx, Epi epi) {
@@ -150,10 +160,10 @@ __device__ __forceinline__ void mlp(const T* src, int stride, int np,
   const T* w2 = b1 + m.hid;
   const T* b2 = w2 + m.hid * m.out;
   const int ld_h = nrx::row_ld(m.hid, kMma);
-  nrx::product<T, kMma>(src, stride, np, w1, w + m.f1, b1, m.in, m.hid, fx,
-                        nrx::HiddenEpi<T>{hid_buf, b1, ld_h});
+  nrx::product<T, kMma, kWide>(src, stride, np, w1, w + m.f1, b1, m.in, m.hid, fx,
+                               nrx::HiddenEpi<T>{hid_buf, b1, ld_h});
   __syncthreads();
-  nrx::product<T, kMma>(hid_buf, ld_h, np, w2, w + m.f2, b2, m.hid, m.out, fx, epi);
+  nrx::product<T, kMma, kWide>(hid_buf, ld_h, np, w2, w + m.f2, b2, m.hid, m.out, fx, epi);
   __syncthreads();
 }
 
@@ -230,12 +240,12 @@ struct AggEpi {
 
 // One readout MLP on the core positions of the tile: state [Pc][row_ld(d_s)]
 // in src, hidden layer in hid_buf, output [b, T, H, W, out] rows of image img.
-template <typename T, bool kMma>
+template <typename T, bool kMma, bool kWide>
 __device__ void readout(const T* src, int Pc, const T* __restrict__ w,
                         const MlpDesc& m, T* hid_buf, T* out, size_t img,
                         int H, int W, int w0, int w_tile, nrx::FixList fx) {
   const T* b2 = w + m.in * m.hid + m.hid + m.hid * m.out;
-  mlp<T, kMma>(src, nrx::row_ld(m.in, kMma), Pc, w, m, hid_buf, fx,
+  mlp<T, kMma, kWide>(src, nrx::row_ld(m.in, kMma), Pc, w, m, hid_buf, fx,
                OutEpi<T>{out + img * H * W * m.out, b2, W, w0, w_tile, m.out});
 }
 
@@ -275,8 +285,9 @@ __device__ __forceinline__ uint4 add_chunks(uint4 x, uint4 y) {
 // [tile * w_tile, (tile + 1) * w_tile). s [b, T, H, W, d_s], pe [T, H, W,
 // d_pe], act [b, T] f32. State mode writes out [b, T, H, W, d_s]; readout
 // mode writes out (llr) and, if q.readout == 2, out2 (h_hat). kLp: the
-// update stack's taps in bf16 (stencil_lp).
-template <typename T, bool kLp = false>
+// update stack's taps in bf16 (stencil_lp); kWide: products past
+// nrx::kMmaRegK input channels (iter_wide).
+template <typename T, bool kLp = false, bool kWide = false>
 __device__ void iter_tile(const T* s, const T* pe, const float* act, T* out,
                           T* out2, const T* __restrict__ agg_w,
                           const T* __restrict__ upd_w,
@@ -376,7 +387,7 @@ __device__ void iter_tile(const T* s, const T* pe, const float* act, T* out,
         src = scr_s;
         stride = ld_s;
       }
-      mlp<T, kMma>(src, stride, np, agg_w, q.agg, scr_h, fx,
+      mlp<T, kMma, kWide>(src, stride, np, agg_w, q.agg, scr_h, fx,
                    AggEpi<T>{tot, buf_a + (size_t)p0 * ld_z, b2, d_s, ld_z, act_b[u], u == t});
     }
     for (int i = threadIdx.x; i < np * d_s; i += blockDim.x) {
@@ -391,8 +402,8 @@ __device__ void iter_tile(const T* s, const T* pe, const float* act, T* out,
   }
 
   // 4. Update stack.
-  nrx::run_stack<T, kMma, kLp ? nrx::kLp : nrx::kNormal>(buf_a, buf_b, upd_w, q.upd, H, E,
-                                                        g0, vlo, vhi, fx);
+  nrx::run_stack<T, kMma, kLp ? nrx::kLp : nrx::kNormal, kWide>(buf_a, buf_b, upd_w, q.upd, H,
+                                                               E, g0, vlo, vhi, fx);
 
   // 5. Residual; the state, or both readouts on it.
   const T* s_t = s_b + (size_t)t * img * d_s;
@@ -460,10 +471,10 @@ __device__ void iter_tile(const T* s, const T* pe, const float* act, T* out,
     }
   }
   __syncthreads();
-  readout<T, kMma>(buf_b, Pc, ro_w, q.ro, buf_a, out, img_out, H, W, w0, q.w_tile, fx);
+  readout<T, kMma, kWide>(buf_b, Pc, ro_w, q.ro, buf_a, out, img_out, H, W, w0, q.w_tile, fx);
   if (q.readout == 2)
-    readout<T, kMma>(buf_b, Pc, ch_w, q.ch, buf_a, out2, img_out, H, W, w0, q.w_tile,
-                     fx);
+    readout<T, kMma, kWide>(buf_b, Pc, ch_w, q.ch, buf_a, out2, img_out, H, W, w0, q.w_tile,
+                            fx);
 }
 
 inline size_t align16(size_t v) { return (v + 15) & ~(size_t)15; }
@@ -517,9 +528,9 @@ bool iter_tiles(IterDesc* q, int H, int W, size_t itemsize, bool mma, size_t lim
 }
 
 // What the tensor-core tile takes: products of at most kMmaMaxK input
-// channels (weights held in registers; stacks: nrx::mma_fits) and, for the
-// aggregation MLP that reads the state's slot of z in place, a
-// 16-byte-aligned slot (d_s a multiple of 8).
+// channels (stacks: nrx::mma_fits) and, for the aggregation MLP that reads
+// the state's slot of z in place, a 16-byte-aligned slot (d_s a multiple of
+// 8). Products past kMmaRegK input channels need the kWide instances.
 bool mma_fits(const MlpDesc& m) {
   return m.in <= nrx::kMmaMaxK && m.hid <= nrx::kMmaMaxK;
 }
@@ -527,6 +538,13 @@ bool mma_fits(const MlpDesc& m) {
 bool mma_fits(const IterDesc& q) {
   return q.d_s % 8 == 0 && mma_fits(q.upd) && mma_fits(q.agg) &&
          (q.readout < 1 || mma_fits(q.ro)) && (q.readout < 2 || mma_fits(q.ch));
+}
+
+bool mlp_wide(const MlpDesc& m) { return m.in > nrx::kMmaRegK || m.hid > nrx::kMmaRegK; }
+
+bool iter_wide(const IterDesc& q) {
+  return nrx::stack_wide(q.upd) || mlp_wide(q.agg) || (q.readout >= 1 && mlp_wide(q.ro)) ||
+         (q.readout >= 2 && mlp_wide(q.ch));
 }
 
 bool make_iter_desc(IterDesc* q, int n_users, int d_s, int d_pe,
@@ -571,16 +589,16 @@ struct IterArgs {
   int H, W, lo, hi;
 };
 
-template <typename T, bool kLp>
+template <typename T, bool kLp, bool kWide>
 __global__ void __launch_bounds__(nrx::kThreads) cgnn_iter_kernel(IterArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int bt = blockIdx.y;
-  iter_tile<T, kLp>(a.s, a.pe, a.act, a.out, a.out2, a.agg_w, a.upd_w, a.ro_w, a.ch_w,
+  iter_tile<T, kLp, kWide>(a.s, a.pe, a.act, a.out, a.out2, a.agg_w, a.upd_w, a.ro_w, a.ch_w,
                a.q, a.H, a.W, a.lo, a.hi, bt / a.q.n_users, bt % a.q.n_users,
                blockIdx.x, smem_raw);
 }
 
-template <typename T, bool kLp>
+template <typename T, bool kLp, bool kWide>
 cudaError_t launch_iter(IterArgs<T> a, int b, cudaStream_t stream) {
   static KernelSetup setup[kMaxDevices];
   if (kUseMma<T> && !mma_fits(a.q)) return cudaErrorInvalidValue;
@@ -592,11 +610,11 @@ cudaError_t launch_iter(IterArgs<T> a, int b, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     if (!iter_tiles(&a.q, a.H, a.W, sizeof(T), kUseMma<T>, d.optin))
       return cudaErrorInvalidValue;
-    err = allow_smem(cgnn_iter_kernel<T, kLp>, setup[dev], a.q.smem);
+    err = allow_smem(cgnn_iter_kernel<T, kLp, kWide>, setup[dev], a.q.smem);
     if (err != cudaSuccess) return err;
   }
   dim3 grid((a.W + a.q.w_tile - 1) / a.q.w_tile, b * a.q.n_users);
-  cgnn_iter_kernel<T, kLp><<<grid, nrx::kThreads, a.q.smem, stream>>>(a);
+  cgnn_iter_kernel<T, kLp, kWide><<<grid, nrx::kThreads, a.q.smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -625,7 +643,7 @@ struct FullArgs {
 // toolkit accepts.
 static_assert(sizeof(FullArgs<float>) <= 4096, "FullArgs exceeds 4 KB");
 
-template <typename T, bool kLp>
+template <typename T, bool kLp, bool kWide>
 __global__ void __launch_bounds__(nrx::kThreads) cgnn_full_kernel(FullArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
@@ -635,7 +653,7 @@ __global__ void __launch_bounds__(nrx::kThreads) cgnn_full_kernel(FullArgs<T> a)
   // Stage 0: the init stack, z0 -> state[0].
   const int tiles0 = (a.W + a.init_w_tile - 1) / a.init_w_tile;
   for (int item = blockIdx.x; item < n_img * tiles0; item += gridDim.x)
-    nrx::stack_tile<T, kUseMma<T>, kLp ? nrx::kLp : nrx::kNormal>(
+    nrx::stack_tile<T, kUseMma<T>, kLp ? nrx::kLp : nrx::kNormal, kWide>(
         a.z0, a.init_w, a.state[0], a.init, a.H, a.W, a.init_w_tile, a.lo, a.hi,
         item / tiles0, item % tiles0, smem_raw);
 
@@ -648,14 +666,14 @@ __global__ void __launch_bounds__(nrx::kThreads) cgnn_full_kernel(FullArgs<T> a)
     const int tiles = (a.W + q.w_tile - 1) / q.w_tile;
     for (int item = blockIdx.x; item < n_img * tiles; item += gridDim.x) {
       const int bt = item / tiles;
-      iter_tile<T, kLp>(src, a.pe, a.act, dst, a.hh, a.agg_w[i], a.upd_w[i], a.ro_w,
+      iter_tile<T, kLp, kWide>(src, a.pe, a.act, dst, a.hh, a.agg_w[i], a.upd_w[i], a.ro_w,
                    a.ch_w, q, a.H, a.W, a.lo, a.hi, bt / n_users, bt % n_users,
                    item % tiles, smem_raw);
     }
   }
 }
 
-template <typename T, bool kLp>
+template <typename T, bool kLp, bool kWide>
 cudaError_t launch_full(FullArgs<T>& a, cudaStream_t stream) {
   static KernelSetup setup[kMaxDevices];
   constexpr bool kMma = kUseMma<T>;
@@ -683,12 +701,12 @@ cudaError_t launch_full(FullArgs<T>& a, cudaStream_t stream) {
       if (n > items) items = n;
     }
     KernelSetup& k = setup[dev];
-    err = allow_smem(cgnn_full_kernel<T, kLp>, k, smem);
+    err = allow_smem(cgnn_full_kernel<T, kLp, kWide>, k, smem);
     if (err != cudaSuccess) return err;
     if (k.per_sm == 0 || k.occ_smem != smem) {
       int per_sm = 0;
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cgnn_full_kernel<T, kLp>,
-                                                          nrx::kThreads, smem);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, cgnn_full_kernel<T, kLp, kWide>, nrx::kThreads, smem);
       if (err != cudaSuccess) return err;
       if (per_sm < 1) return cudaErrorInvalidConfiguration;
       k.per_sm = per_sm;
@@ -698,34 +716,61 @@ cudaError_t launch_full(FullArgs<T>& a, cudaStream_t stream) {
     blocks = k.per_sm * d.n_sm < items ? k.per_sm * d.n_sm : items;
   }
   void* args[] = {&a};
-  cudaError_t err = cudaLaunchCooperativeKernel((const void*)cgnn_full_kernel<T, kLp>,
+  cudaError_t err = cudaLaunchCooperativeKernel((const void*)cgnn_full_kernel<T, kLp, kWide>,
                                                 dim3(blocks), dim3(nrx::kThreads),
                                                 args, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+// The entry points' bodies. kWide: this translation unit holds the wide
+// instances (cgnn_iter_wide.cu, bf16 only); the other one forwards a
+// bf16 launch with a product past nrx::kMmaRegK input channels there.
+template <bool kWide>
+int cgnn_iter_entry(const void* s, const void* pe, const void* act, void* out, void* out2,
+                    const void* agg_w, const void* agg_dims, const void* upd_w, int n_layers,
+                    const void* widths, const void* ro_w, const void* ro_dims,
+                    const void* ch_w, const void* ch_dims, int dtype, int b, int t, int h,
+                    int w, int d_s, int d_pe, int lo, int hi, int lp, void* stream);
+
+template <bool kWide>
+int cgnn_full_entry(const void* z0, const void* pe, const void* act, void* state_a,
+                    void* state_b, void* llr, void* hh, const void* init_w, int n_init,
+                    const void* init_widths, const void* agg_w, const void* agg_dims,
+                    const void* upd_w, int n_upd, const void* upd_widths, const void* ro_w,
+                    const void* ro_dims, const void* ch_w, const void* ch_dims, int num_it,
+                    int dtype, int b, int t, int h, int w, int d_s, int d_pe, int lo, int hi,
+                    int lp, void* stream);
+
 }  // namespace
 
 extern "C" {
+// The wide instances' entry points (cgnn_iter_wide.cu): the arguments of
+// nrx_cgnn_iter and nrx_cgnn_full, bfloat16 only.
+int nrx_cgnn_iter_wide(const void* s, const void* pe, const void* act, void* out,
+                       void* out2, const void* agg_w, const void* agg_dims,
+                       const void* upd_w, int n_layers, const void* widths,
+                       const void* ro_w, const void* ro_dims, const void* ch_w,
+                       const void* ch_dims, int dtype, int b, int t, int h, int w,
+                       int d_s, int d_pe, int lo, int hi, int lp, void* stream);
+int nrx_cgnn_full_wide(const void* z0, const void* pe, const void* act, void* state_a,
+                       void* state_b, void* llr, void* hh, const void* init_w,
+                       int n_init, const void* init_widths, const void* agg_w,
+                       const void* agg_dims, const void* upd_w, int n_upd,
+                       const void* upd_widths, const void* ro_w, const void* ro_dims,
+                       const void* ch_w, const void* ch_dims, int num_it, int dtype,
+                       int b, int t, int h, int w, int d_s, int d_pe, int lo, int hi,
+                       int lp, void* stream);
+}  // extern "C"
 
-// One CGNN iteration (K3). s: [b, t, h, w, d_s]; pe: [t, h, w, d_pe]; both in
-// the working type (dtype 0: float32, 1: bfloat16), contiguous. act: [b, t]
-// float32 (1 = active). agg_w: packed aggregation MLP, agg_dims {in, hid,
-// out}; upd_w: packed update stack, widths: n_layers + 1 ints (host). State
-// mode (ro_w null): out [b, t, h, w, d_s]. Readout mode: out = llr [b, t, h,
-// w, ro_dims[2]] and, if ch_w is given, out2 = h_hat [b, t, h, w,
-// ch_dims[2]]. Dims arrays live on the host. In bfloat16 every packed
-// weight buffer is followed by its products' B fragments (the wrapper's
-// pack_mlp_mma / pack_stack_mma). lp: the stencil_lp mode (bfloat16; no
-// effect in float32). Launches on `stream`, allocates nothing, does not
-// synchronise; returns cudaGetLastError().
-int nrx_cgnn_iter(const void* s, const void* pe, const void* act, void* out,
-                  void* out2, const void* agg_w, const void* agg_dims,
-                  const void* upd_w, int n_layers, const void* widths,
-                  const void* ro_w, const void* ro_dims, const void* ch_w,
-                  const void* ch_dims, int dtype, int b, int t, int h, int w,
-                  int d_s, int d_pe, int lo, int hi, int lp, void* stream) {
+namespace {
+
+template <bool kWide>
+int cgnn_iter_entry(const void* s, const void* pe, const void* act, void* out, void* out2,
+                    const void* agg_w, const void* agg_dims, const void* upd_w, int n_layers,
+                    const void* widths, const void* ro_w, const void* ro_dims,
+                    const void* ch_w, const void* ch_dims, int dtype, int b, int t, int h,
+                    int w, int d_s, int d_pe, int lo, int hi, int lp, void* stream) {
   if (b < 1 || (size_t)b * t > 65535 || h < 1 || w < 1) return (int)cudaErrorInvalidValue;
   if ((ro_w == nullptr) != (ro_dims == nullptr) || (ch_w == nullptr) != (ch_dims == nullptr) ||
       (ch_w != nullptr && ro_w == nullptr))
@@ -736,14 +781,22 @@ int nrx_cgnn_iter(const void* s, const void* pe, const void* act, void* out,
                       static_cast<const int*>(ch_dims)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    using T = float;
-    IterArgs<T> a{static_cast<const T*>(s), static_cast<const T*>(pe),
-                  static_cast<const float*>(act), static_cast<T*>(out),
-                  static_cast<T*>(out2), static_cast<const T*>(agg_w),
-                  static_cast<const T*>(upd_w), static_cast<const T*>(ro_w),
-                  static_cast<const T*>(ch_w), q, h, w, lo, hi};
-    return (int)launch_iter<T, false>(a, b, st);
+  if constexpr (kWide) {
+    if (dtype != 1 || !iter_wide(q)) return (int)cudaErrorInvalidValue;
+  } else {
+    if (dtype == 1 && iter_wide(q))
+      return nrx_cgnn_iter_wide(s, pe, act, out, out2, agg_w, agg_dims, upd_w, n_layers,
+                                widths, ro_w, ro_dims, ch_w, ch_dims, dtype, b, t, h, w, d_s,
+                                d_pe, lo, hi, lp, stream);
+    if (dtype == 0) {
+      using T = float;
+      IterArgs<T> a{static_cast<const T*>(s), static_cast<const T*>(pe),
+                    static_cast<const float*>(act), static_cast<T*>(out),
+                    static_cast<T*>(out2), static_cast<const T*>(agg_w),
+                    static_cast<const T*>(upd_w), static_cast<const T*>(ro_w),
+                    static_cast<const T*>(ch_w), q, h, w, lo, hi};
+      return (int)launch_iter<T, false, false>(a, b, st);
+    }
   }
   if (dtype == 1) {
     using T = __nv_bfloat16;
@@ -752,30 +805,20 @@ int nrx_cgnn_iter(const void* s, const void* pe, const void* act, void* out,
                   static_cast<T*>(out2), static_cast<const T*>(agg_w),
                   static_cast<const T*>(upd_w), static_cast<const T*>(ro_w),
                   static_cast<const T*>(ch_w), q, h, w, lo, hi};
-    return lp ? (int)launch_iter<T, true>(a, b, st) : (int)launch_iter<T, false>(a, b, st);
+    return lp ? (int)launch_iter<T, true, kWide>(a, b, st)
+              : (int)launch_iter<T, false, kWide>(a, b, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// The whole CGNN in one cooperative launch (K4). z0: [b, t, h, w,
-// init_widths[0]]; pe: [t, h, w, d_pe]; act: [b, t] float32; state_a,
-// state_b: scratch [b, t, h, w, d_s] each; llr: [b, t, h, w, ro_dims[2]];
-// hh: [b, t, h, w, ch_dims[2]]. init_w: packed init stack (n_init layers,
-// init_widths); agg_w, upd_w: host arrays of num_it device pointers to the
-// packed aggregation MLPs and update stacks, agg_dims {in, hid, out} per
-// iteration, upd_widths n_upd + 1 ints per iteration; ro_w, ch_w: packed
-// readout MLPs, in bfloat16 each followed by its B fragments as for
-// nrx_cgnn_iter. Host arrays for every dims argument. lp: the stencil_lp
-// mode, as for nrx_cgnn_iter. Launches on `stream`, allocates nothing, does
-// not synchronise; returns the launch's error.
-int nrx_cgnn_full(const void* z0, const void* pe, const void* act, void* state_a,
-                  void* state_b, void* llr, void* hh, const void* init_w,
-                  int n_init, const void* init_widths, const void* agg_w,
-                  const void* agg_dims, const void* upd_w, int n_upd,
-                  const void* upd_widths, const void* ro_w, const void* ro_dims,
-                  const void* ch_w, const void* ch_dims, int num_it, int dtype,
-                  int b, int t, int h, int w, int d_s, int d_pe, int lo, int hi,
-                  int lp, void* stream) {
+template <bool kWide>
+int cgnn_full_entry(const void* z0, const void* pe, const void* act, void* state_a,
+                    void* state_b, void* llr, void* hh, const void* init_w, int n_init,
+                    const void* init_widths, const void* agg_w, const void* agg_dims,
+                    const void* upd_w, int n_upd, const void* upd_widths, const void* ro_w,
+                    const void* ro_dims, const void* ch_w, const void* ch_dims, int num_it,
+                    int dtype, int b, int t, int h, int w, int d_s, int d_pe, int lo, int hi,
+                    int lp, void* stream) {
   if (num_it < 1 || num_it > kMaxIt || b < 1 || h < 1 || w < 1)
     return (int)cudaErrorInvalidValue;
   StackDesc init;
@@ -785,12 +828,23 @@ int nrx_cgnn_full(const void* z0, const void* pe, const void* act, void* state_a
   IterDesc it[kMaxIt];
   const int* ad = static_cast<const int*>(agg_dims);
   const int* uw = static_cast<const int*>(upd_widths);
+  bool wide = nrx::stack_wide(init);
   for (int i = 0; i < num_it; ++i) {
     const bool last = i == num_it - 1;
     if (!make_iter_desc(&it[i], t, d_s, d_pe, ad + 3 * i, n_upd, uw + (n_upd + 1) * i,
                         last ? static_cast<const int*>(ro_dims) : nullptr,
                         last ? static_cast<const int*>(ch_dims) : nullptr))
       return (int)cudaErrorInvalidValue;
+    wide = wide || iter_wide(it[i]);
+  }
+  if constexpr (kWide) {
+    if (dtype != 1 || !wide) return (int)cudaErrorInvalidValue;
+  } else {
+    if (dtype == 1 && wide)
+      return nrx_cgnn_full_wide(z0, pe, act, state_a, state_b, llr, hh, init_w, n_init,
+                                init_widths, agg_w, agg_dims, upd_w, n_upd, upd_widths, ro_w,
+                                ro_dims, ch_w, ch_dims, num_it, dtype, b, t, h, w, d_s, d_pe,
+                                lo, hi, lp, stream);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* const* aw = static_cast<const void* const*>(agg_w);
@@ -821,18 +875,103 @@ int nrx_cgnn_full(const void* z0, const void* pe, const void* act, void* state_a
     a->lo = lo;
     a->hi = hi;
   };
-  if (dtype == 0) {
-    FullArgs<float> a{};
-    fill(&a);
-    return (int)launch_full<float, false>(a, st);
+  if constexpr (!kWide) {
+    if (dtype == 0) {
+      FullArgs<float> a{};
+      fill(&a);
+      return (int)launch_full<float, false, false>(a, st);
+    }
   }
   if (dtype == 1) {
     FullArgs<__nv_bfloat16> a{};
     fill(&a);
-    return lp ? (int)launch_full<__nv_bfloat16, true>(a, st)
-              : (int)launch_full<__nv_bfloat16, false>(a, st);
+    return lp ? (int)launch_full<__nv_bfloat16, true, kWide>(a, st)
+              : (int)launch_full<__nv_bfloat16, false, kWide>(a, st);
   }
   return (int)cudaErrorInvalidValue;
 }
+
+}  // namespace
+
+extern "C" {
+
+#ifdef NRX_CGNN_WIDE
+
+int nrx_cgnn_iter_wide(const void* s, const void* pe, const void* act, void* out,
+                       void* out2, const void* agg_w, const void* agg_dims,
+                       const void* upd_w, int n_layers, const void* widths,
+                       const void* ro_w, const void* ro_dims, const void* ch_w,
+                       const void* ch_dims, int dtype, int b, int t, int h, int w,
+                       int d_s, int d_pe, int lo, int hi, int lp, void* stream) {
+  return cgnn_iter_entry<true>(s, pe, act, out, out2, agg_w, agg_dims, upd_w, n_layers, widths,
+                               ro_w, ro_dims, ch_w, ch_dims, dtype, b, t, h, w, d_s, d_pe, lo,
+                               hi, lp, stream);
+}
+
+int nrx_cgnn_full_wide(const void* z0, const void* pe, const void* act, void* state_a,
+                       void* state_b, void* llr, void* hh, const void* init_w,
+                       int n_init, const void* init_widths, const void* agg_w,
+                       const void* agg_dims, const void* upd_w, int n_upd,
+                       const void* upd_widths, const void* ro_w, const void* ro_dims,
+                       const void* ch_w, const void* ch_dims, int num_it, int dtype,
+                       int b, int t, int h, int w, int d_s, int d_pe, int lo, int hi,
+                       int lp, void* stream) {
+  return cgnn_full_entry<true>(z0, pe, act, state_a, state_b, llr, hh, init_w, n_init,
+                               init_widths, agg_w, agg_dims, upd_w, n_upd, upd_widths, ro_w,
+                               ro_dims, ch_w, ch_dims, num_it, dtype, b, t, h, w, d_s, d_pe,
+                               lo, hi, lp, stream);
+}
+
+#else
+
+// One CGNN iteration (K3). s: [b, t, h, w, d_s]; pe: [t, h, w, d_pe]; both in
+// the working type (dtype 0: float32, 1: bfloat16), contiguous. act: [b, t]
+// float32 (1 = active). agg_w: packed aggregation MLP, agg_dims {in, hid,
+// out}; upd_w: packed update stack, widths: n_layers + 1 ints (host). State
+// mode (ro_w null): out [b, t, h, w, d_s]. Readout mode: out = llr [b, t, h,
+// w, ro_dims[2]] and, if ch_w is given, out2 = h_hat [b, t, h, w,
+// ch_dims[2]]. Dims arrays live on the host. In bfloat16 every packed
+// weight buffer is followed by its products' B fragments (the wrapper's
+// pack_mlp_mma / pack_stack_mma), and a product takes at most 256 input
+// channels (past 128: the wide instances). lp: the stencil_lp mode
+// (bfloat16; no effect in float32). Launches on `stream`, allocates
+// nothing, does not synchronise; returns cudaGetLastError().
+int nrx_cgnn_iter(const void* s, const void* pe, const void* act, void* out,
+                  void* out2, const void* agg_w, const void* agg_dims,
+                  const void* upd_w, int n_layers, const void* widths,
+                  const void* ro_w, const void* ro_dims, const void* ch_w,
+                  const void* ch_dims, int dtype, int b, int t, int h, int w,
+                  int d_s, int d_pe, int lo, int hi, int lp, void* stream) {
+  return cgnn_iter_entry<false>(s, pe, act, out, out2, agg_w, agg_dims, upd_w, n_layers, widths,
+                                ro_w, ro_dims, ch_w, ch_dims, dtype, b, t, h, w, d_s, d_pe, lo,
+                                hi, lp, stream);
+}
+
+// The whole CGNN in one cooperative launch (K4). z0: [b, t, h, w,
+// init_widths[0]]; pe: [t, h, w, d_pe]; act: [b, t] float32; state_a,
+// state_b: scratch [b, t, h, w, d_s] each; llr: [b, t, h, w, ro_dims[2]];
+// hh: [b, t, h, w, ch_dims[2]]. init_w: packed init stack (n_init layers,
+// init_widths); agg_w, upd_w: host arrays of num_it device pointers to the
+// packed aggregation MLPs and update stacks, agg_dims {in, hid, out} per
+// iteration, upd_widths n_upd + 1 ints per iteration; ro_w, ch_w: packed
+// readout MLPs, in bfloat16 each followed by its B fragments as for
+// nrx_cgnn_iter. Host arrays for every dims argument. lp: the stencil_lp
+// mode, as for nrx_cgnn_iter. Launches on `stream`, allocates nothing, does
+// not synchronise; returns the launch's error.
+int nrx_cgnn_full(const void* z0, const void* pe, const void* act, void* state_a,
+                  void* state_b, void* llr, void* hh, const void* init_w,
+                  int n_init, const void* init_widths, const void* agg_w,
+                  const void* agg_dims, const void* upd_w, int n_upd,
+                  const void* upd_widths, const void* ro_w, const void* ro_dims,
+                  const void* ch_w, const void* ch_dims, int num_it, int dtype,
+                  int b, int t, int h, int w, int d_s, int d_pe, int lo, int hi,
+                  int lp, void* stream) {
+  return cgnn_full_entry<false>(z0, pe, act, state_a, state_b, llr, hh, init_w, n_init,
+                                init_widths, agg_w, agg_dims, upd_w, n_upd, upd_widths, ro_w,
+                                ro_dims, ch_w, ch_dims, num_it, dtype, b, t, h, w, d_s, d_pe,
+                                lo, hi, lp, stream);
+}
+
+#endif  // NRX_CGNN_WIDE
 
 }  // extern "C"

@@ -28,7 +28,7 @@ template <typename T>
 constexpr bool kUseMma = std::is_same<T, __nv_bfloat16>::value;
 
 // What the tensor-core tile takes of a stack: products of at most kMmaMaxK
-// input channels (weights held in registers).
+// input channels (past kMmaRegK, in the kWide instances: stack_wide).
 inline bool mma_fits(const StackDesc& d) {
   for (int l = 0; l < d.n_layers; ++l)
     if (d.widths[l] > kMmaMaxK) return false;

@@ -29,7 +29,9 @@
 //     so close to a bf16 rounding boundary that this could change the
 //     rounded output are summed again in order (see pointwise_mma). The
 //     depthwise taps round exactly as on the CUDA-core path. Rows are
-//     `row_ld(c, true)` elements apart (see there).
+//     `row_ld(c, true)` elements apart (see there). A product of more than
+//     kMmaRegK input channels takes the kWide instances, whose k-steps past
+//     kMmaWideRegK stream their weights from L2 (see pointwise_mma).
 //
 // Three layer modes, chosen at compile time by the kMode template argument
 // (the JAX package's `mxu` and `lp_stencil` arguments of _run_stack):
@@ -58,10 +60,18 @@ constexpr int kMaxLayers = 4;
 constexpr int kThreads = 512;
 constexpr int kMaxTile = 64;
 // Tensor-core path: a warp holds the weights of one n8 tile (8 output
-// channels) for all k-steps of a layer in registers, so a product takes at
-// most kMmaMaxK input channels (8 k-steps x 2 = 16 registers; more, with the
-// rest of a CGNN tile, spill under __launch_bounds__(512)'s 128).
-constexpr int kMmaMaxK = 128;
+// channels) for all k-steps of a layer in registers (8 k-steps x 2 = 16
+// registers; more, with the rest of a CGNN tile, spill under
+// __launch_bounds__(512)'s 128), for at most kMmaRegK input channels. A
+// product of more (e2e_rt's 130-channel update stacks) runs in a kernel
+// instance with kWide set, which holds the first kMmaWideRegK channels'
+// k-steps in registers and streams the B fragments of the rest from device
+// memory (L2) for each M tile (with the full kMmaRegK in registers, the
+// whole-CGNN kernel's wide instance spilled); a product takes at most
+// kMmaMaxK.
+constexpr int kMmaRegK = 128;
+constexpr int kMmaWideRegK = 64;
+constexpr int kMmaMaxK = 256;
 
 // Layer modes of a stack (see the header).
 constexpr int kNormal = 0;
@@ -73,7 +83,7 @@ constexpr int kFold = 2;
 // 8 elements, plus 8 more when that is an even number of 16-byte chunks: an
 // odd chunk count puts the 8 rows of one ldmatrix phase in 8 different
 // 16-byte bank groups (no conflicts). nrx_rt: 18 -> 24, 56 -> 56, 64 -> 72,
-// 114 -> 120, 128 -> 136.
+// 114 -> 120, 128 -> 136; e2e_rt: 10 -> 24, 130 -> 136.
 __host__ __device__ constexpr int row_ld(int c, bool mma) {
   return !mma ? c : ((c + 7) / 8 % 2 == 0 ? (c + 7) / 8 * 8 + 8 : (c + 7) / 8 * 8);
 }
@@ -139,6 +149,14 @@ inline bool make_stack_desc(int n_layers, const int* widths, StackDesc* d,
     off += (folded ? 9 : 1) * (fragments ? frag_size(cin, cout) : cin * cout);
   }
   return true;
+}
+
+// Whether a layer of the stack takes more than kMmaRegK input channels (the
+// kWide instances on the tensor cores).
+inline bool stack_wide(const StackDesc& d) {
+  for (int l = 0; l < d.n_layers; ++l)
+    if (d.widths[l] > kMmaRegK) return true;
+  return false;
 }
 
 __host__ __device__ inline int stack_cmax(const StackDesc& d) {
@@ -262,10 +280,13 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 // share of S = sum_c |a_c w_c|. The in-order f32 sum's rounding errors add
 // as a random walk, ~2^-24 S; its worst case for 128 terms is 2^-17 S; the
 // tensor core's own rounding is not documented. 2^-20 kept every output of
-// nrx_rt bit-identical to the plain version on the H100 (PERF.md).
+// nrx_rt bit-identical to the plain version on the H100 (PERF.md); a
+// product of more than kMmaRegK input channels (more terms, more k-steps)
+// takes twice that, kMmaEtaWide.
 constexpr int kFixPerWarp = 64;
 constexpr int kFixBytes = kThreads / 32 * kFixPerWarp * 2;
-constexpr float kMmaEta = 1.0f / 1048576.0f;  // 2^-20
+constexpr float kMmaEta = 1.0f / 1048576.0f;     // 2^-20
+constexpr float kMmaEtaWide = 1.0f / 524288.0f;  // 2^-19
 // positions a tile may hold: p * 16 + column fits an entry
 constexpr int kMmaMaxP = 4096;
 
@@ -476,9 +497,9 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], uint32_t (&a_abs)[4],
 // o < cout, handed to epi per row as bf16(y + bias[o]) (see the
 // epilogues). src in shared memory, 16-byte aligned, stride a multiple of 8
 // (row_ld); wf: w as B fragments (frag_size values, 16-byte aligned) and
-// bias, in device memory; cin <= kMmaMaxK, P <= kMmaMaxP; fx: the block's
-// re-sum lists (warp w's at fx.base + w * kFixPerWarp). The caller
-// synchronises.
+// bias, in device memory; cin <= kMmaRegK, or with kWide cin <= kMmaMaxK;
+// P <= kMmaMaxP; fx: the block's re-sum lists (warp w's at fx.base + w *
+// kFixPerWarp). The caller synchronises.
 //
 // Each warp takes an n8 tile of output channels, loads its B fragments into
 // registers once (K padded to a multiple of 16 and N to 16 with zeros, in
@@ -494,12 +515,18 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], uint32_t (&a_abs)[4],
 // the warp's list, and 32 at a time the warp sums them again in order, one
 // a lane, reading the weight column from wf. So the rounded outputs are
 // those of `pointwise` and of the plain version, not one ulp off.
-template <typename Epi>
+//
+// kWide (the instances for cin up to kMmaMaxK): the first kMmaWideRegK
+// channels' k-steps as above, then per M tile each further k-step's B
+// fragment from wf (one 8-byte load a lane, from L2), into the same
+// accumulators and magnitude sums, so the bound (kMmaEtaWide past kMmaRegK
+// channels) and the in-order re-sum cover the whole of K.
+template <bool kWide = false, typename Epi>
 __device__ __forceinline__ void pointwise_mma(const __nv_bfloat16* src, int stride, int P,
                                               const __nv_bfloat16* __restrict__ wf,
                                               const __nv_bfloat16* __restrict__ bias,
                                               int cin, int cout, FixList fx, Epi epi) {
-  constexpr int kSteps = kMmaMaxK / 16;
+  constexpr int kSteps = (kWide ? kMmaWideRegK : kMmaRegK) / 16;
   constexpr uint32_t kAbs = 0x7fff7fffu;  // clears both bf16 sign bits
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -509,6 +536,7 @@ __device__ __forceinline__ void pointwise_mma(const __nv_bfloat16* src, int stri
   const int n_tiles = (cout + 7) / 8;
   const int groups = n_tiles >= n_warps ? 1 : n_warps / n_tiles;
   const int m_tiles = (P + 15) / 16;
+  const float eta = kWide && cin > kMmaRegK ? kMmaEtaWide : kMmaEta;
   uint16_t* list = fx.base + warp * kFixPerWarp;
   for (int unit = warp; unit < n_tiles * groups; unit += n_warps) {
     const int nt = unit % n_tiles;
@@ -560,9 +588,23 @@ __device__ __forceinline__ void pointwise_mma(const __nv_bfloat16* src, int stri
           mma_bf16(acc, a, b[s]);
           mma_bf16(mag, a_abs, b_abs);
         }
+        if constexpr (kWide) {
+          // the k-steps past the registers' (k-step s's words 64 s on)
+          const uint2* bs = frag + 2 * lane + (nt & 1);
+#pragma unroll 1
+          for (int s = kSteps; s < steps; ++s) {
+            const uint2 v = __ldg(bs + (size_t)s * 64);
+            const uint32_t bw[2] = {v.x, v.y};
+            const uint32_t b_abs[2] = {v.x & kAbs, v.y & kAbs};
+            uint32_t a[4], a_abs[4];
+            load_a(a, a_abs, row, s, steps, cin);
+            mma_bf16(acc, a, bw);
+            mma_bf16(mag, a_abs, b_abs);
+          }
+        }
         // C fragment: rows g and g + 8 (hf), columns o and o + 1 (registers
         // 2 hf and 2 hf + 1)
-        need = certify_tile(acc, mag, kMmaEta, m0, P, o, cout, bias, epi);
+        need = certify_tile(acc, mag, eta, m0, P, o, cout, bias, epi);
       }
       // queue the flagged (p, o); re-sum whenever 32 are queued, and the
       // rest after the last tile
@@ -586,8 +628,9 @@ constexpr float kFoldEta = 1.0f / 262144.0f;  // 2^-18
 // sum of the earlier taps in tap order; handed to epi per row as bf16(y +
 // bias[o]) as pointwise_mma does. a: [H][E][lda] in shared memory (columns
 // c_lo - 1 .. c_lo + wl all in [0, E)); wf: the layer's nine fragment sets
-// W_0..W_8, frag_size(cin, cout) values each; cin <= kMmaMaxK, H * wl <=
-// kMmaMaxP. The caller synchronises.
+// W_0..W_8, frag_size(cin, cout) values each; cin <= kMmaRegK (kWide: <=
+// kMmaMaxK, its k-steps past kMmaWideRegK streamed as pointwise_mma's),
+// H * wl <= kMmaMaxP. The caller synchronises.
 //
 // As pointwise_mma, with the A fragments of tap s loaded by ldmatrix from
 // the shifted rows (a lane whose row falls outside [0, H) addresses a row
@@ -599,13 +642,13 @@ constexpr float kFoldEta = 1.0f / 262144.0f;  // 2^-18
 // taps. Outputs within kFoldEta * S of a bf16 rounding boundary are summed
 // again in order: per tap, over c in order from zero, then added to the sum
 // of the earlier taps (the JAX package's _sepconv_mxu order).
-template <typename Epi>
+template <bool kWide = false, typename Epi>
 __device__ __forceinline__ void folded_mma(const __nv_bfloat16* a, int lda, int H, int E,
                                            int wl, int c_lo,
                                            const __nv_bfloat16* __restrict__ wf,
                                            const __nv_bfloat16* __restrict__ bias,
                                            int cin, int cout, FixList fx, Epi epi) {
-  constexpr int kSteps = kMmaMaxK / 16;
+  constexpr int kSteps = (kWide ? kMmaWideRegK : kMmaRegK) / 16;
   constexpr int kMt = 2;  // M tiles a pass over the taps' fragments
   constexpr uint32_t kAbs = 0x7fff7fffu;
   const int lane = threadIdx.x & 31;
@@ -708,6 +751,28 @@ __device__ __forceinline__ void folded_mma(const __nv_bfloat16* a, int lda, int 
             mma_bf16(t, af, b[st]);
             mma_bf16(mag[j], aa, b_abs);
           }
+          if constexpr (kWide) {
+            // the tap's k-steps past the registers', from L2 per M tile
+            const uint2* bs = frag + (size_t)s * tap_words + 2 * lane + (nt & 1);
+#pragma unroll 1
+            for (int st = kSteps; st < steps; ++st) {
+              const uint2 v = __ldg(bs + (size_t)st * 64);
+              const uint32_t bw[2] = {v.x, v.y};
+              const uint32_t b_abs[2] = {v.x & kAbs, v.y & kAbs};
+              uint32_t af[4], aa[4];
+              load_a(af, aa, row, st, steps, cin);
+              af[0] &= keep0;
+              af[2] &= keep0;
+              af[1] &= keep1;
+              af[3] &= keep1;
+              aa[0] &= keep0;
+              aa[2] &= keep0;
+              aa[1] &= keep1;
+              aa[3] &= keep1;
+              mma_bf16(t, af, bw);
+              mma_bf16(mag[j], aa, b_abs);
+            }
+          }
 #pragma unroll
           for (int r = 0; r < 4; ++r) acc[j][r] = __fadd_rn(acc[j][r], t[r]);
         }
@@ -800,8 +865,9 @@ __device__ __forceinline__ void folded_fma(const T* a, int lda, int H, int E, in
 }
 
 // pointwise on the chosen path: w [cin][cout] on the CUDA cores, its
-// fragments wf, the bias and fx on the tensor cores (see pointwise_mma).
-template <typename T, bool kMma, typename Epi>
+// fragments wf, the bias and fx on the tensor cores (see pointwise_mma;
+// kWide: products past kMmaRegK input channels).
+template <typename T, bool kMma, bool kWide = false, typename Epi>
 __device__ __forceinline__ void product(const T* src, int stride, int P,
                                         const T* __restrict__ w,
                                         const T* __restrict__ wf,
@@ -809,7 +875,7 @@ __device__ __forceinline__ void product(const T* src, int stride, int P,
                                         FixList fx, Epi epi) {
   if constexpr (kMma) {
     static_assert(std::is_same<T, __nv_bfloat16>::value, "tensor cores: bf16 only");
-    pointwise_mma(src, stride, P, wf, bias, cin, cout, fx, epi);
+    pointwise_mma<kWide>(src, stride, P, wf, bias, cin, cout, fx, epi);
   } else {
     pointwise<T>(src, stride, P, w, cin, cout, epi);
   }
@@ -911,12 +977,14 @@ __device__ __forceinline__ void depthwise_pairs(const __nv_bfloat16* a, __nv_bfl
 // holds the output [H][E][widths[L]], valid on the core columns [L, E - L):
 // A, or in the folded mode (whose layers read one buffer and write the
 // other) A or B by the parity of L. g0: grid column of buffer column 0;
-// [vlo, vhi): valid grid columns.
-template <typename T, bool kMma = false, int kMode = kNormal>
+// [vlo, vhi): valid grid columns. kWide: layers of more than kMmaRegK input
+// channels (tensor cores).
+template <typename T, bool kMma = false, int kMode = kNormal, bool kWide = false>
 __device__ T* run_stack(T* buf_a, T* buf_b, const T* __restrict__ wts,
                         const StackDesc& d, int H, int E, int g0, int vlo,
                         int vhi, FixList fx = FixList{}) {
   static_assert(kMode != kLp || kMma, "stencil_lp: bf16 tiles only");
+  static_assert(!kWide || kMma, "kWide: tensor-core tiles only");
   const int L = d.n_layers;
   T* in = buf_a;
   T* other = buf_b;
@@ -936,7 +1004,8 @@ __device__ T* run_stack(T* buf_a, T* buf_b, const T* __restrict__ wts,
       // A product over the nine shifted inputs: in -> other [h][col][cout].
       const StackEpi<T> epi{other, bias, E, wl, c_lo, g0, vlo, vhi, ld_out, l < L - 1};
       if constexpr (kMma) {
-        folded_mma(in, ld_in, H, E, wl, c_lo, wts + d.frag_off[l], bias, cin, cout, fx, epi);
+        folded_mma<kWide>(in, ld_in, H, E, wl, c_lo, wts + d.frag_off[l], bias, cin, cout, fx,
+                          epi);
       } else {
         folded_fma<T>(in, ld_in, H, E, wl, c_lo, wts + d.frag_off[l], cin, cout, epi);
       }
@@ -975,8 +1044,8 @@ __device__ T* run_stack(T* buf_a, T* buf_b, const T* __restrict__ wts,
 
     // Pointwise + bias (+ ReLU on hidden layers): B [P][cin] -> A [h][col][cout].
     const T* pwf = kMma ? wts + d.frag_off[l] : nullptr;
-    product<T, kMma>(buf_b, ld_in, P, pw, pwf, bias, cin, cout, fx,
-                     StackEpi<T>{buf_a, bias, E, wl, c_lo, g0, vlo, vhi, ld_out, l < L - 1});
+    product<T, kMma, kWide>(buf_b, ld_in, P, pw, pwf, bias, cin, cout, fx,
+                            StackEpi<T>{buf_a, bias, E, wl, c_lo, g0, vlo, vhi, ld_out, l < L - 1});
     __syncthreads();
   }
   return in;
@@ -986,8 +1055,8 @@ __device__ T* run_stack(T* buf_a, T* buf_b, const T* __restrict__ wts,
 // image n of x [N, H, W, widths[0]] -> out [N, H, W, widths[L]], core
 // columns [tile * w_tile, (tile + 1) * w_tile). Shared memory: on the
 // tensor-core path the re-sum list (kFixBytes), then A and B, each
-// [H][w_tile + 2L][row_ld(cmax, kMma)].
-template <typename T, bool kMma = false, int kMode = kNormal>
+// [H][w_tile + 2L][row_ld(cmax, kMma)]. kWide: as run_stack's.
+template <typename T, bool kMma = false, int kMode = kNormal, bool kWide = false>
 __device__ void stack_tile(const T* x, const T* __restrict__ wts, T* out,
                            const StackDesc& d, int H, int W, int w_tile,
                            int lo, int hi, int n, int tile,
@@ -1029,7 +1098,7 @@ __device__ void stack_tile(const T* x, const T* __restrict__ wts, T* out,
     }
   }
   __syncthreads();
-  const T* res = run_stack<T, kMma, kMode>(buf_a, buf_b, wts, d, H, E, g0, vlo, vhi, fx);
+  const T* res = run_stack<T, kMma, kMode, kWide>(buf_a, buf_b, wts, d, H, E, g0, vlo, vhi, fx);
 
   const int cl = d.widths[L];
   const int ldl = row_ld(cl, kMma);

@@ -39,10 +39,15 @@
 // apart (18 -> 24, 114 -> 120, 128 -> 136, 56 -> 56), and the warps' re-sum
 // lists (nrx::kFixBytes) open the dynamic shared memory: W_t = 24 (E = 30)
 // in 230,528 B at nrx_rt, 66 tiles over 1584 columns, so one batch-1 slot
-// (N = 2) is 132 blocks, one wave at one block per SM. The tile takes at
-// most nrx::kMmaMaxK = 128 input channels a layer; the wrapper refuses a
-// wider bf16 stack. float32 (the eval path) keeps the CUDA-core tile (16
-// warps of 4x4 f32 FMA register tiles, W_t = 10), bit for bit.
+// (N = 2) is 132 blocks, one wave at one block per SM. A stack with a layer
+// of more than nrx::kMmaRegK = 128 input channels (e2e_rt's and e2e_large's
+// update stacks, 130 -> 128 -> 128 -> 64: W_t = 24 too, as rows of 130 and
+// 128 channels take the same 136-element stride) runs the kWide instance of
+// its mode, whose k-steps past 128 stream their B fragments from L2 per M
+// tile; the tile takes at most nrx::kMmaMaxK = 256 input channels a layer,
+// and the wrapper refuses a wider bf16 stack. float32 (the eval path) keeps
+// the CUDA-core tile (16 warps of 4x4 f32 FMA register tiles, W_t = 10),
+// bit for bit.
 //
 // Layer modes (nrx_tile.cuh; the JAX package's `lp_stencil` and `mxu`
 // arguments, one kernel instance each): normal; stencil_lp (bf16: the taps
@@ -75,22 +80,25 @@ namespace {
 
 using nrx::StackDesc;
 
-template <typename T, int kMode>
+template <typename T, int kMode, bool kWide>
 __global__ void __launch_bounds__(nrx::kThreads)
     sepconv_stack_kernel(const T* __restrict__ x, const T* __restrict__ wts,
                          T* __restrict__ out, StackDesc d, int H, int W,
                          int w_tile, int lo, int hi) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  nrx::stack_tile<T, nrx::kUseMma<T>, kMode>(x, wts, out, d, H, W, w_tile, lo, hi,
-                                             blockIdx.y, blockIdx.x, smem_raw);
+  nrx::stack_tile<T, nrx::kUseMma<T>, kMode, kWide>(x, wts, out, d, H, W, w_tile, lo, hi,
+                                                    blockIdx.y, blockIdx.x, smem_raw);
 }
 
-template <typename T, int kMode>
+template <typename T, int kMode, bool kWide = false>
 cudaError_t launch(const void* x, const void* w, void* out, const StackDesc& d,
                    int n, int h, int wc, int lo, int hi, cudaStream_t stream) {
   static nrx::KernelSetup setup[nrx::kMaxDevices];
   constexpr bool kMma = nrx::kUseMma<T>;
   if (kMma && !nrx::mma_fits(d)) return cudaErrorInvalidValue;
+  if constexpr (kMma && !kWide) {
+    if (nrx::stack_wide(d)) return launch<T, kMode, true>(x, w, out, d, n, h, wc, lo, hi, stream);
+  }
   int w_tile = 0;
   size_t smem = 0;
   {
@@ -102,11 +110,11 @@ cudaError_t launch(const void* x, const void* w, void* out, const StackDesc& d,
     w_tile = nrx::stack_w_tile(d, h, wc, sizeof(T), ds.optin, kMma);
     if (w_tile < 1) return cudaErrorInvalidValue;
     smem = nrx::stack_smem(d, h, w_tile, sizeof(T), kMma);
-    err = nrx::allow_smem(sepconv_stack_kernel<T, kMode>, setup[dev], smem);
+    err = nrx::allow_smem(sepconv_stack_kernel<T, kMode, kWide>, setup[dev], smem);
     if (err != cudaSuccess) return err;
   }
   dim3 grid((wc + w_tile - 1) / w_tile, n);
-  sepconv_stack_kernel<T, kMode><<<grid, nrx::kThreads, smem, stream>>>(
+  sepconv_stack_kernel<T, kMode, kWide><<<grid, nrx::kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out), d,
       h, wc, w_tile, lo, hi);
   return cudaGetLastError();
@@ -120,7 +128,7 @@ extern "C" {
 // contiguous in the working type (dtype 0: float32, 1: bfloat16). w: the
 // packed stack, per layer dw [9][c_in], pw [c_in][c_out], b [c_out] in the
 // same type; in bfloat16 followed by every layer's B fragments (the
-// wrapper's pack_stack_mma), and no layer wider than 128 input channels.
+// wrapper's pack_stack_mma), and no layer wider than 256 input channels.
 // mode: 0 normal, 1 stencil_lp, 2 folded taps; the folded mode reads the
 // wrapper's pack_stack_folded (the same buffer followed by every layer's
 // nine folded matrices: B fragments in bfloat16, rows in float32).

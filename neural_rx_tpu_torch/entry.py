@@ -124,15 +124,18 @@ def make_receiver(training: bool = False, nrx_dtype=NRX_DTYPE,
 
 
 def pack_params(params: dict, dtype=NRX_DTYPE) -> dict:
-    """params with every conv stack and MLP of params["cgnn"] packed once
-    for the kernels in `dtype` (the packed buffers are cached in the tree:
-    pack trained parameters after their last update)."""
+    """params with every separable conv stack and one-hidden-layer MLP of
+    params["cgnn"] (what the kernels take) packed once for the kernels in
+    `dtype` (the packed buffers are cached in the tree: pack trained
+    parameters after their last update)."""
     cgnn = params["cgnn"]
     for stack in cgnn["s_init"] + [it["update"] for it in cgnn["iterations"]]:
-        pack_stack(stack, dtype)
+        if "dw" in stack["out"]:
+            pack_stack(stack, dtype)
     for mlp in [it["agg"] for it in cgnn["iterations"]] + cgnn[
             "readout_llrs"] + [cgnn["readout_chest"]]:
-        pack_mlp(mlp, dtype)
+        if len(mlp["hidden"]) == 1:
+            pack_mlp(mlp, dtype)
     return params
 
 
@@ -277,7 +280,8 @@ def mixed_mcs_entry(config: str = "nrx_rt_var_mcs", mcs_order=(0, 1),
 
 def train_entry(config: str = "nrx_rt", device="cuda",
                 batch: int | None = None, seed: int = 0,
-                data_dir: str | None = None):
+                data_dir: str | None = None,
+                overrides: dict | None = None):
     """Returns (fn, example_args): fn(params, generator) -> (loss_data,
     loss_chest, loss), 0-dim device tensors, one training step of `config`
     (`E2EModel(training=True)`, its training channel and width) with the
@@ -285,9 +289,11 @@ def train_entry(config: str = "nrx_rt", device="cuda",
     readout and weight, multiloss, train_tx) at `batch` (default: the
     phase's), updating params in place with Adam (optax's defaults, created
     here); example_args = (seed-made trainable params, a generator on
-    `device` seeded with `seed`); data_dir as `mc_entry`'s."""
+    `device` seeded with `seed`); data_dir as `mc_entry`'s; overrides as
+    `Parameters`' (e.g. {"layer_type_conv": "conv"})."""
     device = resolve_device(device)
-    p = Parameters(config, training=True, data_dir=data_dir)
+    p = Parameters(config, training=True, data_dir=data_dir,
+                   overrides=overrides)
     model = E2EModel(p, training=True, device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = trainable(model.init_params(gen))

@@ -38,9 +38,9 @@ import ctypes
 import torch
 
 from . import _build
-from .sepconv import (_DTYPE_CODES, _layers, _valid_range, lp_default,
-                      mxu_default, sepconv_stack_reference, stack_weights,
-                      with_fragments)
+from .sepconv import (_DTYPE_CODES, _layers, _valid_range, check_mma_k,
+                      lp_default, mxu_default, sepconv_stack_reference,
+                      stack_weights, with_fragments)
 
 MAX_ITERATIONS = 8  # K4: csrc/cgnn_iter.cu kMaxIt
 MAX_USERS = 8
@@ -279,6 +279,7 @@ def _launch_iteration(it_p, s, pe, active_tx, sc_valid, readout_p, chest_p,
     b, t, h, w, d_s = s.shape
     agg, widths = _iter_shapes(it_p, s.shape, pe, active_tx)
     dev, dtype = s.device, s.dtype
+    products = widths[:-1] + list(agg[:2])
     pe = _on(pe, dev, "pe").to(dtype).contiguous()
     act = _on(active_tx, dev, "active_tx").float().contiguous()
     agg_w = _on(_mlp_weights(it_p["agg"], dtype), dev, "weights")
@@ -291,14 +292,18 @@ def _launch_iteration(it_p, s, pe, active_tx, sc_valid, readout_p, chest_p,
         out2 = None
     else:
         ro_dims = _ints(_readout_dims(readout_p, d_s, "readout"))
+        products += list(ro_dims)[:2]
         ro_w = _on(_mlp_weights(readout_p, dtype), dev, "weights")
         out = torch.empty((b, t, h, w, ro_dims[2]), dtype=dtype, device=dev)
         out2 = None
         if chest_p is not None:
             ch_dims = _ints(_readout_dims(chest_p, d_s, "chest"))
+            products += list(ch_dims)[:2]
             ch_w = _on(_mlp_weights(chest_p, dtype), dev, "weights")
             out2 = torch.empty((b, t, h, w, ch_dims[2]), dtype=dtype,
                                device=dev)
+    if dtype == torch.bfloat16:
+        check_mma_k(products, "fused_iteration")
     lib = _build.load()
     rc = lib.nrx_cgnn_iter(
         s.data_ptr(), pe.data_ptr(), act.data_ptr(), out.data_ptr(),
@@ -344,6 +349,9 @@ def _launch_full(params, z0, pe, active_tx, sc_valid, num_it,
     ro_p, ch_p = params["readout_llrs"][0], params["readout_chest"]
     ro_dims = _readout_dims(ro_p, d_s, "readout")
     ch_dims = _readout_dims(ch_p, d_s, "chest")
+    if dtype == torch.bfloat16:
+        check_mma_k(init_widths[:-1] + aggs + upd_widths + list(ro_dims[:2])
+                    + list(ch_dims[:2]), "fused_cgnn_full")
     pe = _on(pe, dev, "pe").to(dtype).contiguous()
     act = _on(active_tx, dev, "active_tx").float().contiguous()
     init_w = _on(stack_weights(init_p, dtype), dev, "weights")

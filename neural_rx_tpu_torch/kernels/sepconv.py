@@ -27,7 +27,9 @@ as `pack_stack`; bfloat16, whose tile runs its products on the tensor cores
 (as the CGNN kernels' bfloat16 tiles do), as `pack_stack_mma`, the same
 buffer followed by every layer's pointwise weights in MMA fragment order
 (`mma_fragments`). That tile takes at most `MMA_MAX_K` input channels a
-layer: the wrapper refuses a wider bfloat16 stack. The folded mode reads
+layer (past 128, e2e_rt's 130-channel update stacks, in kernel instances
+that stream the weights of the further channels from L2): the wrapper
+refuses a wider bfloat16 stack. The folded mode reads
 `pack_stack_folded`: the same buffer followed by every layer's nine folded
 matrices (fragments in bfloat16, rows in float32).
 
@@ -46,7 +48,7 @@ import torch.nn.functional as F
 from . import _build
 
 MAX_LAYERS = 4
-MMA_MAX_K = 128  # nrx::kMmaMaxK: input channels of a tensor-core product
+MMA_MAX_K = 256  # nrx::kMmaMaxK: input channels of a tensor-core product
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the kernel's `mode` argument (csrc/sepconv_stack.cu)
@@ -75,6 +77,15 @@ def lp_default(lp_stencil: bool | None) -> bool:
 def mode_of(mxu: bool, lp_stencil: bool) -> str:
     """The mode a layer runs in: the folded form wins over the stencil."""
     return "mxu" if mxu else "lp" if lp_stencil else "normal"
+
+
+def check_mma_k(in_channels, what: str) -> None:
+    """Raises ValueError if a product of the bfloat16 (tensor-core) tile
+    would take more than MMA_MAX_K input channels."""
+    if max(in_channels) > MMA_MAX_K:
+        raise ValueError(f"{what}: the bfloat16 tile takes at most "
+                         f"{MMA_MAX_K} input channels a product, got "
+                         f"{list(in_channels)}")
 
 
 def _layers(p):
@@ -265,9 +276,8 @@ def _launch(p, x: torch.Tensor, sc_valid, mode: str = "normal"
         raise ValueError(f"at most {MAX_LAYERS} layers, got {len(layers)}")
     if any(int(lp["pw"].shape[0]) != c for lp, c in zip(layers, widths)):
         raise ValueError(f"channel widths do not chain: {widths}")
-    if x.dtype == torch.bfloat16 and max(widths[:-1]) > MMA_MAX_K:
-        raise ValueError(f"the bfloat16 tile takes at most {MMA_MAX_K} "
-                         f"input channels a layer, got {widths}")
+    if x.dtype == torch.bfloat16:
+        check_mma_k(widths[:-1], "sepconv_stack")
     w = stack_weights(p, x.dtype, mode)
     if w.device != x.device:
         raise ValueError(f"weights on {w.device}, activations on {x.device}")

@@ -19,12 +19,15 @@ the whole CGNN in one kernel (`fused_full`, both in
 `kernels/cgnn_iter.py`). A fused route runs its CUDA kernel, or its plain
 version when `CGNNConfig.kernels` is False; `conv_mxu` and `stencil_lp`
 pick the kernels' layer modes (`kernels/sepconv.py`) as the JAX package
-routes them. Training (`training=True`) takes none of them, whatever the
+routes them; a route the model does not fit falls back as in the JAX
+package. Training (`training=True`) takes none of them, whatever the
 flags say: it runs the plain layers under autograd, as the JAX package
 trains on its XLA layers (its Pallas kernels have no VJP). The plain
 layers' separable conv has the JAX package's two lowerings: the stack's
 plain version, or with `NRX_SEPCONV_FOLDED=1` (`sepconv_folded`) one full
 3x3 convolution of the folded kernel dw[:, :, 0, :, None] * pw per layer.
+Full 3x3 conv layers (`conv_stack`) have no kernel and take the same
+im2col product on every route.
 `cgnn_apply(mesh=)` runs on a subcarrier shard of a mesh's grid axis
 (`dist/`).
 """
@@ -162,15 +165,13 @@ def sepconv_folded() -> bool:
     return os.environ.get("NRX_SEPCONV_FOLDED", "0") == "1"
 
 
-def sepconv_stack_folded(p, x: torch.Tensor, sc_valid=None) -> torch.Tensor:
-    """The stack by the JAX package's folded lowering of its XLA layers: per
-    layer one full 3x3 "SAME" convolution of x with the kernel
-    dw[:, :, 0, :, None] * pw (both in x.dtype, the product rounded there),
-    computed as one product of the nine shifted copies of x (im2col,
-    [.., 9 C]) with the kernel as [9 C, O], plus the bias in x.dtype; ReLU
-    on hidden layers. Differentiable: the gradients reach dw and pw through
-    the fold. Columns outside the valid range are zeroed after every layer
-    (the input as given, as the JAX package's XLA layers take it)."""
+def _im2col_stack(p, x: torch.Tensor, sc_valid, kernel) -> torch.Tensor:
+    """A stack of full 3x3 "SAME" convolutions, per layer one product of
+    the nine shifted copies of x (im2col, [.., 9 C]) with kernel(layer,
+    x.dtype) [3, 3, C, O] as [9 C, O], plus the bias in x.dtype; ReLU on
+    hidden layers. Columns outside the valid range are zeroed after every
+    layer (the input as given, as the JAX package's XLA layers take it).
+    Differentiable."""
     dtype = x.dtype
     n, h, w, _ = x.shape
     lo, hi = _valid_range(sc_valid, w)
@@ -178,7 +179,7 @@ def sepconv_stack_folded(p, x: torch.Tensor, sc_valid=None) -> torch.Tensor:
     valid = ((col >= lo) & (col < hi))[None, None, :, None].to(dtype)
     layers = _layers(p)
     for li, lp in enumerate(layers):
-        k = lp["dw"].to(dtype)[:, :, 0, :, None] * lp["pw"].to(dtype)
+        k = kernel(lp, dtype)
         xp = F.pad(x, (0, 0, 1, 1, 1, 1))
         cols = torch.cat([xp[:, dy:dy + h, dx:dx + w]
                           for dy in range(3) for dx in range(3)], dim=-1)
@@ -189,18 +190,39 @@ def sepconv_stack_folded(p, x: torch.Tensor, sc_valid=None) -> torch.Tensor:
     return x
 
 
+def sepconv_stack_folded(p, x: torch.Tensor, sc_valid=None) -> torch.Tensor:
+    """The separable stack by the JAX package's folded lowering of its XLA
+    layers: per layer one full 3x3 convolution with the kernel
+    dw[:, :, 0, :, None] * pw (both in x.dtype, the product rounded there),
+    by `_im2col_stack`. The gradients reach dw and pw through the fold."""
+    return _im2col_stack(
+        p, x, sc_valid,
+        lambda lp, dt: lp["dw"].to(dt)[:, :, 0, :, None] * lp["pw"].to(dt))
+
+
+def conv_stack(p, x: torch.Tensor, sc_valid=None) -> torch.Tensor:
+    """A stack of full 3x3 conv layers {"w": [3, 3, C, O], "b": [O]} (layer
+    type "conv"; the JAX package's `_apply_conv`, which no Pallas kernel
+    computes), by `_im2col_stack` with w in x.dtype."""
+    return _im2col_stack(p, x, sc_valid, lambda lp, dt: lp["w"].to(dt))
+
+
 def _apply_conv_stack(p, x, fused: bool = False, sc_valid=None, mesh=None,
                       kernels: bool = True, mxu: bool | None = None,
-                      lp_stencil: bool | None = None):
-    """Separable-conv stack, ReLU after each hidden layer. fused: through
-    the stack kernel in the modes mxu / lp_stencil (None: the env knobs),
-    or with kernels=False its plain version in the same modes; else the
-    plain layers (`sepconv_stack_folded` under `sepconv_folded()`, else the
-    stack's plain version). sc_valid (optional): columns outside the valid
-    range are re-zeroed per layer (exact pad-to-bucket dispatch). mesh
-    (grid axis > 1): x is a subcarrier shard, extended by its neighbours'
-    halos first."""
-    if fused:
+                      lp_stencil: bool | None = None,
+                      layer_type: str = "sepconv"):
+    """Conv stack of `layer_type`, ReLU after each hidden layer. Separable
+    layers: fused, through the stack kernel in the modes mxu / lp_stencil
+    (None: the env knobs), or with kernels=False its plain version in the
+    same modes; else the plain layers (`sepconv_stack_folded` under
+    `sepconv_folded()`, else the stack's plain version). Full 3x3 layers
+    ("conv") take `conv_stack` whatever `fused` says, as the JAX package's
+    do. sc_valid (optional): columns outside the valid range are re-zeroed
+    per layer (exact pad-to-bucket dispatch). mesh (grid axis > 1): x is a
+    subcarrier shard, extended by its neighbours' halos first."""
+    if layer_type == "conv":
+        stack = conv_stack
+    elif fused:
         stack = functools.partial(
             fused_conv_stack if kernels else sepconv_stack_reference,
             mxu=mxu_default(mxu), lp_stencil=lp_default(lp_stencil))
@@ -211,6 +233,10 @@ def _apply_conv_stack(p, x, fused: bool = False, sc_valid=None, mesh=None,
     if mesh is not None:
         return fused_sharded.sharded_stack(stack, p, x, mesh)
     return stack(p, x, sc_valid=sc_valid)
+
+
+def _one_hidden(mlp) -> bool:
+    return len(mlp["hidden"]) == 1
 
 
 def _apply_mlp(p, x):
@@ -233,7 +259,8 @@ def _aggregate_user_states(p, s, active_tx, dtype):
 
 
 def _update_state(p, s, a, pe, fused: bool = False, sc_valid=None,
-                  mesh=None, kernels: bool = True):
+                  mesh=None, kernels: bool = True,
+                  layer_type: str = "sepconv"):
     """Conv state update with residual skip. A fused stack here takes no
     mode argument, as in the JAX package: its modes come from the env
     knobs alone."""
@@ -241,7 +268,8 @@ def _update_state(p, s, a, pe, fused: bool = False, sc_valid=None,
     pe_b = pe[None].expand((b,) + pe.shape)
     z = torch.cat([a, s, pe_b], dim=-1)
     z = z.reshape((b * t,) + z.shape[2:])
-    z = _apply_conv_stack(p, z, fused, sc_valid, mesh, kernels)
+    z = _apply_conv_stack(p, z, fused, sc_valid, mesh, kernels,
+                          layer_type=layer_type)
     return z.reshape((b, t) + z.shape[1:]) + s
 
 
@@ -261,18 +289,24 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
 
     The initial state is one init stack per MCS, each times its column of
     mcs_ue_mask and summed in MCS order, or with `var_mcs_masking` one
-    shared init stack without the mask. Routes and their MCS gates are the
-    JAX package's: `fused_full` runs the whole CGNN in one kernel from the
-    stacked inputs (without `mcs_ue_mask`, as there) for one MCS without
-    masking; `fused_iteration` runs each iteration in the iteration kernel,
-    and with `fused_readout` (one MCS, no masking) the last one returns
-    both readouts. Otherwise the readouts are plain: one LLR readout per
-    MCS, or with masking the single readout cut to each MCS's bits. A
-    fused route takes only one-hidden-layer aggregation and readout MLPs
-    (those of every shipped configuration) and raises otherwise, where the
-    JAX package falls back to its plain layers. With `training` no fused
-    route is taken (plain layers, differentiable), and with
-    `apply_multiloss` the readouts follow every iteration.
+    shared init stack without the mask. Routes and their gates are the
+    JAX package's; a route whose gate fails falls back to the next, down
+    to the plain layers. `fused_full` runs the whole CGNN in one kernel
+    from the stacked inputs (without `mcs_ue_mask`, as there) for one MCS
+    without masking, separable layers, no `apply_multiloss`, and
+    one-hidden-layer aggregation MLPs (every iteration run) and readouts.
+    `fused_iteration` runs each iteration whose aggregation MLP has one
+    hidden layer in the iteration kernel (separable layers), and with
+    `fused_readout` (one MCS, no masking, no `apply_multiloss`,
+    one-hidden-layer readouts) the last one returns both readouts.
+    Otherwise the readouts are plain: one LLR readout per MCS, or with
+    masking the single readout cut to each MCS's bits. `fused_convs` runs
+    separable stacks in the stack kernel; full 3x3 layers
+    (`layer_type_conv` "conv") always take `conv_stack`, for which no
+    kernel exists, as the JAX package's take its XLA layers. With
+    `training` no fused route is taken (plain layers, differentiable), and
+    with `training` and `apply_multiloss` the readouts follow every
+    iteration.
 
     Layer modes, routed as in the JAX package: `fused_full` takes
     `stencil_lp` (never the folded mode); the init stacks take both
@@ -303,9 +337,8 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
     num_it = cfg.num_it if num_it is None else num_it
     if not 1 <= num_it <= cfg.num_it:
         raise ValueError(f"num_it must lie in 1..{cfg.num_it}, got {num_it}")
-    if cfg.layer_type_conv != "sepconv":
-        raise NotImplementedError(
-            f"layer type {cfg.layer_type_conv!r} is not ported")
+    if cfg.layer_type_conv not in ("sepconv", "conv"):
+        raise ValueError(f"unknown layer type {cfg.layer_type_conv!r}")
     if (h_hat is None) == cfg.initial_chest:
         raise ValueError("h_hat is the CGNN's input exactly when "
                          "cfg.initial_chest")
@@ -318,9 +351,18 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
     t = pe.shape[0]
     n_sc = y.shape[2]
     its = params["iterations"][:num_it]
+    layer_type = cfg.layer_type_conv
+    sep = layer_type == "sepconv"
     single = cfg.num_mcs == 1 and not cfg.var_mcs_masking
+    # the fused kernels' MLPs have one hidden layer; the JAX package gates
+    # each fused route on that and falls back to its plain layers
+    fused_readouts = (not apply_multiloss and single
+                      and _one_hidden(params["readout_llrs"][0])
+                      and _one_hidden(params["readout_chest"]))
+    fused_full = (cfg.fused_full and not training and sep and fused_readouts
+                  and all(_one_hidden(it_p["agg"]) for it_p in its))
     fused_convs = cfg.fused_convs and not training
-    fused_iteration = cfg.fused_iteration and not training
+    fused_iteration = cfg.fused_iteration and not training and sep
     mxu, lp = mxu_default(cfg.conv_mxu), lp_default(cfg.stencil_lp)
 
     sc_mask = None
@@ -358,7 +400,7 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
     z0 = torch.cat(feats, dim=-1)
     z0_flat = z0.reshape((b * t,) + z0.shape[2:])
 
-    if cfg.fused_full and single and not training and mesh is None:
+    if fused_full and mesh is None:
         full = (cgnn_iter.fused_cgnn_full if cfg.kernels
                 else cgnn_iter.fused_cgnn_full_reference)
         llr, h_out = full(params, z0, pe, active_tx, sc_valid, num_it,
@@ -367,16 +409,15 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
 
     # K4's route on a shard: K1, then K3, the last iteration with readouts
     # (K4 never takes the folded mode)
-    full_on_shard = cfg.fused_full and single and not training
-    fused_convs = fused_convs or full_on_shard
-    fused_iteration = fused_iteration or full_on_shard
-    fused_readout = cfg.fused_readout or full_on_shard
-    if full_on_shard:
+    fused_convs = fused_convs or fused_full
+    fused_iteration = fused_iteration or fused_full
+    fused_readout = (cfg.fused_readout and fused_readouts) or fused_full
+    if fused_full:
         mxu = False
 
     def run_init(p):
         s = _apply_conv_stack(p, z0_flat, fused_convs, sc_valid, mesh,
-                              cfg.kernels, mxu, lp)
+                              cfg.kernels, mxu, lp, layer_type)
         return s.reshape((b, t) + s.shape[1:])
 
     if cfg.var_mcs_masking:
@@ -398,10 +439,13 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
 
     if fused_iteration and mxu:
         # the folded mode is the stack kernel's alone: the iterations take
-        # the non-fused route, as in the JAX package
-        warnings.warn("fused_iteration requested with conv_mxu resolved "
-                      "true; conv_mxu is unsupported in the iteration "
-                      "kernel: using the non-fused iteration route instead")
+        # the non-fused route, as in the JAX package, which warns only
+        # where the kernel could otherwise have taken every iteration
+        if all(_one_hidden(it_p["agg"]) for it_p in its):
+            warnings.warn("fused_iteration requested with conv_mxu "
+                          "resolved true; conv_mxu is unsupported in the "
+                          "iteration kernel: using the non-fused iteration "
+                          "route instead")
         fused_iteration = False
     iterate = (functools.partial(cgnn_iter.fused_iteration, mxu=False,
                                  lp_stencil=lp) if cfg.kernels
@@ -415,8 +459,8 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
                 it_p, s, pe, active_tx, mesh, *readout, iterate=kernel)
     llrs, h_hats = [], []
     for i, it_p in enumerate(its):
-        if fused_iteration:
-            if fused_readout and i == num_it - 1 and single:
+        if fused_iteration and _one_hidden(it_p["agg"]):
+            if fused_readout and i == num_it - 1:
                 llr, h_out = iterate(it_p, s, pe, active_tx, sc_valid,
                                      params["readout_llrs"][0],
                                      params["readout_chest"])
@@ -429,7 +473,7 @@ def cgnn_apply(params, cfg: CGNNConfig, y, pe, h_hat, active_tx,
                 # conv would bleed it into the last valid column
                 a = a * sc_mask[None].to(a.dtype)
             s = _update_state(it_p["update"], s, a, pe, fused_convs,
-                              sc_valid, mesh, cfg.kernels)
+                              sc_valid, mesh, cfg.kernels, layer_type)
         if (training and apply_multiloss) or i == num_it - 1:
             llr, h_out = readouts(s)
             llrs.append(llr)

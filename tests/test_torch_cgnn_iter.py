@@ -18,7 +18,9 @@ randomized biases (so that MLP(0) on pad columns is not zero):
   bit-identical, both sides round at the same points).
 - The port's cgnn_apply on the fused routes (fused_iteration, with
   fused_readout, fused_full) vs JAX cgnn_apply with the same flags:
-  float32, 5e-5, the bar of JAX's own route tests.
+  float32, 5e-5, the bar of JAX's own route tests; and where a route does
+  not fit the model (a two-hidden-layer aggregation MLP, apply_multiloss),
+  its fallback against JAX's at the slice bar, 1e-4.
 
 The CUDA kernels are held against the same plain versions on the GPU by
 chip_smoke.py.
@@ -241,30 +243,86 @@ def test_kernel_wrappers_reject_what_the_kernels_cannot_take(params):
                                   pe, act)
 
 
-@pytest.mark.parametrize("route", ["fused_iteration", "fused_full"])
-def test_cgnn_apply_fused_routes_raise_on_deeper_mlps(params, route):
-    """A fused route that cannot take the model (an aggregation MLP with two
-    hidden layers) raises instead of falling back."""
-    from neural_rx_tpu_torch.rx.cgnn import CGNNConfig as PortConfig
-    from neural_rx_tpu_torch.rx.cgnn import cgnn_apply
-    _, tp = params
-    deep = dict(tp, iterations=[
-        {"agg": {"hidden": [it["agg"]["hidden"][0]] * 2,
-                 "out": it["agg"]["out"]}, "update": it["update"]}
-        for it in tp["iterations"]])
-    cfg = PortConfig(num_bits_per_symbol=(4,), num_rx_ant=4, num_it=2,
+@pytest.fixture(scope="module")
+def deep_params():
+    """The fixture's widths with a two-hidden-layer aggregation MLP in the
+    first iteration (the second keeps one), randomized biases."""
+    cfg = CGNNConfig(num_bits_per_symbol=(4,), num_rx_ant=4, num_it=2,
                      d_s=D_S, num_units_init=(32,),
-                     num_units_agg=((16, 16),) * 2,
-                     num_units_state=((32,),) * 2, num_units_readout=(16,),
-                     fused_convs=True, **{route: True})
-    rng = np.random.default_rng(7)
-    y = torch.as_tensor(rng.normal(size=(B, H, W, 8)), dtype=torch.float32)
-    h_hat = torch.as_tensor(rng.normal(size=(B, T, H, W, 8)),
-                            dtype=torch.float32)
-    pe = torch.as_tensor(_inputs(8)[1])
-    with pytest.raises(ValueError, match="one hidden layer"):
-        cgnn_apply(deep, cfg, y, pe, h_hat, torch.ones(B, T),
-                   torch.ones(B, T, 1))
+                     num_units_agg=((16, 16), (16,)),
+                     num_units_state=((32,),) * 2, num_units_readout=(16,))
+    leaves, treedef = jax.tree.flatten(
+        init_cgnn_params(jax.random.PRNGKey(1), cfg))
+    rng = np.random.default_rng(6)
+    tree = jax.tree.unflatten(treedef, [
+        0.5 * rng.normal(size=x.shape).astype(np.float32) if x.ndim == 1
+        else np.asarray(x) for x in leaves])
+    return cfg.num_units_agg, tree, from_jax_numpy(tree)
+
+
+# flags (with fused_convs), deep aggregation MLP, apply_multiloss ->
+# wrapper calls: stack kernel (the init stack, and a plain iteration's
+# update stack), iteration kernel (without, with readouts), whole CGNN
+FALLBACKS = {
+    "iteration_deep": (("fused_iteration",), True, False, (2, 1, 0, 0)),
+    "readout_deep": (("fused_iteration", "fused_readout"), True, False,
+                     (2, 0, 1, 0)),
+    "full_deep": (("fused_full",), True, False, (3, 0, 0, 0)),
+    "full_multiloss": (("fused_full",), False, True, (3, 0, 0, 0)),
+    "readout_multiloss": (("fused_iteration", "fused_readout"), False, True,
+                          (1, 2, 0, 0))}
+
+
+@pytest.mark.parametrize("case", FALLBACKS)
+def test_cgnn_apply_fused_routes_fall_back_as_jax(params, deep_params, case,
+                                                  monkeypatch):
+    """A fused route the model does not fit falls back as the JAX package's
+    does: an iteration whose aggregation MLP has two hidden layers runs
+    plain layers (the other one the iteration kernel), the whole-CGNN
+    kernel needs one-hidden-layer MLPs and no apply_multiloss, the fused
+    readout no apply_multiloss. The wrappers called are those JAX's gates
+    imply, and the result matches JAX cgnn_apply on the same flags
+    (float32, a bucket-padded grid, one user inactive) at the slice bar,
+    1e-4 of max |JAX|."""
+    from neural_rx_tpu.rx.cgnn import cgnn_apply as jax_apply
+    from neural_rx_tpu_torch.rx import cgnn as port_cgnn
+    flags, deep, multiloss, want_calls = FALLBACKS[case]
+    agg, jp, tp = deep_params if deep else (((16,),) * 2,) + params
+    widths = dict(num_bits_per_symbol=(4,), num_rx_ant=4, num_it=2, d_s=D_S,
+                  num_units_init=(32,), num_units_agg=agg,
+                  num_units_state=((32,),) * 2, num_units_readout=(16,),
+                  fused_convs=True, **dict.fromkeys(flags, True))
+    calls = {"stack": 0, "iteration": 0, "readout": 0, "full": 0}
+
+    def spy(mod, name, key):
+        real = getattr(mod, name)
+
+        def wrapped(*args, **kwargs):
+            readout = len(args) > 5 or kwargs.get("readout_p") is not None
+            calls["readout" if key == "iteration" and readout else key] += 1
+            return real(*args, **kwargs)
+        monkeypatch.setattr(mod, name, wrapped)
+    spy(port_cgnn, "fused_conv_stack", "stack")
+    spy(cgnn_iter, "fused_iteration", "iteration")
+    spy(cgnn_iter, "fused_cgnn_full", "full")
+    rng = np.random.default_rng(9)
+    y = rng.normal(size=(B, H, W, 8)).astype(np.float32)
+    h_hat = rng.normal(size=(B, T, H, W, 8)).astype(np.float32)
+    pe = _inputs(10)[1]
+    act = np.array([[1.0, 1.0], [1.0, 0.0]], np.float32)
+    mm = np.ones((B, T, 1), np.float32)
+    want = jax_apply(jp, CGNNConfig(**widths),
+                     *map(jnp.asarray, (y, pe, h_hat, act, mm)),
+                     sc_valid=jnp.int32(40), apply_multiloss=multiloss)
+    got = port_cgnn.cgnn_apply(
+        tp, port_cgnn.CGNNConfig(**widths),
+        *map(torch.as_tensor, (y, pe, h_hat, act, mm)), sc_valid=40,
+        apply_multiloss=multiloss)
+    assert tuple(calls.values()) == want_calls, calls
+    assert len(got[0]) == len(want[0]) == 1
+    for g, w in ((got[0][-1][0], want[0][-1][0]), (got[1][-1], want[1][-1])):
+        w = np.asarray(w)
+        assert np.abs(g.numpy() - w).max() <= 1e-4 * np.abs(w).max()
 
 
 @pytest.mark.parametrize("flags", [("fused_iteration",),

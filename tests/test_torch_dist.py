@@ -85,13 +85,14 @@ def to_torch(tree):
     return torch.tensor(np.asarray(tree, np.float32))
 
 
-def small_cfg(port: bool):
-    """tests/test_sharding.py's configuration."""
+def small_cfg(port: bool, layer_type_conv: str = "sepconv"):
+    """tests/test_sharding.py's configuration (or with full 3x3 conv
+    layers)."""
     return (CGNNConfig if port else JaxCGNNConfig)(
         num_bits_per_symbol=(4,), num_rx_ant=4, num_it=2, d_s=16,
         num_units_init=(32,), num_units_agg=((16,), (16,)),
         num_units_state=((32,), (32,)), num_units_readout=(32,),
-        initial_chest=True)
+        initial_chest=True, layer_type_conv=layer_type_conv)
 
 
 def glorot_stack(rng, c_in, hidden, c_out):
@@ -118,6 +119,8 @@ class Inputs:
         self.x = rng.normal(size=(2, 14, 96, 12)).astype(np.float32)
         self.cgnn_j = jax.jit(jax_init_cgnn, static_argnums=1)(
             jax.random.PRNGKey(0), small_cfg(False))
+        self.conv_j = jax.jit(jax_init_cgnn, static_argnums=1)(
+            jax.random.PRNGKey(1), small_cfg(False, "conv"))
         self.it_p = to_torch(self.cgnn_j["iterations"][0])
         for lay in (self.it_p["agg"]["hidden"] + [self.it_p["agg"]["out"]]
                     + self.it_p["update"]["hidden"]
@@ -168,7 +171,14 @@ class Inputs:
                                             kwargs=MESH_SIMBER)),
                  ("sim_ber", self.eval_args(mode="b", kwargs=HOST_SIMBER)),
                  ("train", self.train_args()),
-                 ("mesh", {})]
+                 ("mesh", {}),
+                 ("cgnn", {
+                     "params": to_torch(self.conv_j),
+                     "cfg": small_cfg(True, "conv"), "y": t(self.y),
+                     "pe": t(self.pe), "h": t(self.h),
+                     "active": torch.ones((4, 2)),
+                     "mm": torch.ones((4, 2, 1)), "data": 1, "grid": world,
+                     "dtype": "float32"})]
         return jobs
 
 
@@ -194,7 +204,8 @@ def groups(inputs):
 # where each kind's first job stands in `Inputs.jobs`
 JOB_INDEX = {w: {"stack": 0, "iteration": 1, "cgnn": 3,
                  "sim_ber": 3 + len(MESHES[w]), "train": 5 + len(MESHES[w]),
-                 "mesh": 6 + len(MESHES[w])} for w in WORLDS}
+                 "mesh": 6 + len(MESHES[w]), "conv": 7 + len(MESHES[w])}
+             for w in WORLDS}
 
 
 def job(groups, world, kind, nth=0):
@@ -242,10 +253,15 @@ def refs(inputs, groups):
     llrs, _ = jax.jit(lambda p, y, pe, h: jax_cgnn_apply(
         p, cfg, y, pe, h, jnp.ones((b, 2)), jnp.ones((b, 2, 1))))(
             inputs.cgnn_j, inputs.y, inputs.pe, inputs.h)
+    conv_cfg = small_cfg(False, "conv")
+    conv_llrs, _ = jax.jit(lambda p, y, pe, h: jax_cgnn_apply(
+        p, conv_cfg, y, pe, h, jnp.ones((b, 2)), jnp.ones((b, 2, 1))))(
+            inputs.conv_j, inputs.y, inputs.pe, inputs.h)
     model, params = checks.eval_model(inputs.eval_args(),
                                       torch.device("cpu"))
     return {"jax_stack": {w: jax_stack_shards(inputs, w) for w in WORLDS},
             "jax_llr": np.asarray(llrs[-1][0]),
+            "jax_conv_llr": np.asarray(conv_llrs[-1][0]),
             "sim_ber": sim_ber(model, params, return_counts=True,
                                verbose=False, **MESH_SIMBER),
             "oracle": {w: host_oracle(model, params, w) for w in WORLDS},
@@ -292,6 +308,18 @@ def test_sharded_cgnn_matches_jax(groups, refs, world, mesh_at):
     data, grid = MESHES[world][mesh_at]
     assert {r["index"] for r in recs} == {
         (d, g) for d in range(data) for g in range(grid)}
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_conv_layers_match_jax(groups, refs, world):
+    """Full 3x3 conv layers on a 1 x world mesh: every stack on the shard
+    extended by its neighbours' halos (one column a layer), no kernel."""
+    recs = job(groups, world, "conv")
+    got = checks.assemble(recs, "llr").numpy()
+    want = refs["jax_conv_llr"]
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    assert {r["index"] for r in recs} == {(0, g) for g in range(world)}
 
 
 @pytest.mark.parametrize("world", WORLDS)

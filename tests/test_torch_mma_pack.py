@@ -55,7 +55,7 @@ def decode(frag, c_in, c_out):
 
 @pytest.mark.parametrize("c_in, c_out", [
     (18, 128), (114, 128), (128, 56), (56, 64), (64, 56), (128, 4),
-    (128, 8), (5, 3)])
+    (128, 8), (5, 3), (130, 128), (10, 128)])
 def test_fragments_hold_the_weights(c_in, c_out):
     rng = np.random.default_rng(c_in * 1000 + c_out)
     w = torch.as_tensor(rng.standard_normal((c_in, c_out)),

@@ -146,8 +146,9 @@ def test_packed_layout():
 
 def test_kernel_rejects_what_it_cannot_take(monkeypatch):
     """Refused before any launch: another dtype, widths that do not chain,
-    and in bfloat16 a layer of more than 128 input channels (the
-    tensor-core tile's limit), which float32 still takes."""
+    and in bfloat16 a layer of more than 256 input channels (the
+    tensor-core tile's limit), which float32 still takes; e2e_rt's 130
+    channels go to the bfloat16 launch."""
     monkeypatch.setattr(_build, "load", lambda: pytest.fail("launched"))
     p = from_jax_numpy(_stack(13, 10, [32], 8))
     x = torch.zeros((1, 7, 36, 10), dtype=torch.float16)
@@ -156,10 +157,10 @@ def test_kernel_rejects_what_it_cannot_take(monkeypatch):
     x = torch.zeros((1, 7, 36, 12))
     with pytest.raises(ValueError):
         sepconv._launch(p, x, None)
-    wide = from_jax_numpy(_stack(14, 130, [32], 8))
-    x = torch.zeros((1, 7, 36, 130))
+    wide = from_jax_numpy(_stack(14, 257, [32], 8))
+    x = torch.zeros((1, 7, 36, 257))
     before = sepconv.launches
-    with pytest.raises(ValueError, match="128 input channels"):
+    with pytest.raises(ValueError, match="256 input channels"):
         sepconv._launch(wide, x.to(torch.bfloat16), None)
     assert sepconv.launches == before
     launched = []
@@ -169,4 +170,7 @@ def test_kernel_rejects_what_it_cannot_take(monkeypatch):
                         lambda device=None: types.SimpleNamespace(
                             cuda_stream=0))
     assert sepconv._launch(wide, x, None).shape == (1, 7, 36, 8)
-    assert launched == [0]  # dtype code 0: float32
+    e2e = from_jax_numpy(_stack(15, 130, [128], 64))
+    x130 = torch.zeros((1, 7, 36, 130), dtype=torch.bfloat16)
+    assert sepconv._launch(e2e, x130, None).shape == (1, 7, 36, 64)
+    assert launched == [0, 1]  # dtype codes: float32, bfloat16
