@@ -215,6 +215,10 @@ import numpy as np
 # differences flip the last bit of a rounded activation now and then.
 TOL_F32 = 1e-4
 TOL_BF16 = 2e-2
+# kernels whose float32 instances run the CUDA-core tile (mangled names:
+# the template's first argument, float, follows the name as "If")
+F32_INSTANCES = ("sepconv_stack_kernel", "cgnn_iter_kernel",
+                 "cgnn_full_kernel")
 SC_VALID_CASES = (None, (5, 1500))
 LDPC_ITER = 20  # the layered decoder's default iteration count
 LDPC_OPS = 10   # value operations per edge, lane and iteration
@@ -2851,8 +2855,16 @@ def main() -> int:
     _build.load()
     ptxas = [ln.strip() for ln in info.log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    # the float32 instances of K1-K4 (the CUDA-core tile): registers, and
+    # no spill
+    f32_regs = {k: v for k, v in ptxas_entries(ptxas).items()
+                if any(f"{kn}If" in k for kn in F32_INSTANCES)}
     emit({"phase": "build", "nvcc_seconds": info.seconds, "ptxas": ptxas,
-          "seconds": time.perf_counter() - t0})
+          "ptxas_f32": f32_regs, "seconds": time.perf_counter() - t0})
+    assert len(f32_regs) == 4, sorted(f32_regs)  # K1 normal, folded; K3; K4
+    assert all("0 bytes spill stores, 0 bytes spill loads" in ln
+               for v in f32_regs.values() for ln in v if "spill" in ln), \
+        f32_regs
 
     # 3. each kernel against its plain version at the nrx_rt widths
     t0 = time.perf_counter()
@@ -3438,6 +3450,30 @@ def main() -> int:
         **bound(*iteration_work(it0_32, MC_BATCH, pe32.shape[-1], 4), peaks,
                 rate="f32_flops")})
     del s30
+    # the other float32 instances of the eval path: K3 at the eval batch
+    # (16, state mode) and K4 at batch 1 (the fused-full route in float32)
+    s16 = 4.0 * torch.randn((16, N_TX, h, w, d_s), generator=gen,
+                            device=dev)
+    act16_32 = torch.ones((16, N_TX), device=dev)
+    mc_kernels["cgnn_iter_b16"] = rates({
+        "shape": list(s16.shape),
+        "kernel_ms": cuda_ms(lambda: cgnn_iter.fused_iteration(
+            it0_32, s16, pe32, act16_32), 3),
+        "plain_ms": cuda_ms(lambda: cgnn_iter.fused_iteration_reference(
+            it0_32, s16, pe32, act16_32), 2, warmup=1),
+        **bound(*iteration_work(it0_32, 16, pe32.shape[-1], 4), peaks,
+                rate="f32_flops")})
+    del s16
+    z1_32 = torch.randn((1, N_TX, h, w, 18), generator=gen, device=dev)
+    act1_32 = torch.ones((1, N_TX), device=dev)
+    mc_kernels["cgnn_full_b1"] = rates({
+        "shape": list(z1_32.shape),
+        "kernel_ms": cuda_ms(lambda: cgnn_iter.fused_cgnn_full(
+            cgnn_mc, z1_32, pe32, act1_32), 10),
+        "plain_ms": cuda_ms(lambda: cgnn_iter.fused_cgnn_full_reference(
+            cgnn_mc, z1_32, pe32, act1_32), 2, warmup=1),
+        **bound(*full_work(cgnn_mc, 1, pe32.shape[-1], 4), peaks,
+                rate="f32_flops")})
     llr150 = llr150.contiguous()
     mc_kernels["ldpc_decode"] = rates({
         "codewords": int(llr150.shape[0]),

@@ -48,7 +48,9 @@
 // ~0.2 GB of traffic and K4 at batch 1 ~12.6 GFLOP against ~2 MB, so both
 // are bound by operations on the tensor cores (~70 and ~13 us); 92.5 % of
 // an iteration's operations are bf16 products with f32 sums, 6.8 % the
-// depthwise taps.
+// depthwise taps. In float32 (the eval and Monte-Carlo path) K3 at batch
+// 30 is ~130 GFLOP, bound by operations at the CUDA cores' 67 TFLOP/s
+// (1.945 ms).
 //
 // bf16 tiles (tensor cores). Every product (update stack, aggregation MLP,
 // readouts, K4's init stack) runs as nrx::pointwise_mma: mma.sync m16n8k16
@@ -83,10 +85,24 @@
 // of 256 positions. The depthwise taps (nrx::depthwise_pairs) keep a
 // channel pair a thread with its taps in registers and compute two adjacent
 // columns from shared inputs; state rows move in 16-byte chunks. ptxas: 128
-// registers, no spills. The float32 instantiations, which the eval path
-// runs, keep the CUDA-core tile (16 warps of 4x4 f32 FMA register tiles;
-// w_tile 10) and their bit-exact sums: TF32 would not hold float32's
-// tolerance.
+// registers, no spills.
+//
+// float32 tiles (CUDA cores; the eval and Monte-Carlo path). TF32 would not
+// keep float32's sums, so the products stay FMAs on the CUDA cores, each
+// sum fmaf over c in order from 0 as the first CUDA-core tile summed: the
+// outputs are that tile's bit for bit. nrx::pointwise_f32 runs them in
+// register tiles (8 positions x 8 channels for the update stack, which it
+// reads channel-major from B, 4 x 8 / 4 x 4 for the MLPs, whose rows it
+// reads along c) with the weights (the wrappers' padded rows,
+// pack_mlp_rows / pack_stack_rows) staged slab by slab in shared memory by
+// cp.async; a product's first slab is sent for before the work ahead of it
+// (the depthwise step, the state rows' copy, the MLP's other layer), and
+// the state rows come by cp.async too. w_tile 10 (E = 16, P = 224): A, B
+// (128 x 204) and three 4 KB slabs in 231,424 B; two aggregation chunks of
+// 112 positions. K3 (128 registers, no spill) runs at ~16 % of its bound at
+// batch 30, about twice the first tile's speed: shared-memory bandwidth
+// holds it (nrx_tile.cuh). K4's float32 instance holds both tiles in one
+// kernel and spilled at 512 and 384 threads, so it runs 256 (kFullThreads).
 //
 // e2e_rt and e2e_large (d_s 64, no LS input) have update stacks of 2 x 64
 // + 2 = 130 input channels. Their bf16 tiles run the kWide instances
@@ -149,21 +165,26 @@ struct IterDesc {
 
 // One MLP over np positions: src [np][stride] -> epi (an epilogue object,
 // nrx_tile.cuh) of the output layer, whose bias it adds. Hidden layer in
-// hid_buf [np][row_ld(hid)]. kWide: products past nrx::kMmaRegK input
-// channels (nrx_tile.cuh).
+// hid_buf [np][mlp_ld(hid)]. kWide: products past nrx::kMmaRegK input
+// channels (nrx_tile.cuh). primed (CUDA cores): the hidden layer's first
+// weight slab is on its way (nrx::copy_slab); the hidden layer sends for the
+// output layer's.
 template <typename T, bool kMma, bool kWide = false, typename Epi>
 __device__ __forceinline__ void mlp(const T* src, int stride, int np,
                                     const T* __restrict__ w, const MlpDesc& m,
-                                    T* hid_buf, nrx::FixList fx, Epi epi) {
+                                    T* hid_buf, nrx::FixList fx, Epi epi,
+                                    bool primed = false) {
   const T* w1 = w;
   const T* b1 = w1 + m.in * m.hid;
   const T* w2 = b1 + m.hid;
   const T* b2 = w2 + m.hid * m.out;
-  const int ld_h = nrx::row_ld(m.hid, kMma);
+  const int ld_h = nrx::mlp_ld(m.hid, kMma);
   nrx::product<T, kMma, kWide>(src, stride, np, w1, w + m.f1, b1, m.in, m.hid, fx,
-                               nrx::HiddenEpi<T>{hid_buf, b1, ld_h});
+                               nrx::HiddenEpi<T>{hid_buf, b1, ld_h}, primed, w + m.f2,
+                               m.hid, m.out);
   __syncthreads();
-  nrx::product<T, kMma, kWide>(hid_buf, ld_h, np, w2, w + m.f2, b2, m.hid, m.out, fx, epi);
+  nrx::product<T, kMma, kWide>(hid_buf, ld_h, np, w2, w + m.f2, b2, m.hid, m.out, fx, epi,
+                               !kMma);
   __syncthreads();
 }
 
@@ -240,13 +261,15 @@ struct AggEpi {
 
 // One readout MLP on the core positions of the tile: state [Pc][row_ld(d_s)]
 // in src, hidden layer in hid_buf, output [b, T, H, W, out] rows of image img.
+// primed: as mlp's.
 template <typename T, bool kMma, bool kWide>
 __device__ void readout(const T* src, int Pc, const T* __restrict__ w,
                         const MlpDesc& m, T* hid_buf, T* out, size_t img,
-                        int H, int W, int w0, int w_tile, nrx::FixList fx) {
+                        int H, int W, int w0, int w_tile, nrx::FixList fx,
+                        bool primed = false) {
   const T* b2 = w + m.in * m.hid + m.hid + m.hid * m.out;
   mlp<T, kMma, kWide>(src, nrx::row_ld(m.in, kMma), Pc, w, m, hid_buf, fx,
-               OutEpi<T>{out + img * H * W * m.out, b2, W, w0, w_tile, m.out});
+               OutEpi<T>{out + img * H * W * m.out, b2, W, w0, w_tile, m.out}, primed);
 }
 
 // Tensor-core path: state rows move as 16-byte chunks of 8 channels (d_s is
@@ -305,9 +328,10 @@ __device__ void iter_tile(const T* s, const T* pe, const float* act, T* out,
   const nrx::FixList fx = nrx::fix_list(smem);
   unsigned char* base = smem + (kMma ? nrx::kFixBytes : 0);  // past the lists
   T* buf_a = reinterpret_cast<T*>(base);
-  T* buf_b = buf_a + (size_t)P * nrx::row_ld(nrx::stack_cmax(q.upd), kMma);
+  T* buf_b = buf_a + (kMma ? (size_t)P * nrx::row_ld(nrx::stack_cmax(q.upd), kMma)
+                           : nrx::tile_a_elems(H, E, nrx::stack_cmax(q.upd), false));
   T* scr_s = buf_a + q.scr_off;                // [chunk][ld_s]
-  T* scr_h = scr_s + (size_t)q.chunk * ld_s;   // [chunk][row_ld(agg.hid)]
+  T* scr_h = scr_s + (size_t)q.chunk * ld_s;   // [chunk][mlp_ld(agg.hid)]
   float* tot = reinterpret_cast<float*>(base + q.acc_off);  // [chunk][d_s]
   const int w0 = tile * q.w_tile;
   const int g0 = w0 - L;
@@ -332,9 +356,19 @@ __device__ void iter_tile(const T* s, const T* pe, const float* act, T* out,
           g >= vlo && g < vhi ? pe[rc * q.d_pe + i % q.d_pe] : from_f<T>(0.f);
     }
   } else {
-    const int c_sp = d_s + q.d_pe;
+    // state rows of 16-byte chunks by cp.async where d_s allows, the rest
+    // (pe, or all) element by element
+    const bool chunks = d_s % 4 == 0;
+    if (chunks)
+      nrx::copy_rows_f32(buf_a + d_s, ld_z, P, d_s, s_b, [&](int p) -> const float* {
+        const int g = g0 + p % E;
+        return g >= vlo && g < vhi ? s_b + ((size_t)t * img + (size_t)(p / E) * W + g) * d_s
+                                   : nullptr;
+      });
+    const int c_lo = chunks ? d_s : 0;
+    const int c_sp = d_s + q.d_pe - c_lo;
     for (int i = threadIdx.x; i < P * c_sp; i += blockDim.x) {
-      const int c = i % c_sp;
+      const int c = c_lo + i % c_sp;
       const int p = i / c_sp;
       const int h = p / E;
       const int g = g0 + p % E;
@@ -345,6 +379,7 @@ __device__ void iter_tile(const T* s, const T* pe, const float* act, T* out,
       }
       buf_a[(size_t)p * ld_z + d_s + c] = v;
     }
+    asm volatile("cp.async.wait_group 0;\n" ::);
   }
   float cnt = -1.f;
   for (int u = 0; u < q.n_users; ++u) cnt += act_b[u];
@@ -354,7 +389,9 @@ __device__ void iter_tile(const T* s, const T* pe, const float* act, T* out,
 
   // 2. Chunk by chunk of positions: the aggregation MLP of every user in
   //    order (sps_t to z's first slot, sum_u sps_u to the chunk's f32 sum),
-  //    then a_t = (tot - sps_t) * scale in z's first slot.
+  //    then a_t = (tot - sps_t) * scale in z's first slot. The MLP reads
+  //    the user's state from the chunk scratch; on the tensor cores the
+  //    block's own user's from z's second slot in place.
   const T* b2 = agg_w + q.agg.in * q.agg.hid + q.agg.hid + q.agg.hid * q.agg.out;
   for (int p0 = 0; p0 < P; p0 += q.chunk) {
     const int np = min(q.chunk, P - p0);
@@ -362,7 +399,7 @@ __device__ void iter_tile(const T* s, const T* pe, const float* act, T* out,
     for (int u = 0; u < q.n_users; ++u) {
       const T* src = buf_a + (size_t)p0 * ld_z + d_s;
       int stride = ld_z;
-      if (u != t) {
+      if (!kMma || u != t) {
         if constexpr (kMma) {
           load_rows(scr_s, ld_s, np, d_s, [&](int r) -> const T* {
             const int p = p0 + r;
@@ -372,23 +409,38 @@ __device__ void iter_tile(const T* s, const T* pe, const float* act, T* out,
                        : nullptr;
           });
         } else {
-          for (int i = threadIdx.x; i < np * d_s; i += blockDim.x) {
-            const int c = i % d_s;
-            const int p = p0 + i / d_s;
-            const int h = p / E;
-            const int g = g0 + p % E;
-            scr_s[(size_t)(i / d_s) * ld_s + c] =
-                (g >= vlo && g < vhi)
-                    ? s_b[((size_t)u * img + (size_t)h * W + g) * d_s + c]
-                    : from_f<T>(0.f);
+          // the MLP's first weight slab, then the state rows (16-byte
+          // chunks by cp.async where d_s allows)
+          nrx::copy_slab(agg_w + q.agg.f1, q.agg.in, q.agg.hid, 0);
+          if (d_s % 4 == 0) {
+            nrx::copy_rows_f32(scr_s, ld_s, np, d_s, s_b, [&](int r) -> const float* {
+              const int p = p0 + r;
+              const int g = g0 + p % E;
+              return g >= vlo && g < vhi
+                         ? s_b + ((size_t)u * img + (size_t)(p / E) * W + g) * d_s
+                         : nullptr;
+            });
+          } else {
+            for (int i = threadIdx.x; i < np * d_s; i += blockDim.x) {
+              const int c = i % d_s;
+              const int p = p0 + i / d_s;
+              const int h = p / E;
+              const int g = g0 + p % E;
+              scr_s[(size_t)(i / d_s) * ld_s + c] =
+                  (g >= vlo && g < vhi)
+                      ? s_b[((size_t)u * img + (size_t)h * W + g) * d_s + c]
+                      : from_f<T>(0.f);
+            }
           }
+          asm volatile("cp.async.wait_group 0;\n" ::);
         }
         __syncthreads();
         src = scr_s;
         stride = ld_s;
       }
       mlp<T, kMma, kWide>(src, stride, np, agg_w, q.agg, scr_h, fx,
-                   AggEpi<T>{tot, buf_a + (size_t)p0 * ld_z, b2, d_s, ld_z, act_b[u], u == t});
+                   AggEpi<T>{tot, buf_a + (size_t)p0 * ld_z, b2, d_s, ld_z, act_b[u], u == t},
+                   !kMma);
     }
     for (int i = threadIdx.x; i < np * d_s; i += blockDim.x) {
       const int o = i % d_s;
@@ -458,6 +510,7 @@ __device__ void iter_tile(const T* s, const T* pe, const float* act, T* out,
                 : make_uint4(0, 0, 0, 0);
     }
   } else {
+    nrx::copy_slab(ro_w + q.ro.f1, q.ro.in, q.ro.hid, 0);  // the readout's first slab
     for (int i = threadIdx.x; i < Pc * d_s; i += blockDim.x) {
       const int c = i % d_s;
       const int p = i / d_s;
@@ -471,7 +524,8 @@ __device__ void iter_tile(const T* s, const T* pe, const float* act, T* out,
     }
   }
   __syncthreads();
-  readout<T, kMma, kWide>(buf_b, Pc, ro_w, q.ro, buf_a, out, img_out, H, W, w0, q.w_tile, fx);
+  readout<T, kMma, kWide>(buf_b, Pc, ro_w, q.ro, buf_a, out, img_out, H, W, w0, q.w_tile, fx,
+                          !kMma);
   if (q.readout == 2)
     readout<T, kMma, kWide>(buf_b, Pc, ch_w, q.ch, buf_a, out2, img_out, H, W, w0, q.w_tile,
                             fx);
@@ -480,36 +534,47 @@ __device__ void iter_tile(const T* s, const T* pe, const float* act, T* out,
 inline size_t align16(size_t v) { return (v + 15) & ~(size_t)15; }
 
 // Shared-memory layout of an iteration tile of E = w_tile + 2L columns:
-// buffers A and B ([P][ld(cmax)] each, P = H * E, ld = nrx::row_ld), z =
-// [a, s, pe] at the start of A ([P][ld(zc)]), then the aggregation's chunk
-// scratch: state [chunk][ld(d_s)], hidden [chunk][ld(agg.hid)] and the f32
-// user sum [chunk][d_s]. On the tensor-core path the re-sum lists
-// (nrx::kFixBytes) come first and the offsets count from their end, and a
-// chunk is a multiple of 16 positions. Returns false if it does not fit in
-// `limit` bytes.
+// buffers A ([P][ld(cmax)], P = H * E, ld = nrx::row_ld) and B
+// (nrx::tile_b_elems), z = [a, s, pe] at the start of A ([P][ld(zc)]), then
+// the aggregation's chunk scratch: state [chunk][ld(d_s)], hidden
+// [chunk][mlp_ld(agg.hid)] and the f32 user sum [chunk][d_s]. On the
+// tensor-core path the re-sum lists (nrx::kFixBytes) come first and the
+// offsets count from their end, and a chunk is a multiple of 16 positions;
+// on the CUDA cores the weight slabs (nrx::kStageBytes) come last and the
+// chunks are equal (the products' tiles fill the block alike). Returns
+// false if it does not fit in `limit` bytes.
 bool iter_layout(IterDesc* q, int H, int w_tile, size_t itemsize, bool mma,
                  size_t limit) {
   const int L = q->upd.n_layers;
-  const size_t P = (size_t)H * (w_tile + 2 * L);
-  const size_t cmax = nrx::row_ld(nrx::stack_cmax(q->upd), mma);
+  const int E = w_tile + 2 * L;
+  const size_t P = (size_t)H * E;
+  const int cmax = nrx::stack_cmax(q->upd);
+  const size_t a_elems = nrx::tile_a_elems(H, E, cmax, mma);
   const size_t zc = nrx::row_ld(q->upd.widths[0], mma);
   const size_t per_chunk_t =
-      (size_t)(nrx::row_ld(q->d_s, mma) + nrx::row_ld(q->agg.hid, mma)) * itemsize;
+      (size_t)(nrx::row_ld(q->d_s, mma) + nrx::mlp_ld(q->agg.hid, mma)) * itemsize;
   const size_t per_chunk = per_chunk_t + q->d_s * sizeof(float);
   const size_t scr = align16(P * zc * itemsize);
   const size_t min_chunk = P < (size_t)kMinChunk ? P : (size_t)kMinChunk;
-  size_t total = 2 * P * cmax * itemsize;
+  const size_t b_elems = nrx::tile_b_elems(q->upd, H, E, mma);
+  size_t total = (a_elems + b_elems) * itemsize;
   if (total < scr + min_chunk * per_chunk + 16) total = scr + min_chunk * per_chunk + 16;
   total = align16(total);
-  const size_t fix = mma ? nrx::kFixBytes : 0;
+  const size_t fix = mma ? nrx::kFixBytes : nrx::kStageBytes;
   if (total + fix > limit || (mma && P > (size_t)nrx::kMmaMaxP)) return false;
-  // readouts: state [Pc][ld(d_s)] in B, hidden [Pc][ld(hid)] in A
+  // readouts: state [Pc][ld(d_s)] in B, hidden [Pc][mlp_ld(hid)] in A
   const size_t Pc = (size_t)H * w_tile;
-  if (q->readout > 0 && Pc * nrx::row_ld(q->ro.hid, mma) > P * cmax) return false;
-  if (q->readout > 1 && Pc * nrx::row_ld(q->ch.hid, mma) > P * cmax) return false;
+  if (q->readout > 0 && (Pc * nrx::mlp_ld(q->ro.hid, mma) > a_elems ||
+                         Pc * nrx::row_ld(q->d_s, mma) > b_elems))
+    return false;
+  if (q->readout > 1 && Pc * nrx::mlp_ld(q->ch.hid, mma) > a_elems) return false;
   size_t chunk = (total - scr - 16) / per_chunk;
   if (mma && chunk >= 16) chunk &= ~(size_t)15;
   if (chunk > P) chunk = P;
+  if (!mma) {
+    const size_t n = (P + chunk - 1) / chunk;
+    chunk = (P + n - 1) / n;
+  }
   q->w_tile = w_tile;
   q->chunk = (int)chunk;
   q->scr_off = (int)(scr / itemsize);
@@ -540,6 +605,15 @@ bool mma_fits(const IterDesc& q) {
          (q.readout < 1 || mma_fits(q.ro)) && (q.readout < 2 || mma_fits(q.ch));
 }
 
+// What the CUDA-core tile takes: products of at most kRowsMaxN output
+// channels (stacks: nrx::rows_fit).
+bool rows_fit(const MlpDesc& m) { return m.hid <= nrx::kRowsMaxN && m.out <= nrx::kRowsMaxN; }
+
+bool rows_fit(const IterDesc& q) {
+  return nrx::rows_fit(q.upd) && rows_fit(q.agg) && (q.readout < 1 || rows_fit(q.ro)) &&
+         (q.readout < 2 || rows_fit(q.ch));
+}
+
 bool mlp_wide(const MlpDesc& m) { return m.in > nrx::kMmaRegK || m.hid > nrx::kMmaRegK; }
 
 bool iter_wide(const IterDesc& q) {
@@ -547,25 +621,27 @@ bool iter_wide(const IterDesc& q) {
          (q.readout >= 2 && mlp_wide(q.ch));
 }
 
+// fragments: where the packed buffers' product weights are B fragments
+// (bf16) or float32 rows (nrx_tile.cuh, make_stack_desc).
 bool make_iter_desc(IterDesc* q, int n_users, int d_s, int d_pe,
                     const int* agg_dims, int n_layers, const int* widths,
-                    const int* ro_dims, const int* ch_dims) {
+                    const int* ro_dims, const int* ch_dims, bool fragments) {
   *q = IterDesc{};
   q->n_users = n_users;
   q->d_s = d_s;
   q->d_pe = d_pe;
-  q->agg = nrx::make_mlp_desc(agg_dims[0], agg_dims[1], agg_dims[2]);
-  if (!nrx::make_stack_desc(n_layers, widths, &q->upd)) return false;
+  q->agg = nrx::make_mlp_desc(agg_dims[0], agg_dims[1], agg_dims[2], fragments);
+  if (!nrx::make_stack_desc(n_layers, widths, &q->upd, false, fragments)) return false;
   if (n_users < 1 || n_users > kMaxUsers || d_s < 1 || d_pe < 1) return false;
   if (q->agg.in != d_s || q->agg.out != d_s || q->agg.hid < 1) return false;
   if (q->upd.widths[0] != 2 * d_s + d_pe || q->upd.widths[n_layers] != d_s)
     return false;
   if (ro_dims) {
     q->readout = ch_dims ? 2 : 1;
-    q->ro = nrx::make_mlp_desc(ro_dims[0], ro_dims[1], ro_dims[2]);
+    q->ro = nrx::make_mlp_desc(ro_dims[0], ro_dims[1], ro_dims[2], fragments);
     if (q->ro.in != d_s || q->ro.hid < 1 || q->ro.out < 1) return false;
     if (ch_dims) {
-      q->ch = nrx::make_mlp_desc(ch_dims[0], ch_dims[1], ch_dims[2]);
+      q->ch = nrx::make_mlp_desc(ch_dims[0], ch_dims[1], ch_dims[2], fragments);
       if (q->ch.in != d_s || q->ch.hid < 1 || q->ch.out < 1) return false;
     }
   }
@@ -602,6 +678,7 @@ template <typename T, bool kLp, bool kWide>
 cudaError_t launch_iter(IterArgs<T> a, int b, cudaStream_t stream) {
   static KernelSetup setup[kMaxDevices];
   if (kUseMma<T> && !mma_fits(a.q)) return cudaErrorInvalidValue;
+  if (!kUseMma<T> && !rows_fit(a.q)) return cudaErrorInvalidValue;
   {
     std::lock_guard<std::mutex> lock(setup_mutex());
     int dev = 0;
@@ -643,8 +720,15 @@ struct FullArgs {
 // toolkit accepts.
 static_assert(sizeof(FullArgs<float>) <= 4096, "FullArgs exceeds 4 KB");
 
+// Threads of a whole-CGNN block. The float32 instance holds the stack and
+// the iteration tile in one kernel: at 512 threads (128 registers) and 384
+// (168) it spilled, so it takes 256 (207 registers without a spill); its
+// tile code reads blockDim.
+template <typename T>
+constexpr int kFullThreads = kUseMma<T> ? nrx::kThreads : 256;
+
 template <typename T, bool kLp, bool kWide>
-__global__ void __launch_bounds__(nrx::kThreads) cgnn_full_kernel(FullArgs<T> a) {
+__global__ void __launch_bounds__(kFullThreads<T>) cgnn_full_kernel(FullArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   const int n_users = a.it[0].n_users;
@@ -678,8 +762,11 @@ cudaError_t launch_full(FullArgs<T>& a, cudaStream_t stream) {
   static KernelSetup setup[kMaxDevices];
   constexpr bool kMma = kUseMma<T>;
   if (kMma && !mma_fits(a.init)) return cudaErrorInvalidValue;
-  for (int i = 0; i < a.num_it; ++i)
+  if (!kMma && !nrx::rows_fit(a.init)) return cudaErrorInvalidValue;
+  for (int i = 0; i < a.num_it; ++i) {
     if (kMma && !mma_fits(a.it[i])) return cudaErrorInvalidValue;
+    if (!kMma && !rows_fit(a.it[i])) return cudaErrorInvalidValue;
+  }
   int blocks = 0;
   size_t smem = 0;
   {
@@ -706,7 +793,7 @@ cudaError_t launch_full(FullArgs<T>& a, cudaStream_t stream) {
     if (k.per_sm == 0 || k.occ_smem != smem) {
       int per_sm = 0;
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, cgnn_full_kernel<T, kLp, kWide>, nrx::kThreads, smem);
+          &per_sm, cgnn_full_kernel<T, kLp, kWide>, kFullThreads<T>, smem);
       if (err != cudaSuccess) return err;
       if (per_sm < 1) return cudaErrorInvalidConfiguration;
       k.per_sm = per_sm;
@@ -717,7 +804,7 @@ cudaError_t launch_full(FullArgs<T>& a, cudaStream_t stream) {
   }
   void* args[] = {&a};
   cudaError_t err = cudaLaunchCooperativeKernel((const void*)cgnn_full_kernel<T, kLp, kWide>,
-                                                dim3(blocks), dim3(nrx::kThreads),
+                                                dim3(blocks), dim3(kFullThreads<T>),
                                                 args, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -778,7 +865,7 @@ int cgnn_iter_entry(const void* s, const void* pe, const void* act, void* out, v
   IterDesc q;
   if (!make_iter_desc(&q, t, d_s, d_pe, static_cast<const int*>(agg_dims), n_layers,
                       static_cast<const int*>(widths), static_cast<const int*>(ro_dims),
-                      static_cast<const int*>(ch_dims)))
+                      static_cast<const int*>(ch_dims), dtype == 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if constexpr (kWide) {
@@ -822,7 +909,8 @@ int cgnn_full_entry(const void* z0, const void* pe, const void* act, void* state
   if (num_it < 1 || num_it > kMaxIt || b < 1 || h < 1 || w < 1)
     return (int)cudaErrorInvalidValue;
   StackDesc init;
-  if (!nrx::make_stack_desc(n_init, static_cast<const int*>(init_widths), &init) ||
+  if (!nrx::make_stack_desc(n_init, static_cast<const int*>(init_widths), &init, false,
+                            dtype == 1) ||
       init.widths[n_init] != d_s)
     return (int)cudaErrorInvalidValue;
   IterDesc it[kMaxIt];
@@ -833,7 +921,7 @@ int cgnn_full_entry(const void* z0, const void* pe, const void* act, void* state
     const bool last = i == num_it - 1;
     if (!make_iter_desc(&it[i], t, d_s, d_pe, ad + 3 * i, n_upd, uw + (n_upd + 1) * i,
                         last ? static_cast<const int*>(ro_dims) : nullptr,
-                        last ? static_cast<const int*>(ch_dims) : nullptr))
+                        last ? static_cast<const int*>(ch_dims) : nullptr, dtype == 1))
       return (int)cudaErrorInvalidValue;
     wide = wide || iter_wide(it[i]);
   }

@@ -35,6 +35,14 @@ inline bool mma_fits(const StackDesc& d) {
   return true;
 }
 
+// What the CUDA-core tile takes of a stack outside the folded mode: products
+// of at most kRowsMaxN output channels (the weight slabs).
+inline bool rows_fit(const StackDesc& d) {
+  for (int l = 1; l <= d.n_layers; ++l)
+    if (d.widths[l] > kRowsMaxN) return false;
+  return true;
+}
+
 struct DeviceSetup {
   size_t optin;  // 0: not queried yet
   int n_sm;

@@ -18,8 +18,23 @@
 // are zero before every layer and after the last.
 //
 // Two paths, chosen at compile time by the kMma template argument:
-//   - CUDA cores (kMma false; every float32 tile): `pointwise`, f32 FMA
-//     over c in order; rows packed, stride c.
+//   - CUDA cores (kMma false; every float32 tile): `pointwise_f32`, a
+//     register-blocked FMA product (8 positions x 8 output channels a
+//     thread, or 4 x 8 / 4 x 4 where tile_cost finds that cheaper) whose
+//     weights reach shared memory as slabs copied by cp.async, one slab
+//     ahead (from the wrapper's padded `cuda_core_rows`), and
+//     `depthwise_f32`, one channel's taps in registers a thread, writing B
+//     channel-major ([c][cm_ld]) for the stack's products to read along
+//     the positions; the MLPs read their position-major rows along c (all
+//     in 8-byte loads, see lds2).
+//     Every sum keeps the first CUDA-core tile's order, fmaf over c = 0 ..
+//     cin - 1 from 0.f (and the taps' multiply-then-add order), so every
+//     float32 output is that tile's, bit for bit.
+//     Bound: operations at the CUDA cores' 67 TFLOP/s; what holds them
+//     under it is shared-memory bandwidth (a load delivers its bytes to
+//     every lane, however few addresses the lanes read: an 8 x 8 tile
+//     loads a byte per FMA, as many as the SM's 128 FMAs a cycle can take
+//     from its 128 bytes a cycle, and the tile measures about half that).
 //   - tensor cores (kMma true; every bf16 tile: the stack kernel's and the
 //     CGNN kernels'):
 //     `pointwise_mma`, mma.sync m16n8k16 bf16 x bf16 -> f32, and
@@ -78,15 +93,42 @@ constexpr int kNormal = 0;
 constexpr int kLp = 1;
 constexpr int kFold = 2;
 
-// Channel stride of an activation row in shared memory. CUDA cores: c.
-// Tensor cores: ldmatrix needs 16-byte row addresses, so c is rounded up to
-// 8 elements, plus 8 more when that is an even number of 16-byte chunks: an
-// odd chunk count puts the 8 rows of one ldmatrix phase in 8 different
-// 16-byte bank groups (no conflicts). nrx_rt: 18 -> 24, 56 -> 56, 64 -> 72,
-// 114 -> 120, 128 -> 136; e2e_rt: 10 -> 24, 130 -> 136.
+// Channel stride of an activation row in shared memory. CUDA cores: c
+// rounded up to 4 (the MLPs read rows 4 channels at a time). Tensor cores: ldmatrix
+// needs 16-byte row addresses, so c is rounded up to 8 elements, plus 8 more
+// when that is an even number of 16-byte chunks: an odd chunk count puts the
+// 8 rows of one ldmatrix phase in 8 different 16-byte bank groups (no
+// conflicts). nrx_rt: 18 -> 24, 56 -> 56, 64 -> 72, 114 -> 120, 128 -> 136;
+// e2e_rt: 10 -> 24, 130 -> 136.
 __host__ __device__ constexpr int row_ld(int c, bool mma) {
-  return !mma ? c : ((c + 7) / 8 % 2 == 0 ? (c + 7) / 8 * 8 + 8 : (c + 7) / 8 * 8);
+  return !mma ? (c + 3) / 4 * 4
+              : ((c + 7) / 8 % 2 == 0 ? (c + 7) / 8 * 8 + 8 : (c + 7) / 8 * 8);
 }
+
+// Row stride of an MLP's hidden layer in shared memory. On the CUDA cores a
+// product reads 4 neighbouring rows at once (at one c): a stride of a
+// multiple of 16 words would put them in fewer than four 16-byte bank
+// groups, so it takes 4 more (nrx_rt: 64 -> 68, 128 -> 132). Tensor cores:
+// row_ld.
+__host__ __device__ constexpr int mlp_ld(int c, bool mma) {
+  return mma ? row_ld(c, true) : row_ld(c, false) % 16 == 0 ? row_ld(c, false) + 4
+                                                             : row_ld(c, false);
+}
+
+// The CUDA-core tile's depthwise output B is channel-major, [c][cm_ld(n)]
+// for at most n positions: rows of a multiple of 8 floats (a thread's 8
+// positions are read together; the rows' last group may read past n),
+// plus 4, so a channel's row starts 16 bytes off the bank group of its
+// neighbour's.
+__host__ __device__ constexpr int cm_ld(int n) { return (n + 7) / 8 * 8 + 4; }
+
+// A float32 product's weights as the CUDA-core tile reads them (the
+// wrapper's `cuda_core_rows`): w [cin][cout], each row rows_ld(cout) values
+// in two halves of OG = ceil(cout / 8) quads: quad og of half h holds
+// channels o = og + (4 h + e) * OG, e < 4, zero past cout. A thread's 8
+// channels og + j * OG are quad og of both halves, and 8 lanes on
+// neighbouring og read 128 contiguous bytes (one shared-memory pass).
+__host__ __device__ constexpr int rows_ld(int cout) { return (cout + 7) / 8 * 8; }
 
 // Values of one product's B fragments in a packed buffer (the wrapper's
 // `mma_fragments`): 16-wide slabs of output channels x 16-deep k-steps x 32
@@ -96,11 +138,12 @@ __host__ __device__ inline int frag_size(int cin, int cout) {
 }
 
 // A separable-conv stack in a packed weight buffer: per layer dw [9][c_in]
-// (tap-major, ky * 3 + kx), pw [c_in][c_out], b [c_out]; in bf16 for the
-// tensor-core path, then from the next multiple of 8 values each layer's
-// pw as B fragments (frag_off). In the folded mode frag_off[l] is instead
-// where layer l's nine folded matrices W_s (tap-major) start: as B
-// fragments (frag_size values each) in bf16, as rows [c_in][c_out] in
+// (tap-major, ky * 3 + kx), pw [c_in][c_out], b [c_out]; then from the next
+// multiple of 8 values each layer's pw as the products read it (frag_off):
+// as B fragments in bf16 (the tensor-core path), as padded rows
+// (rows_ld) in float32 (the CUDA-core path). In the folded mode frag_off[l]
+// is instead where layer l's nine folded matrices W_s (tap-major) start: as
+// B fragments (frag_size values each) in bf16, as rows [c_in][c_out] in
 // float32 (the wrapper's pack_stack_folded).
 struct StackDesc {
   int n_layers;
@@ -112,16 +155,18 @@ struct StackDesc {
 };
 
 // A one-hidden-layer MLP in a packed buffer: w1 [in][hid], b1 [hid],
-// w2 [hid][out], b2 [out]; for the tensor-core path then, from the next
-// multiple of 8 values, w1 and w2 as B fragments (f1, f2).
+// w2 [hid][out], b2 [out]; then, from the next multiple of 8 values, w1 and
+// w2 as the products read them (f1, f2): B fragments in bf16, padded rows
+// in float32 (fragments false).
 struct MlpDesc {
   int in, hid, out;
   int f1, f2;
 };
 
-inline MlpDesc make_mlp_desc(int in, int hid, int out) {
+inline MlpDesc make_mlp_desc(int in, int hid, int out, bool fragments = true) {
   const int f1 = (in * hid + hid + hid * out + out + 7) / 8 * 8;
-  return MlpDesc{in, hid, out, f1, f1 + frag_size(in, hid)};
+  return MlpDesc{in, hid, out, f1,
+                 f1 + (fragments ? frag_size(in, hid) : in * rows_ld(hid))};
 }
 
 inline bool make_stack_desc(int n_layers, const int* widths, StackDesc* d,
@@ -146,7 +191,8 @@ inline bool make_stack_desc(int n_layers, const int* widths, StackDesc* d,
   for (int l = 0; l < n_layers; ++l) {
     const int cin = d->widths[l], cout = d->widths[l + 1];
     d->frag_off[l] = off;
-    off += (folded ? 9 : 1) * (fragments ? frag_size(cin, cout) : cin * cout);
+    off += fragments ? (folded ? 9 : 1) * frag_size(cin, cout)
+                     : folded ? 9 * cin * cout : cin * rows_ld(cout);
   }
   return true;
 }
@@ -181,51 +227,311 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// y[p][o] = sum_c src[p * stride + c] * w[c * cout + o] for p < P, o < cout,
-// in f32, c in order with FMA; epi(p, o, y) takes each sum. Each thread
-// computes 4-position x 4-channel register tiles. The caller synchronises.
-template <typename T, typename Epi>
-__device__ __forceinline__ void pointwise(const T* src, int stride, int P,
-                                          const T* __restrict__ w, int cin,
-                                          int cout, Epi epi) {
-  const int G = (cout + 3) / 4;
-  const int Q = (P + 3) / 4;
-  for (int item = threadIdx.x; item < G * Q; item += blockDim.x) {
-    const int o0 = (item % G) * 4;
-    const int p0 = (item / G) * 4;
-    const T* a[4];
-    int oc[4];
+// Two floats from shared memory (8-byte aligned p) with one ld.shared.v2:
+// on the H100 the float32 tile's products ran 1.5-2 % faster on 8-byte
+// than on 16-byte loads of the same bytes, and slower on 4-byte ones
+// (volatile keeps the compiler from merging pairs into 16-byte loads).
+__device__ __forceinline__ void lds2(float& x, float& y, const float* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(x), "=f"(y) : "r"(a));
+}
+
+// kN floats from p in shared memory (8-byte aligned; kN even).
+template <int kN>
+__device__ __forceinline__ void lds_vec(float (&v)[kN], const float* p) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      a[k] = src + (size_t)min(p0 + k, P - 1) * stride;
-      oc[k] = min(o0 + k, cout - 1);
-    }
-    float acc[4][4];
+  for (int i = 0; i < kN / 2; ++i) lds2(v[2 * i], v[2 * i + 1], p + 2 * i);
+}
+
+// kN / 4 quads of floats from shared memory, stride floats apart.
+template <int kN>
+__device__ __forceinline__ void lds_quads(float (&v)[kN], const float* p, int stride) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
+  for (int i = 0; i < kN / 4; ++i) {
+    lds2(v[4 * i], v[4 * i + 1], p + i * stride);
+    lds2(v[4 * i + 2], v[4 * i + 3], p + i * stride + 2);
+  }
+}
+
+// Lanes of a warp along the output slots of a float32 product (see
+// fma_tiles): 8, or fewer for a product of fewer slots; the rest of the
+// warp's 32 lanes go along position groups.
+__device__ __forceinline__ int slot_lanes(int slots) {
+  return slots >= 8 ? 8 : slots > 2 ? (slots > 4 ? 8 : 4) : slots;
+}
+
+// The float32 products' weight slabs: three stages of kSlabFloats floats
+// at the end of the block's dynamic shared memory (the tile sizes leave
+// them free: stack_smem, iter_layout). Three, so that the copy of slab g + 1
+// (into the stage slab g - 2 used) needs only the barrier before slab g.
+constexpr int kSlabFloats = 8 * 128;
+constexpr int kStages = 3;
+constexpr size_t kStageBytes = kStages * kSlabFloats * sizeof(float);
+// The most output channels of a float32 product: a slab holds at least 4
+// rows of rows_ld(cout) floats.
+constexpr int kRowsMaxN = kSlabFloats / 4;
+
+extern __shared__ __align__(16) unsigned char nrx_dyn_smem[];
+
+__device__ __forceinline__ float* stage_slabs() {
+  unsigned n;
+  asm("mov.u32 %0, %%dynamic_smem_size;\n" : "=r"(n));
+  return reinterpret_cast<float*>(nrx_dyn_smem + n - kStageBytes);
+}
+
+// 16 bytes from device to shared memory, asynchronously (cp.async, past L1).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+// Rows of n floats (n a multiple of 4) from device to shared memory with
+// cp.async, as one commit group: dst[r * ld + c] = row(r)[c] for r < rows,
+// c < n, zeros where row(r) is null (any: a valid device address for
+// those). dst, ld and every row 16-byte aligned. The caller waits.
+template <typename RowFn>
+__device__ __forceinline__ void copy_rows_f32(float* dst, int ld, int rows, int n,
+                                              const float* any, RowFn row) {
+  const int cpr = n / 4;
+  for (int i = threadIdx.x; i < rows * cpr; i += blockDim.x) {
+    const int r = i / cpr;
+    const int c = (i - r * cpr) * 4;
+    const float* sp = row(r);
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst + (size_t)r * ld + c);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(sp ? sp + c : any), "r"(sp ? 16 : 0));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Rows a weight slab of a product of cout output channels holds: as many
+// as fit a stage, a multiple of 4 (at least 4: cout <= kRowsMaxN).
+__device__ __forceinline__ int slab_rows(int cout) {
+  return max(kSlabFloats / rows_ld(cout) / 4 * 4, 4);
+}
+
+// The whole block copies slab g of w (a product of cin x cout; rows
+// [c0, c0 + kr) with c0 = (g % n_slabs) * kr, the slab counter running on
+// over a product's rounds) into stage g % kStages with cp.async, as one
+// commit group.
+__device__ __forceinline__ void copy_slab(const float* __restrict__ w, int cin, int cout,
+                                          int g) {
+  const int kr = slab_rows(cout);
+  const int ldw = rows_ld(cout);
+  const int c0 = g % ((cin + kr - 1) / kr) * kr;
+  const int n4 = min(kr, cin - c0) * ldw / 4;
+  const float* src = w + (size_t)c0 * ldw;
+  float* dst = stage_slabs() + g % kStages * kSlabFloats;
+  for (int i = threadIdx.x; i < n4; i += blockDim.x) cp_async16(dst + 4 * i, src + 4 * i);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// One float32 product in register tiles of kQ positions x kO output
+// channels a thread (see pointwise_f32). A tile is (position group qg, slot
+// s): with kO = 8 slot s is group og = s, channels o = og + j * OG (both
+// halves' quad og of the rows, see rows_ld); with kO = 4 it is quad og = s
+// % OG of half s / OG. A warp takes a block of tiles, slot_lanes(slots)
+// slots x the rest in position groups: a quarter-warp's lanes share their
+// position group and read neighbouring quads of weights (no bank
+// conflict); its stores of one (k, j) go to neighbouring channels.
+// Channel-major (kCm): the tile's positions are qg * kQ + k, read at one c.
+// Position-major: qg + k * QG (neighbouring lanes on neighbouring rows), c
+// .. c + 3 of each, rows past Q clamped to Q - 1. Lanes past the last group or
+// slot compute on clamped ones and store nothing.
+//
+// The weights reach the block as slabs of slab_rows(cout) rows: the warps
+// go round the tiles in rounds (a warp with no tile in the last round
+// still copies and waits), each round walking all slabs; while the warps
+// multiply one slab from its stage, every thread copies its share of the
+// next one (the next round's first, after a round's last) into the next
+// stage with cp.async, behind one barrier a slab. primed: slab 0 is
+// already on its way (copy_slab(w, cin, cout, 0), before work that hides
+// it, after a barrier that freed the stages); next (if not null): the
+// weights of the product that follows (next_cin x next_cout), whose slab 0
+// is sent for, after a barrier, before the last round's epilogue.
+template <int kQ, int kO, bool kCm, typename Epi>
+__device__ __forceinline__ void fma_tiles(const float* src, int ld, int Q,
+                                          const float* __restrict__ w, int cin, int cout,
+                                          bool primed, const Epi& epi, const float* next,
+                                          int next_cin, int next_cout) {
+  constexpr int kSlots = 8 / kO;  // slots of a group of 8 channels
+  const int og_n = (cout + 7) / 8;
+  const int slots = og_n * kSlots;
+  const int qg_n = (Q + kQ - 1) / kQ;
+  const int ldw = rows_ld(cout);
+  const int ws = slot_lanes(slots);
+  const int wq = 32 / ws;
+  const int lane = threadIdx.x & 31;
+  const int n_warps = blockDim.x >> 5;
+  const int ts_n = (slots + ws - 1) / ws;
+  const int n_tiles = (qg_n + wq - 1) / wq * ts_n;
+  const int kr = slab_rows(cout);
+  const int n_slabs = (cin + kr - 1) / kr;
+  const int rounds = (n_tiles + n_warps - 1) / n_warps;
+  const float* const stage = stage_slabs();
+  if (!primed) copy_slab(w, cin, cout, 0);
+  for (int r = 0; r < rounds; ++r) {
+    const int t = r * n_warps + (threadIdx.x >> 5);
+    const bool has = t < n_tiles;  // warp-uniform
+    const int tc = min(t, n_tiles - 1);
+    const int qg_l = (tc / ts_n) * wq + lane / ws;
+    const int s_l = (tc % ts_n) * ws + lane % ws;
+    const bool live = has && qg_l < qg_n && s_l < slots;
+    const int qg = min(qg_l, qg_n - 1);
+    const int s = min(s_l, slots - 1);
+    const int og = s % og_n;
+    const int j0 = s / og_n * 4;  // kO = 4: the half's first channel
+    float acc[kQ][kO];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[k][j] = 0.f;
-    for (int c = 0; c < cin; ++c) {
-      const T* row = w + (size_t)c * cout;
-      float av[4], bv[4];
+    for (int k = 0; k < kQ; ++k)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) av[k] = to_f(a[k][c]);
+      for (int j = 0; j < kO; ++j) acc[k][j] = 0.f;
+    int off[kCm ? 1 : kQ];  // position-major: the tile's rows
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = to_f(row[oc[j]]);
+    for (int k = 0; k < (kCm ? 1 : kQ); ++k) off[k] = min(qg + k * qg_n, Q - 1) * ld;
+    for (int sl = 0; sl < n_slabs; ++sl) {
+      const int g = r * n_slabs + sl;  // slab counter: stage g % kStages
+      if (g + 1 < rounds * n_slabs) {
+        copy_slab(w, cin, cout, g + 1);
+        asm volatile("cp.async.wait_group 1;\n" ::);
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::);
+      }
+      __syncthreads();
+      const int c0 = sl * kr;
+      const int c1 = min(c0 + kr, cin);
+      // row c0, this slot's quad; kO = 8: the second half's 4 * OG on
+      const float* wp = stage + g % kStages * kSlabFloats + (j0 / 4 * og_n + og) * 4;
+      if (has) {
+        if constexpr (kCm) {
+          const float* ap = src + qg * kQ;
+          // 8 x 8: one channel's loads in flight (a second's would spill)
+#pragma unroll(kQ == 8 ? 1 : 2)
+          for (int c = c0; c < c1; ++c) {
+            float a[kQ], b[kO];
+            lds_vec(a, ap + (size_t)c * ld);
+            lds_quads(b, wp + (c - c0) * ldw, 4 * og_n);
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
+            for (int k = 0; k < kQ; ++k)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[k][j] = fmaf(av[k], bv[j], acc[k][j]);
-    }
+              for (int j = 0; j < kO; ++j) acc[k][j] = fmaf(a[k], b[j], acc[k][j]);
+          }
+        } else {
+          int c = c0;
+          for (; c + 3 < c1; c += 4) {
+            float a[kQ][4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (p0 + k >= P) break;
+            for (int k = 0; k < kQ; ++k) lds_vec(a[k], src + off[k] + c);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (o0 + j >= cout) break;
-        epi(p0 + k, o0 + j, acc[k][j]);
+            for (int cc = 0; cc < 4; ++cc) {
+              float b[kO];
+              lds_quads(b, wp + (c + cc - c0) * ldw, 4 * og_n);
+#pragma unroll
+              for (int k = 0; k < kQ; ++k)
+#pragma unroll
+                for (int j = 0; j < kO; ++j) acc[k][j] = fmaf(a[k][cc], b[j], acc[k][j]);
+            }
+          }
+          for (; c < c1; ++c) {
+            float b[kO];
+            lds_quads(b, wp + (c - c0) * ldw, 4 * og_n);
+#pragma unroll
+            for (int k = 0; k < kQ; ++k) {
+              const float a = src[off[k] + c];
+#pragma unroll
+              for (int j = 0; j < kO; ++j) acc[k][j] = fmaf(a, b[j], acc[k][j]);
+            }
+          }
+        }
       }
     }
+    if (next != nullptr && r == rounds - 1) {
+      __syncthreads();  // every stage is free
+      copy_slab(next, next_cin, next_cout, 0);
+    }
+    if (!live) continue;
+    // A tile whose positions and channels all exist stores without a test,
+    // in one block, so what epi derives from p or o is derived once.
+    const bool whole = (kCm ? qg * kQ + kQ <= Q : qg + (kQ - 1) * qg_n < Q) &&
+                       og + (j0 + kO - 1) * og_n < cout;
+    if (whole) {
+#pragma unroll
+      for (int k = 0; k < kQ; ++k)
+#pragma unroll
+        for (int j = 0; j < kO; ++j)
+          epi(kCm ? qg * kQ + k : qg + k * qg_n, og + (j0 + j) * og_n, acc[k][j]);
+      continue;
+    }
+#pragma unroll
+    for (int k = 0; k < kQ; ++k) {
+      const int p = kCm ? qg * kQ + k : qg + k * qg_n;
+      if (p >= Q) continue;
+#pragma unroll
+      for (int j = 0; j < kO; ++j) {
+        const int o = og + (j0 + j) * og_n;
+        if (o < cout) epi(p, o, acc[k][j]);
+      }
+    }
+  }
+}
+
+// What a product in kq x ko tiles costs the block, in cycles of one SM: per
+// round of the block's warps and per slab, the larger of the FMAs of its
+// busiest sub-partition (four of them) and the shared-memory cycles of all
+// its warps (`wavefronts` a warp and channel: 128 bytes delivered take
+// one, however few distinct addresses the lanes read), and
+// at least the slab copy's latency that they hide (~700 cycles), plus a
+// barrier.
+__device__ __forceinline__ int tile_cost(int Q, int cin, int cout, int kq, int ko,
+                                         int wavefronts) {
+  const int slots = (cout + 7) / 8 * (8 / ko);
+  const int ws = slot_lanes(slots);
+  const int warps = ((Q + kq - 1) / kq + 32 / ws - 1) / (32 / ws) * ((slots + ws - 1) / ws);
+  const int kr = slab_rows(cout);
+  const int n_slabs = (cin + kr - 1) / kr;
+  const int per_round = blockDim.x / 32;
+  int cost = 0;
+  for (int left = warps; left > 0; left -= per_round) {
+    const int n = min(left, per_round);
+    const int per_c = max((n + 3) / 4 * kq * ko, n * wavefronts);
+    cost += n_slabs * (max(kr * per_c, 700) + 100);
+  }
+  return cost;
+}
+
+// y[p][o] = sum_c a(p, c) * w(c, o) for p < Q, o < cout, in f32, each sum
+// fmaf over c = 0 .. cin - 1 in order from 0.f; epi(p, o, y) takes each sum.
+// a(p, c) = src[c * ld + p] with kCm (channel-major: the stack's depthwise
+// output; ld a multiple of 4 with room for Q rounded up to 8 positions,
+// src 16-byte aligned), else src[p * ld + c] (position-major: the MLPs'
+// rows; ld a multiple of 4, src 16-byte aligned). w: the product's rows
+// (cout <= kRowsMaxN, 16-byte aligned) in device memory, staged
+// through the block's slab stages (kStageBytes at the end of its dynamic
+// shared memory; every thread must reach the call). primed: the caller has
+// issued copy_slab(w, cin, cout, 0); next: see fma_tiles. Each thread holds a
+// register tile, whichever tile_cost finds cheapest for Q, cin and cout:
+// channel-major, 8 positions x 8 channels (64 bytes loaded for 64 FMAs) or
+// 4 x 8; position-major, 4 x 8 or 4 x 4. The caller synchronises.
+template <bool kCm, typename Epi>
+__device__ __forceinline__ void pointwise_f32(const float* src, int ld, int Q,
+                                              const float* __restrict__ w, int cin, int cout,
+                                              const Epi& epi, bool primed = false,
+                                              const float* next = nullptr, int next_cin = 0,
+                                              int next_cout = 0) {
+  // wavefronts a warp and channel: (kq + ko) floats x 32 lanes / 128 bytes
+  const int c48 = tile_cost(Q, cin, cout, 4, 8, 12);
+  if constexpr (kCm) {
+    // channel-major inputs (the stacks' products): 8 x 8 or 4 x 8 (4 x 4
+    // tiles load more bytes a FMA and never won at nrx_rt's widths)
+    if (tile_cost(Q, cin, cout, 8, 8, 16) <= c48) {
+      fma_tiles<8, 8, true>(src, ld, Q, w, cin, cout, primed, epi, next, next_cin, next_cout);
+    } else {
+      fma_tiles<4, 8, true>(src, ld, Q, w, cin, cout, primed, epi, next, next_cin, next_cout);
+    }
+  } else if (c48 <= tile_cost(Q, cin, cout, 4, 4, 8)) {
+    fma_tiles<4, 8, false>(src, ld, Q, w, cin, cout, primed, epi, next, next_cin, next_cout);
+  } else {
+    fma_tiles<4, 4, false>(src, ld, Q, w, cin, cout, primed, epi, next, next_cin, next_cout);
   }
 }
 
@@ -492,7 +798,7 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], uint32_t (&a_abs)[4],
   for (int r = 0; r < 4; ++r) a_abs[r] = a[r] & 0x7fff7fffu;  // clears both signs
 }
 
-// The contract of `pointwise` on the tensor cores, with the same rounded
+// The contract of `pointwise_f32` on the tensor cores, with the same rounded
 // results: y[p][o] = sum_c src[p * stride + c] * w[c * cout + o] for p < P,
 // o < cout, handed to epi per row as bf16(y + bias[o]) (see the
 // epilogues). src in shared memory, 16-byte aligned, stride a multiple of 8
@@ -514,7 +820,7 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], uint32_t (&a_abs)[4],
 // bias lies within kMmaEta * S of a bf16 rounding boundary, (p, o) goes to
 // the warp's list, and 32 at a time the warp sums them again in order, one
 // a lane, reading the weight column from wf. So the rounded outputs are
-// those of `pointwise` and of the plain version, not one ulp off.
+// those of the in-order sums and of the plain version, not one ulp off.
 //
 // kWide (the instances for cin up to kMmaMaxK): the first kMmaWideRegK
 // channels' k-steps as above, then per M tile each further k-step's B
@@ -864,20 +1170,26 @@ __device__ __forceinline__ void folded_fma(const T* a, int lda, int H, int E, in
   }
 }
 
-// pointwise on the chosen path: w [cin][cout] on the CUDA cores, its
-// fragments wf, the bias and fx on the tensor cores (see pointwise_mma;
-// kWide: products past kMmaRegK input channels).
+// A product of position-major rows src [P][stride] on the chosen path: w
+// [cin][cout] (the packed matrix, which neither path reads) and wf, the
+// weights as the path reads them (B fragments, or float32 rows); the bias
+// and fx on the tensor cores (see pointwise_mma; kWide: products past
+// kMmaRegK input channels), primed and next on the CUDA cores (see
+// pointwise_f32).
 template <typename T, bool kMma, bool kWide = false, typename Epi>
 __device__ __forceinline__ void product(const T* src, int stride, int P,
                                         const T* __restrict__ w,
                                         const T* __restrict__ wf,
                                         const T* __restrict__ bias, int cin, int cout,
-                                        FixList fx, Epi epi) {
+                                        FixList fx, Epi epi, bool primed = false,
+                                        const T* next = nullptr, int next_cin = 0,
+                                        int next_cout = 0) {
   if constexpr (kMma) {
     static_assert(std::is_same<T, __nv_bfloat16>::value, "tensor cores: bf16 only");
     pointwise_mma<kWide>(src, stride, P, wf, bias, cin, cout, fx, epi);
   } else {
-    pointwise<T>(src, stride, P, w, cin, cout, epi);
+    static_assert(std::is_same<T, float>::value, "CUDA cores: float32 only");
+    pointwise_f32<false>(src, stride, P, wf, cin, cout, epi, primed, next, next_cin, next_cout);
   }
 }
 
@@ -971,6 +1283,74 @@ __device__ __forceinline__ void depthwise_pairs(const __nv_bfloat16* a, __nv_bfl
   }
 }
 
+// Depthwise step of the CUDA-core path: A [h][col][lda] -> B [c][ldb]
+// (channel-major), position p = h * wl + col - c_lo. Each thread keeps one
+// channel's 9 taps in registers and walks runs of 4 positions (p a multiple
+// of 4), blockDim.x / cin threads a channel (in blocks of blockDim.x
+// channels), storing each run as one float4 (ldb a multiple of 4; the last
+// run may write up to 3 positions past H * wl, inside the row's ldb, which
+// no product output reads). A run
+// inside one row shares its 3 x 6 inputs; one that crosses a row's end
+// reads each output's own 3 x 3. Neighbouring lanes take neighbouring
+// channels (conflict-free reads of A). Per output and channel an f32 sum
+// from 0 in tap order, multiply then add, rows outside [0, H) skipped (SAME
+// zero padding in time), as the plain version.
+__device__ __forceinline__ void depthwise_f32(const float* a, float* b,
+                                              const float* __restrict__ dw, int H, int E,
+                                              int wl, int c_lo, int cin, int lda, int ldb) {
+  const int P = H * wl;
+  const int runs = (P + 3) / 4;
+  for (int cb = 0; cb < cin; cb += blockDim.x) {
+    const int nc = min(cin - cb, (int)blockDim.x);
+    const int per_c = blockDim.x / nc;
+    if ((int)threadIdx.x >= per_c * nc) continue;
+    const int c = cb + threadIdx.x % nc;
+    float k[9];
+#pragma unroll
+    for (int t = 0; t < 9; ++t) k[t] = dw[t * cin + c];
+    float* bc = b + (size_t)c * ldb;
+    for (int r = threadIdx.x / nc; r < runs; r += per_c) {
+      const int p0 = 4 * r;
+      const int h = p0 / wl;
+      const int cc = p0 - h * wl;  // first output column - c_lo
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      if (cc + 4 <= wl) {
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          const int hh = h + dy - 1;
+          if (hh < 0 || hh >= H) continue;  // SAME zero padding in time
+          const float* in = a + ((size_t)hh * E + c_lo + cc - 1) * lda + c;
+          float v[6];
+#pragma unroll
+          for (int m = 0; m < 6; ++m) v[m] = in[(size_t)m * lda];
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+            for (int m = 0; m < 4; ++m)
+              acc[m] = __fadd_rn(acc[m], __fmul_rn(v[dx + m], k[dy * 3 + dx]));
+        }
+      } else {
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int p = min(p0 + m, P - 1);  // past P: a copy of P - 1's
+          const int hm = p / wl;
+          const float* in = a + ((size_t)hm * E + c_lo + p - hm * wl - 1) * lda + c;
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy) {
+            const int hh = hm + dy - 1;
+            if (hh < 0 || hh >= H) continue;
+#pragma unroll
+            for (int dx = 0; dx < 3; ++dx)
+              acc[m] = __fadd_rn(acc[m], __fmul_rn(in[((dy - 1) * E + dx) * lda],
+                                                   k[dy * 3 + dx]));
+          }
+        }
+      }
+      *reinterpret_cast<float4*>(bc + p0) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    }
+  }
+}
+
 // Every layer of the stack on the tile in A ([H][E][widths[0]], row stride
 // row_ld(widths[0], kMma), columns outside the valid range already zero),
 // in layer mode kMode (kLp on bf16 tiles only). Returns the buffer that
@@ -996,6 +1376,7 @@ __device__ T* run_stack(T* buf_a, T* buf_b, const T* __restrict__ wts,
     const int c_lo = l + 1;          // first buffer column this layer writes
     const int wl = E - 2 * (l + 1);  // columns this layer writes
     const int P = H * wl;            // positions this layer writes
+    const int ldb = cm_ld(P);        // CUDA cores: B's channel stride
     const T* dw = wts + d.dw_off[l];
     const T* pw = wts + d.pw_off[l];
     const T* bias = wts + d.b_off[l];
@@ -1016,46 +1397,61 @@ __device__ T* run_stack(T* buf_a, T* buf_b, const T* __restrict__ wts,
       continue;
     }
 
-    // Depthwise: A [h][col][cin] -> B [p][cin], p = h * wl + col - c_lo.
+    // Depthwise: A [h][col][cin] -> B, p = h * wl + col - c_lo: [p][cin] on
+    // the tensor cores, [cin][ldb] on the CUDA cores (which first send for
+    // the product's first weight slab).
     if constexpr (kMma) {
       depthwise_pairs<kMode == kLp>(buf_a, buf_b, dw, H, E, wl, c_lo, cin, ld_in, ld_in);
     } else {
-      for (int i = threadIdx.x; i < P * cin; i += blockDim.x) {
-        const int c = i % cin;
-        const int p = i / cin;
-        const int h = p / wl;
-        const int col = c_lo + p % wl;
-        float acc = 0.f;
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-          const int hh = h + dy - 1;
-          if (hh < 0 || hh >= H) continue;  // SAME zero padding in time
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx) {
-            const float xv = to_f(buf_a[((size_t)hh * E + col + dx - 1) * cin + c]);
-            const float kv = to_f(dw[(dy * 3 + dx) * cin + c]);
-            acc = __fadd_rn(acc, __fmul_rn(xv, kv));
-          }
-        }
-        buf_b[i] = from_f<T>(acc);
-      }
+      copy_slab(wts + d.frag_off[l], cin, cout, 0);
+      depthwise_f32(buf_a, buf_b, dw, H, E, wl, c_lo, cin, ld_in, ldb);
     }
     __syncthreads();
 
-    // Pointwise + bias (+ ReLU on hidden layers): B [P][cin] -> A [h][col][cout].
-    const T* pwf = kMma ? wts + d.frag_off[l] : nullptr;
-    product<T, kMma, kWide>(buf_b, ld_in, P, pw, pwf, bias, cin, cout, fx,
-                            StackEpi<T>{buf_a, bias, E, wl, c_lo, g0, vlo, vhi, ld_out, l < L - 1});
+    // Pointwise + bias (+ ReLU on hidden layers): B -> A [h][col][cout].
+    if constexpr (kMma) {
+      const T* pwf = kMma ? wts + d.frag_off[l] : nullptr;
+      product<T, kMma, kWide>(buf_b, ld_in, P, pw, pwf, bias, cin, cout, fx,
+                              StackEpi<T>{buf_a, bias, E, wl, c_lo, g0, vlo, vhi, ld_out, l < L - 1});
+    } else {
+      pointwise_f32<true>(buf_b, ldb, P, wts + d.frag_off[l], cin, cout,
+                          StackEpi<T>{buf_a, bias, E, wl, c_lo, g0, vlo, vhi, ld_out, l < L - 1},
+                          true);
+    }
     __syncthreads();
   }
   return in;
 }
 
+// Elements of buffer A of a tile of E columns, [H][E][row_ld(cmax)]; on
+// the CUDA cores rounded up to 4 (B starts 16-byte aligned).
+__host__ __device__ inline size_t tile_a_elems(int H, int E, int cmax, bool mma) {
+  const size_t n = (size_t)H * E * row_ld(cmax, mma);
+  return mma ? n : (n + 3) / 4 * 4;
+}
+
+// Elements of buffer B: A's on the tensor cores and in the folded mode
+// (whose layers ping-pong between A and B); otherwise on the CUDA cores the
+// depthwise output channel-major, the most any layer l takes: widths[l] x
+// cm_ld(H * (E - 2 (l + 1))).
+__host__ __device__ inline size_t tile_b_elems(const StackDesc& d, int H, int E, bool mma,
+                                              bool folded = false) {
+  if (mma || folded) return tile_a_elems(H, E, stack_cmax(d), mma);
+  size_t b = 0;
+  for (int l = 0; l < d.n_layers; ++l) {
+    const size_t n = (size_t)d.widths[l] * cm_ld(H * (E - 2 * (l + 1)));
+    b = n > b ? n : b;
+  }
+  return b;
+}
+
 // One tile of the stack (the body of the stack kernel) in layer mode kMode:
 // image n of x [N, H, W, widths[0]] -> out [N, H, W, widths[L]], core
 // columns [tile * w_tile, (tile + 1) * w_tile). Shared memory: on the
-// tensor-core path the re-sum list (kFixBytes), then A and B, each
-// [H][w_tile + 2L][row_ld(cmax, kMma)]. kWide: as run_stack's.
+// tensor-core path the re-sum list (kFixBytes), then A ([H][w_tile +
+// 2L][row_ld(cmax, kMma)]) and B (tile_b_elems); on the CUDA cores outside
+// the folded mode the weight slabs (kStageBytes) end it. kWide: as
+// run_stack's.
 template <typename T, bool kMma = false, int kMode = kNormal, bool kWide = false>
 __device__ void stack_tile(const T* x, const T* __restrict__ wts, T* out,
                            const StackDesc& d, int H, int W, int w_tile,
@@ -1065,7 +1461,8 @@ __device__ void stack_tile(const T* x, const T* __restrict__ wts, T* out,
   const int E = w_tile + 2 * L;
   const FixList fx = fix_list(smem);
   T* buf_a = reinterpret_cast<T*>(smem + (kMma ? kFixBytes : 0));
-  T* buf_b = buf_a + (size_t)H * E * row_ld(stack_cmax(d), kMma);
+  T* buf_b = buf_a + (kMma ? (size_t)H * E * row_ld(stack_cmax(d), kMma)
+                           : tile_a_elems(H, E, stack_cmax(d), false));
   const int w0 = tile * w_tile;
   const int g0 = w0 - L;  // grid column of buffer column 0
   const int vlo = max(lo, 0);
@@ -1129,16 +1526,28 @@ __device__ void stack_tile(const T* x, const T* __restrict__ wts, T* out,
   __syncthreads();  // A and B are free for the next tile
 }
 
-// Largest tile width (core columns) whose two buffers fit in `smem` bytes,
-// then narrowed to equal tiles over W; 0 if none fits. Every layer mode
-// takes the same two buffers (the folded mode ping-pongs between them).
+inline size_t stack_smem(const StackDesc& d, int H, int w_tile,
+                         size_t itemsize, bool mma = false, bool folded = false) {
+  const int E = w_tile + 2 * d.n_layers;
+  const int cmax = stack_cmax(d);
+  return (mma ? kFixBytes : folded ? 0 : kStageBytes) +
+         (tile_a_elems(H, E, cmax, mma) + tile_b_elems(d, H, E, mma, folded)) * itemsize;
+}
+
+// Largest tile width (core columns) whose buffers fit in `smem` bytes,
+// then narrowed to equal tiles over W; 0 if none fits. On the tensor cores
+// every layer mode takes the same two buffers (the folded mode ping-pongs
+// between them); on the CUDA cores the folded mode takes two equal ones,
+// the normal mode a channel-major B and the weight slabs (stack_smem).
 inline int stack_w_tile(const StackDesc& d, int H, int W, size_t itemsize,
-                        size_t smem, bool mma = false) {
+                        size_t smem, bool mma = false, bool folded = false) {
   const size_t per_col = 2 * (size_t)H * row_ld(stack_cmax(d), mma) * itemsize;
   const size_t fix = mma ? kFixBytes : 0;
   if (smem <= fix) return 0;
-  int w_tile = (int)((smem - fix) / per_col) - 2 * d.n_layers;
+  int w_tile = mma ? (int)((smem - fix) / per_col) - 2 * d.n_layers : kMaxTile;
   if (mma && H * (w_tile + 2 * d.n_layers) > kMmaMaxP) w_tile = kMmaMaxP / H - 2 * d.n_layers;
+  while (!mma && w_tile >= 1 && stack_smem(d, H, w_tile, itemsize, mma, folded) > smem)
+    --w_tile;
   if (w_tile > kMaxTile) w_tile = kMaxTile;
   if (w_tile > W) w_tile = W;
   if (w_tile < 1) return 0;
@@ -1146,10 +1555,5 @@ inline int stack_w_tile(const StackDesc& d, int H, int W, size_t itemsize,
   return (W + n_tiles - 1) / n_tiles;
 }
 
-inline size_t stack_smem(const StackDesc& d, int H, int w_tile,
-                         size_t itemsize, bool mma = false) {
-  return (mma ? kFixBytes : 0) +
-         2 * (size_t)H * (w_tile + 2 * d.n_layers) * row_ld(stack_cmax(d), mma) * itemsize;
-}
 
 }  // namespace nrx

@@ -45,9 +45,21 @@
 // 128 channels take the same 136-element stride) runs the kWide instance of
 // its mode, whose k-steps past 128 stream their B fragments from L2 per M
 // tile; the tile takes at most nrx::kMmaMaxK = 256 input channels a layer,
-// and the wrapper refuses a wider bf16 stack. float32 (the eval path) keeps
-// the CUDA-core tile (16 warps of 4x4 f32 FMA register tiles, W_t = 10),
-// bit for bit.
+// and the wrapper refuses a wider bf16 stack.
+//
+// float32 (the eval and Monte-Carlo path) runs the CUDA-core tile
+// (nrx_tile.cuh): nrx::depthwise_f32 writes B channel-major with each
+// thread's taps in registers; nrx::pointwise_f32 multiplies it in register
+// tiles of 8 positions x 8 channels (4 x 8 where that fills the block
+// better), its weights (the wrapper's padded rows, pack_stack_rows) staged
+// slab by slab in shared memory by cp.async. Each sum is fmaf over the
+// input channels in order from 0, as the first CUDA-core tile summed, so
+// the outputs are that tile's bit for bit. W_t = 10 (E = 16): A, B (128
+// channels x 204 positions) and three 4 KB weight slabs in 231,424 B.
+// Bound by operations at 67 TFLOP/s: 1.131 ms for the init stack at N =
+// 60, which the tile runs at ~19 % of, about twice the first tile's speed
+// (shared-memory bandwidth holds it: see nrx_tile.cuh). The folded mode
+// keeps its loop (nrx::folded_fma) and two position-major buffers.
 //
 // Layer modes (nrx_tile.cuh; the JAX package's `lp_stencil` and `mxu`
 // arguments, one kernel instance each): normal; stencil_lp (bf16: the taps
@@ -96,6 +108,7 @@ cudaError_t launch(const void* x, const void* w, void* out, const StackDesc& d,
   static nrx::KernelSetup setup[nrx::kMaxDevices];
   constexpr bool kMma = nrx::kUseMma<T>;
   if (kMma && !nrx::mma_fits(d)) return cudaErrorInvalidValue;
+  if (!kMma && kMode != nrx::kFold && !nrx::rows_fit(d)) return cudaErrorInvalidValue;
   if constexpr (kMma && !kWide) {
     if (nrx::stack_wide(d)) return launch<T, kMode, true>(x, w, out, d, n, h, wc, lo, hi, stream);
   }
@@ -107,9 +120,9 @@ cudaError_t launch(const void* x, const void* w, void* out, const StackDesc& d,
     nrx::DeviceSetup ds;
     cudaError_t err = nrx::device_setup(&dev, &ds);
     if (err != cudaSuccess) return err;
-    w_tile = nrx::stack_w_tile(d, h, wc, sizeof(T), ds.optin, kMma);
+    w_tile = nrx::stack_w_tile(d, h, wc, sizeof(T), ds.optin, kMma, kMode == nrx::kFold);
     if (w_tile < 1) return cudaErrorInvalidValue;
-    smem = nrx::stack_smem(d, h, w_tile, sizeof(T), kMma);
+    smem = nrx::stack_smem(d, h, w_tile, sizeof(T), kMma, kMode == nrx::kFold);
     err = nrx::allow_smem(sepconv_stack_kernel<T, kMode, kWide>, setup[dev], smem);
     if (err != cudaSuccess) return err;
   }

@@ -17,9 +17,11 @@ layer, a stack as in `kernels/sepconv.py`. Activations are channels-last:
 s [b, T, H, W, d_s], pe [T, H, W, d_pe], active_tx [b, T].
 
 Weights go to the kernels packed once per dtype (`pack_mlp`,
-`sepconv.pack_stack`); for bfloat16, whose kernels run their products on
-the tensor cores, each packed buffer is followed by the products' weights
-in MMA fragment order (`pack_mlp_mma`, `sepconv.pack_stack_mma`). The
+`sepconv.pack_stack`), each packed buffer followed by the products' weights
+as the kernels read them: in bfloat16, whose kernels run their products on
+the tensor cores, in MMA fragment order (`pack_mlp_mma`,
+`sepconv.pack_stack_mma`); in float32, whose kernels run them on the CUDA
+cores, as padded rows (`pack_mlp_rows`, `sepconv.pack_stack_rows`). The
 bfloat16 kernels keep the plain versions' rounded outputs exactly
 (csrc/nrx_tile.cuh, pointwise_mma).
 
@@ -39,8 +41,8 @@ import torch
 
 from . import _build
 from .sepconv import (_DTYPE_CODES, _layers, _valid_range, check_mma_k,
-                      lp_default, mxu_default, sepconv_stack_reference,
-                      stack_weights, with_fragments)
+                      check_rows_n, cuda_core_rows, lp_default, mxu_default,
+                      sepconv_stack_reference, stack_weights, with_fragments)
 
 MAX_ITERATIONS = 8  # K4: csrc/cgnn_iter.cu kMaxIt
 MAX_USERS = 8
@@ -87,8 +89,20 @@ def pack_mlp_mma(p) -> torch.Tensor:
     return cache["mma"]
 
 
+def pack_mlp_rows(p) -> torch.Tensor:
+    """`pack_mlp` in float32 followed by w1 and w2 as `cuda_core_rows`: the
+    weights of the float32 (CUDA-core) MLP. Built once and kept in
+    p["packed"]."""
+    cache = p.setdefault("packed", {})
+    if "rows" not in cache:
+        w1, _, w2, _ = _dense(p, "mlp")
+        cache["rows"] = with_fragments(pack_mlp(p, torch.float32), (w1, w2),
+                                       cuda_core_rows)
+    return cache["rows"]
+
+
 def _mlp_weights(p, dtype):
-    return pack_mlp_mma(p) if dtype == torch.bfloat16 else pack_mlp(p, dtype)
+    return pack_mlp_mma(p) if dtype == torch.bfloat16 else pack_mlp_rows(p)
 
 
 def mlp_reference(p, x: torch.Tensor) -> torch.Tensor:
@@ -304,6 +318,9 @@ def _launch_iteration(it_p, s, pe, active_tx, sc_valid, readout_p, chest_p,
                                device=dev)
     if dtype == torch.bfloat16:
         check_mma_k(products, "fused_iteration")
+    else:
+        check_rows_n(widths[1:] + list(agg[1:]) + list(ro_dims or ())[1:]
+                     + list(ch_dims or ())[1:], "fused_iteration")
     lib = _build.load()
     rc = lib.nrx_cgnn_iter(
         s.data_ptr(), pe.data_ptr(), act.data_ptr(), out.data_ptr(),
@@ -352,6 +369,10 @@ def _launch_full(params, z0, pe, active_tx, sc_valid, num_it,
     if dtype == torch.bfloat16:
         check_mma_k(init_widths[:-1] + aggs + upd_widths + list(ro_dims[:2])
                     + list(ch_dims[:2]), "fused_cgnn_full")
+    else:
+        check_rows_n(init_widths[1:] + [v for i, v in enumerate(aggs) if i % 3]
+                     + [v for _, widths in shapes for v in widths[1:]]
+                     + list(ro_dims[1:]) + list(ch_dims[1:]), "fused_cgnn_full")
     pe = _on(pe, dev, "pe").to(dtype).contiguous()
     act = _on(active_tx, dev, "active_tx").float().contiguous()
     init_w = _on(stack_weights(init_p, dtype), dev, "weights")

@@ -22,11 +22,13 @@ A stack `p` is {"hidden": [layer, ...], "out": layer} with each layer
 are channels-last [N, H, W, C] in float32 or bfloat16; ReLU follows every
 hidden layer, the output layer is linear.
 
-Weights go to the kernel packed once per dtype (`stack_weights`): float32
-as `pack_stack`; bfloat16, whose tile runs its products on the tensor cores
-(as the CGNN kernels' bfloat16 tiles do), as `pack_stack_mma`, the same
-buffer followed by every layer's pointwise weights in MMA fragment order
-(`mma_fragments`). That tile takes at most `MMA_MAX_K` input channels a
+Weights go to the kernel packed once per dtype (`stack_weights`): float32,
+whose tile runs its products on the CUDA cores, as `pack_stack_rows`,
+`pack_stack` followed by every layer's pointwise weights as padded rows
+(`cuda_core_rows`); bfloat16, whose tile runs its products on the tensor
+cores (as the CGNN kernels' bfloat16 tiles do), as `pack_stack_mma`, the
+same buffer followed by every layer's pointwise weights in MMA fragment
+order (`mma_fragments`). That tile takes at most `MMA_MAX_K` input channels a
 layer (past 128, e2e_rt's 130-channel update stacks, in kernel instances
 that stream the weights of the further channels from L2): the wrapper
 refuses a wider bfloat16 stack. The folded mode reads
@@ -49,6 +51,7 @@ from . import _build
 
 MAX_LAYERS = 4
 MMA_MAX_K = 256  # nrx::kMmaMaxK: input channels of a tensor-core product
+ROWS_MAX_N = 256  # nrx::kRowsMaxN: output channels of a float32 product
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the kernel's `mode` argument (csrc/sepconv_stack.cu)
@@ -86,6 +89,15 @@ def check_mma_k(in_channels, what: str) -> None:
         raise ValueError(f"{what}: the bfloat16 tile takes at most "
                          f"{MMA_MAX_K} input channels a product, got "
                          f"{list(in_channels)}")
+
+
+def check_rows_n(out_channels, what: str) -> None:
+    """Raises ValueError if a product of the float32 (CUDA-core) tile would
+    give more than ROWS_MAX_N output channels."""
+    if max(out_channels) > ROWS_MAX_N:
+        raise ValueError(f"{what}: the float32 tile gives at most "
+                         f"{ROWS_MAX_N} output channels a product, got "
+                         f"{list(out_channels)}")
 
 
 def _layers(p):
@@ -197,15 +209,31 @@ def mma_fragments(w: torch.Tensor) -> torch.Tensor:
     return wp[k, n].reshape(-1)
 
 
+def cuda_core_rows(w: torch.Tensor) -> torch.Tensor:
+    """w [c_in, c_out] as the rows of the kernels' float32 products
+    (`csrc/nrx_tile.cuh`, pointwise_f32), flat: per input channel 8 * G
+    values (G = ceil(c_out / 8)) in two halves of G quads, quad g of half h
+    holding w[c][g + (4 h + e) * G] for e = 0..3, zero past c_out. A
+    thread's 8 output channels g + j * G are quad g of both halves, and
+    neighbouring lanes (g, g + 1) read neighbouring quads."""
+    c_in, c_out = w.shape
+    groups = -(-c_out // 8)
+    quad = torch.arange(groups, device=w.device)[:, None]
+    e = torch.arange(4, device=w.device)
+    o = torch.cat([quad + (4 * h + e) * groups for h in (0, 1)]).reshape(-1)
+    rows = w.new_zeros((c_in, 8 * groups))
+    rows[:, o < c_out] = w[:, o[o < c_out]]
+    return rows.reshape(-1)
+
+
 def with_fragments(plain: torch.Tensor, mats,
-                   fragments: bool = True) -> torch.Tensor:
-    """plain, zero-padded to a multiple of 8 values (16 bytes), then the
-    fragments of each matrix: the bfloat16 layout of the tensor-core
-    kernels, whose offsets `csrc/nrx_tile.cuh` computes alike. With
-    fragments=False each matrix follows as its rows instead (the CUDA-core
-    folded tile)."""
+                   lay=mma_fragments) -> torch.Tensor:
+    """plain, zero-padded to a multiple of 8 values (16 bytes), then each
+    matrix laid out by `lay`: `mma_fragments` (the tensor-core kernels'
+    bfloat16 layout), `cuda_core_rows` (the CUDA-core float32 products) or
+    plain rows (the CUDA-core folded tile); `csrc/nrx_tile.cuh` computes the
+    offsets alike."""
     pad = plain.new_zeros((-plain.numel()) % 8)
-    lay = mma_fragments if fragments else (lambda m: m.reshape(-1))
     return torch.cat([plain, pad] + [lay(m.to(plain.dtype))
                                      for m in mats]).contiguous()
 
@@ -230,9 +258,22 @@ def pack_stack_folded(p, dtype: torch.dtype) -> torch.Tensor:
     key = ("folded", dtype)
     if key not in cache:
         mats = [m for lp in _layers(p) for m in folded_taps(lp, dtype)]
-        cache[key] = with_fragments(pack_stack(p, dtype), mats,
-                                    fragments=dtype == torch.bfloat16)
+        cache[key] = with_fragments(
+            pack_stack(p, dtype), mats,
+            mma_fragments if dtype == torch.bfloat16 else torch.flatten)
     return cache[key]
+
+
+def pack_stack_rows(p) -> torch.Tensor:
+    """`pack_stack` in float32 followed by every layer's pointwise weights
+    as `cuda_core_rows`: the weights of the float32 stack. Built once and
+    kept in p["packed"]."""
+    cache = p.setdefault("packed", {})
+    if "rows" not in cache:
+        cache["rows"] = with_fragments(pack_stack(p, torch.float32),
+                                       [lp["pw"] for lp in _layers(p)],
+                                       cuda_core_rows)
+    return cache["rows"]
 
 
 def stack_weights(p, dtype: torch.dtype, mode: str = "normal"
@@ -241,7 +282,7 @@ def stack_weights(p, dtype: torch.dtype, mode: str = "normal"
     if mode == "mxu":
         return pack_stack_folded(p, dtype)
     return pack_stack_mma(p) if dtype == torch.bfloat16 else \
-        pack_stack(p, dtype)
+        pack_stack_rows(p)
 
 
 def fused_conv_stack(p, x: torch.Tensor, sc_valid=None,
@@ -278,6 +319,8 @@ def _launch(p, x: torch.Tensor, sc_valid, mode: str = "normal"
         raise ValueError(f"channel widths do not chain: {widths}")
     if x.dtype == torch.bfloat16:
         check_mma_k(widths[:-1], "sepconv_stack")
+    elif mode != "mxu":
+        check_rows_n(widths[1:], "sepconv_stack")
     w = stack_weights(p, x.dtype, mode)
     if w.device != x.device:
         raise ValueError(f"weights on {w.device}, activations on {x.device}")

@@ -8,11 +8,20 @@ it: in bfloat16 the separable-conv stack kernel over the three stacks of
 one batch-1 slot (N = 2) and on the batch-16 route's init stack (N = 32),
 the fused iteration at batch 16 in state mode and the whole-CGNN kernel at
 batch 1 and 16; in float32 the layered LDPC decoder on one user's batch-16
-load (80 BG1/Z = 384 codewords at 10 dB, 20 iterations). Beside the times:
-the elements of the stack slot and the hard bits of the decode that differ
-from the plain versions. Prints one JSON line. It passes the wrappers
+load (80 BG1/Z = 384 codewords at 10 dB, 20 iterations) and the CGNN
+kernels at the eval and Monte-Carlo path's shapes (`float32`): the stack
+kernel on the init stack at N = 60 (batch 30), the fused iteration at
+batch 30 in state mode and in readout mode (both readouts) and the
+whole-CGNN kernel at batch 1, each beside its float32 bound and with a
+SHA-256 of its output bytes (inputs from their own default_rng(0)), so two
+checkouts timed in one call show whether their float32 outputs are the
+same bits. Beside the times: the elements of the stack slot and the hard
+bits of the decode that differ from the plain versions, and each float32
+kernel's largest difference from its plain version relative to the plain
+output's largest magnitude. Prints one JSON line. It passes the wrappers
 their layer modes, so an older checkout, whose wrappers take none, is timed
-with that checkout's own copy of this script.
+with that checkout's own copy of this script (the float32 part passes
+none).
 
 With --conv-mxu the stacks run in the folded-tap mode (`mxu=True`; the
 iteration and whole-CGNN kernels do not take it), with --stencil-lp the
@@ -25,6 +34,7 @@ mode in one call to compare the modes on one card.
 """
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -61,7 +71,7 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     info = _build.build()
     ptxas = [ln.strip() for ln in info.log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     peaks = cs.card_peaks(torch.cuda.get_device_name(0))
     bf, dev = torch.bfloat16, torch.device("cuda")
     cgnn = load_params(device=dev)["cgnn"]
@@ -136,8 +146,77 @@ def main() -> int:
             code, llr, cs.LDPC_ITER)).sum()),
         **cs.bound(*cs.ldpc_work(code, 80), peaks, rate="f32_flops")}
     out["ldpc_decode_80"] = rates(rec)
+    out["float32"] = float32_kernels(cs, peaks, args.reps, dev)
     print(json.dumps(out))
     return 0
+
+
+def float32_kernels(cs, peaks, reps, dev) -> dict:
+    """The float32 CGNN kernels at the eval path's shapes: time, bound,
+    SHA-256 of the output bytes, and the largest difference from the plain
+    version (relative to its largest magnitude)."""
+    import torch
+    from neural_rx_tpu_torch.entry import load_params, make_receiver
+    from neural_rx_tpu_torch.kernels import cgnn_iter, sepconv
+    f32 = torch.float32
+    cgnn = load_params(dtype=f32, device=dev)["cgnn"]
+    pe = make_receiver(nrx_dtype=f32, device=dev).pe.to(f32)
+    rng = np.random.default_rng(0)
+
+    def rand(shape, scale=1.0):
+        return torch.as_tensor(scale * rng.standard_normal(shape),
+                               dtype=f32, device=dev)
+
+    def digest(outs):
+        h = hashlib.sha256()
+        for o in outs:
+            h.update(o.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def record(fn, plain, work, n):
+        got = fn()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = plain()
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        rec = {"kernel_ms": cs.cuda_ms(fn, n),
+               **cs.bound(*work, peaks, rate="f32_flops"),
+               "sha256": digest(got),
+               "rel_err": max(cs.rel_err(g, r) for g, r in zip(got, ref))}
+        return {**rec, "tflops": rec["flops"] / rec["kernel_ms"] / 1e9,
+                "pct_of_bound": 100.0 * rec["bound_ms"] / rec["kernel_ms"]}
+
+    out = {}
+    init = cgnn["s_init"][0]
+    x60 = rand((60, N_SYM, N_SC, cs.widths_of(init)[0]))
+    out["sepconv_init_n60"] = record(
+        lambda: sepconv.fused_conv_stack(init, x60),
+        lambda: sepconv.sepconv_stack_reference(init, x60),
+        cs.stack_work(cs.widths_of(init), 60, N_SYM, N_SC, 4), reps)
+    del x60
+    it0, it1 = cgnn["iterations"]
+    d_s = cs.mlp_dims(it0["agg"])[0]
+    s30 = rand((30, N_TX, N_SYM, N_SC, d_s), 4.0)
+    act30 = torch.ones((30, N_TX), device=dev)
+    out["cgnn_iter_b30"] = record(
+        lambda: cgnn_iter.fused_iteration(it0, s30, pe, act30),
+        lambda: cgnn_iter.fused_iteration_reference(it0, s30, pe, act30),
+        cs.iteration_work(it0, 30, pe.shape[-1], 4), max(reps // 2, 1))
+    readouts = (cgnn["readout_llrs"][0], cgnn["readout_chest"])
+    out["cgnn_iter_b30_readout"] = record(
+        lambda: cgnn_iter.fused_iteration(it1, s30, pe, act30, None,
+                                          *readouts),
+        lambda: cgnn_iter.fused_iteration_reference(it1, s30, pe, act30,
+                                                    None, *readouts),
+        cs.iteration_work(it1, 30, pe.shape[-1], 4, readouts),
+        max(reps // 2, 1))
+    del s30
+    z1 = rand((1, N_TX, N_SYM, N_SC, cs.widths_of(init)[0]))
+    act1 = torch.ones((1, N_TX), device=dev)
+    out["cgnn_full_b1"] = record(
+        lambda: cgnn_iter.fused_cgnn_full(cgnn, z1, pe, act1),
+        lambda: cgnn_iter.fused_cgnn_full_reference(cgnn, z1, pe, act1),
+        cs.full_work(cgnn, 1, pe.shape[-1], 4), reps)
+    return out
 
 
 if __name__ == "__main__":
