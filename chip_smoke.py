@@ -185,7 +185,32 @@ Phases, each printing one JSON line with its seconds:
      routes; each e2e kernel's time beside its bound and plain version;
      the wide instances' registers and spills, and no spill in any
      instance;
- 16. times: CUDA-event device time per kernel launch (kernel and plain) at
+ 16. large_path: nrx_large and e2e_rt with their committed weights (the
+     parts of weights/nrx_large_weights.npz, from the pickle the JAX
+     evaluate CLI loads, and of weights/e2e_rt_ema_weights.npz with the
+     learned constellation): nrx_large's Monte Carlo at 132 PRB, batch 30,
+     float32, DoubleTDLlow (a step through `mc_entry`: 1 sepconv, 8
+     iteration, 2 LDPC launches; kernel route = plain route on one step;
+     `sim_ber` at 1, 2 and 3 dB inside the band of the JAX package's curve
+     with the same weights, a CPU sweep,
+     `neural_rx_tpu_torch/curves/jax_nrx_large.json` (the committed curve,
+     `curves/nrx_large.json`, was made with other weights: ROADMAP.md R10;
+     it stands beside each point); a step's device ms by
+     stage and, from the profiler, by kernel beside its bound, and its busy
+     share); nrx_large's bf16 serving routes, batch 16 (1 sepconv, 8
+     iteration launches) and mega at batch 1 (1 whole-CGNN launch of 8
+     iterations), each equal bit for bit to its plain route, with device
+     ms; WARM_STEPS Adam steps from the committed weights at phase 1 (UMi,
+     4 PRB, batch 128, apply_multiloss, double readout, 8 iterations, no
+     kernel): finite losses, the data loss within three standard errors of
+     the JAX package's with the same weights (JAX_LARGE_WARM_LOSS), a
+     step's device ms and the peak memory; e2e_rt's Monte Carlo (EMA
+     weights, learned constellation, 1 user, TDL-B100, batch 20: 1
+     sepconv, 4 iteration, 1 LDPC launch; the transmitter's points the
+     committed constellation's centred and normalised within 1e-6, kernel
+     route = plain route, `sim_ber` at 1, 2 and 3 dB inside the band of
+     `curves/e2e_rt.json`), with the same stage and kernel records;
+ 17. times: CUDA-event device time per kernel launch (kernel and plain) at
      the shapes the main path gives it, with its bound, achieved TFLOP/s
      and share of the bound (the sepconv stack at N = 2 and on the batch-16
      route's init stack at N = 32, the whole-CGNN kernel at batch 1 and
@@ -354,6 +379,27 @@ SITE_MD5 = {"nrx_site_specific_train.cirbin":
             "e544e3a74fdbe8c6b1b8524ae3c34b36",
             "nrx_site_specific_eval.cirbin":
             "74d4594bc73ca5afedea1ecb091a110e"}
+# the committed weights of nrx_large and e2e_rt (phase large_path)
+LARGE_LABEL = "nrx_large"  # 8 iterations, 2 users, multiloss training
+LARGE_BATCH = 30  # nrx_large's batch_size_eval
+LARGE_SERVE_BATCH = 16  # > 4: the iteration kernel's serving route
+LARGE_SEED = 0
+LARGE_STEP_DB = 2.0  # Eb/N0 of the kernel-vs-plain step
+LARGE_SWEEP_DB = (1.0, 2.0, 3.0)
+LARGE_CURVE = os.path.join("neural_rx_tpu_torch", "curves",
+                           "nrx_large.json")
+# the JAX package's BLER with the committed weights, on the CPU: the
+# committed curve above was made with other weights (ROADMAP.md R10)
+LARGE_JAX_CURVE = os.path.join("neural_rx_tpu_torch", "curves",
+                               "jax_nrx_large.json")
+# the JAX package's phase-1 data loss of nrx_large with the committed
+# weights, apply_multiloss (the sum over the 8 iterations' readouts), on
+# UMi, batch 128, 16 batches, no update (mean, standard error), on the CPU:
+#   JAX_PLATFORMS=cpu python scripts/torch_port_jax_train_loss.py \
+#       --config nrx_large --weights weights/nrx_large_weights.pkl
+JAX_LARGE_WARM_LOSS = (3.907813847064972, 0.16878222242128169)
+E2E_EVAL_BATCH = 20  # e2e_rt's batch_size_eval, 1 user, TDL-B100
+E2E_CURVE = os.path.join("neural_rx_tpu_torch", "curves", "e2e_rt.json")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_SYM, N_SC, N_TX = 14, 1584, 2
 
@@ -2796,6 +2842,337 @@ def completion_path(dev, card, peaks, counts, reset, ptxas):
     return launches, times
 
 
+def kernel_of(name: str) -> str:
+    """The launch counter a device kernel's name belongs to, or "other"."""
+    for key, part in (("sepconv_stack", "sepconv_stack_kernel"),
+                      ("cgnn_iter", "cgnn_iter_kernel"),
+                      ("cgnn_full", "cgnn_full_kernel"),
+                      ("ldpc_decode", "ldpc_layered_kernel")):
+        if part in name:
+            return key
+    return "other"
+
+
+def profile_steps(fn, steps=2):
+    """Device time of fn() per call over `steps` calls after one more
+    (profiler): the window's host ms, the device's busy ms and share, and
+    per launch counter (`kernel_of`) its ms and launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t1) * 1e3 / steps
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            rec = by.setdefault(kernel_of(e.name), {"ms": 0.0,
+                                                    "launches": 0.0})
+            rec["ms"] += e.time_range.elapsed_us() / 1e3 / steps
+            rec["launches"] += 1.0 / steps
+    busy = sum(rec["ms"] for rec in by.values())
+    return {"window_ms": window, "busy_ms": busy,
+            "busy_share": busy / window, "by_kernel": by}
+
+
+def mc_step_bounds(cgnn, b, t, codes, peaks) -> dict:
+    """Least device ms of a float32 Monte-Carlo step's kernels, per launch
+    counter: the init stack on b*t images, every iteration at batch b with
+    t users (the last with both readouts), and a layered decode of each
+    (code, codewords) of `codes`."""
+    its = cgnn["iterations"]
+    ro = (cgnn["readout_llrs"][0], cgnn["readout_chest"])
+    f32 = {"peaks": peaks, "rate": "f32_flops"}
+    return {
+        "sepconv_stack": bound(*stack_work(widths_of(cgnn["s_init"][0]),
+                                           b * t, N_SYM, N_SC, 4),
+                               **f32)["bound_ms"],
+        "cgnn_iter": sum(bound(*iteration_work(
+            it, b, 2, 4, ro if i == len(its) - 1 else (), t=t),
+            **f32)["bound_ms"] for i, it in enumerate(its)),
+        "ldpc_decode": sum(bound(*ldpc_work(code, n), **f32)["bound_ms"]
+                           for code, n in codes)}
+
+
+def large_path(dev, card, peaks, counts, reset):
+    """Phase 16: nrx_large and e2e_rt with their committed weights (the
+    parts of weights/nrx_large_weights.npz and e2e_rt_ema_weights.npz).
+    (a) nrx_large's Monte Carlo at 132 PRB, batch 30, float32, DoubleTDLlow:
+    a step's launches through `mc_entry` (1 stack, 8 iteration, 2 LDPC),
+    the kernel route equal to the plain route, `sim_ber` at 1, 2, 3 dB in
+    the band of the JAX package's curve with the same weights (the CPU
+    sweep LARGE_JAX_CURVE; the committed curve beside), a step's device ms
+    by stage and by kernel beside its bound, and its busy share; (b)
+    nrx_large's bf16
+    serving routes: batch 16 (1 stack, 8 iteration launches) and mega at
+    batch 1 (one whole-CGNN launch, 8 iterations), each equal bit for bit
+    to its plain route, with device ms; (c) WARM_STEPS Adam steps from the
+    committed weights at phase 1 (UMi, 4 PRB, batch 128, apply_multiloss,
+    double readout, 8 iterations): finite losses, the data loss within
+    three standard errors of the JAX package's (JAX_LARGE_WARM_LOSS), a
+    step's device ms and the peak memory; (d) e2e_rt's Monte Carlo (EMA
+    weights, learned constellation, 1 user, TDL-B100, batch 20): launches
+    (1 stack, 4 iteration, 1 LDPC), the transmitter's points the
+    committed constellation's centred and normalised, kernel route = plain
+    route, `sim_ber` at 1, 2, 3 dB in the band of its curve. Emits the
+    phase's record, asserts it, and returns (launches by path, the step
+    profiles)."""
+    import torch
+    from neural_rx_tpu_torch import weights
+    from neural_rx_tpu_torch.channel.apply import apply_ofdm_channel
+    from neural_rx_tpu_torch.entry import load_params, mc_entry
+    from neural_rx_tpu_torch.kernels import ldpc as k5
+    from neural_rx_tpu_torch.rx.neural_rx import mcs_mask, receiver_for
+    from neural_rx_tpu_torch.sim import training
+    from neural_rx_tpu_torch.sim.config import Parameters
+    from neural_rx_tpu_torch.sim.e2e import E2EModel
+    from neural_rx_tpu_torch.sim.simber import sim_ber
+
+    t0 = time.perf_counter()
+    zero = dict.fromkeys(("sepconv_stack", "cgnn_iter", "cgnn_full",
+                          "ldpc_decode"), 0)
+    launches = {}
+    expected = {
+        "large_mc_b30": {**zero, "sepconv_stack": 1, "cgnn_iter": 8,
+                         "ldpc_decode": 2},
+        "large_b16": {**zero, "sepconv_stack": 1, "cgnn_iter": 8},
+        "large_mega_b1": {**zero, "cgnn_full": 1},
+        "large_warm_b128": zero,
+        "e2e_mc_b20": {**zero, "sepconv_stack": 1, "cgnn_iter": 4,
+                       "ldpc_decode": 1}}
+
+    def monte_carlo(route, label, batch, curve, committed=None):
+        """A step's launches through mc_entry (counted under `route`),
+        kernel route = plain route on one step, the sweep (its points beside
+        `curve`, and beside the `committed` curve where that is another),
+        the stages and the profile of a step."""
+        fn, (params, gen) = mc_entry(device=dev, batch=batch,
+                                     ebno_db=LARGE_STEP_DB, seed=LARGE_SEED,
+                                     config=label)
+        reset()
+        step_counts = fn(params, gen).tolist()
+        torch.cuda.synchronize()
+        launches[route] = counts()
+        reset()
+        p = Parameters(label, training=False)
+        models = [E2EModel(p, kernels=k, device=dev) for k in (True, False)]
+        outs = []
+        for m in models:
+            g = torch.Generator(device=dev).manual_seed(LARGE_SEED)
+            outs.append(m(params, g, batch, LARGE_STEP_DB, fast_ldpc=True))
+        torch.cuda.synchronize()
+        reset()
+        (b, b_hat, crc), ref = outs
+        plain = {"ebno_db": LARGE_STEP_DB, "counters": block_counts(b, b_hat),
+                 "counters_plain": block_counts(ref[0], ref[1]),
+                 "crc_truthful": bool(torch.equal((b_hat == b).all(dim=-1),
+                                                  crc)),
+                 "equals_plain_route": all(torch.equal(x, y)
+                                           for x, y in zip(outs[0], ref))}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bers, blers, n_err, n_blk = sim_ber(
+            models[0], params, LARGE_SWEEP_DB, batch,
+            max_mc_iter=MC_MAX_ITER,
+            num_target_block_errors=MC_TARGET_BLOCK_ERRORS, seed=LARGE_SEED,
+            verbose=False, fast_ldpc=True, return_counts=True)
+        wall = time.perf_counter() - t1
+        users = p.max_num_tx
+        steps = int(n_blk.sum()) // (batch * users)
+        sweep = {"points": [curve_point(*pt, curve) for pt in zip(
+                     LARGE_SWEEP_DB, bers, blers, n_err, n_blk)],
+                 "steps": steps, "wall_s": wall,
+                 "slots_per_s_wall": steps * batch / wall}
+        if committed is not None:
+            for pt in sweep["points"]:
+                pt["committed_curve_bler"] = jax_bler(pt["ebno_db"],
+                                                      committed)
+        # a step's device ms by stage: draws + transmitter + channel,
+        # receiver (the CGNN's kernels), decode (K5, every user)
+        model, rx = models[0], models[0].receiver
+        gen_t = torch.Generator(device=dev).manual_seed(LARGE_SEED + 1)
+        mask = mcs_mask((batch, users), 0, model.num_mcs, dev)
+
+        def front():
+            bits, h_, n_ = model.draw(gen_t, batch, LARGE_STEP_DB)
+            x = model.transmit(bits, [0], mask, points=(
+                model.constellation_points(params, [0])))
+            return apply_ofdm_channel(x, h_, None, noise=n_)
+        y_t = front()
+        y_tp = torch.stack([y_t.real, y_t.imag], dim=-1)
+        llr_t, _ = rx.serve(params, y_tp)
+        tbs = rx.tb_configs[0]
+
+        def decode():
+            flat = rx.rg.demap_data(llr_t).reshape(batch, users, -1)
+            return [k5.tb_decode_fast(cfg, flat[:, ue])
+                    for ue, cfg in enumerate(tbs)]
+        stages = {"front_ms": cuda_ms(front, 3, warmup=1),
+                  "receiver_ms": cuda_ms(lambda: rx.serve(params, y_tp), 3,
+                                         warmup=1),
+                  "decode_ms": cuda_ms(decode, 3, warmup=1)}
+        stages["device_step_ms"] = sum(stages.values())
+        stages["slots_per_s_device"] = batch / stages["device_step_ms"] * 1e3
+        prof = profile_steps(lambda: fn(params, gen))
+        for k, bms in mc_step_bounds(
+                params["cgnn"], batch, users,
+                [(cfg.code, batch * cfg.num_cbs) for cfg in tbs],
+                peaks).items():
+            rec = prof["by_kernel"][k]
+            rec["bound_ms"] = bms
+            rec["pct_of_bound"] = 100.0 * bms / rec["ms"]
+        reset()
+        rec = {"config": label, "batch": batch, "users": users,
+               "step_counts": step_counts, "kernel_vs_plain": plain,
+               "sweep": sweep, "stages": stages, "profile": prof}
+        return rec, models[0], params
+
+    # (a) nrx_large's Monte Carlo
+    with open(os.path.join(ROOT, LARGE_JAX_CURVE)) as f:
+        assert json.load(f)["weights"] == "nrx_large_weights.pkl"
+    mc_large, _, _ = monte_carlo(
+        "large_mc_b30", LARGE_LABEL, LARGE_BATCH,
+        json_curve(LARGE_JAX_CURVE), json_curve(LARGE_CURVE, ("curve",)))
+
+    # (b) nrx_large's bf16 serving routes against their plain routes
+    p_l = Parameters(LARGE_LABEL, training=False)
+    params_b = load_params(dtype=torch.bfloat16, device=dev,
+                           path=weights.committed_weights(LARGE_LABEL))
+    rng = np.random.default_rng(LARGE_SEED)
+    ys = {b: torch.as_tensor(rng.normal(size=(b, 4, N_SYM, N_SC, 2)),
+                             dtype=torch.float32, device=dev)
+          for b in (1, LARGE_SERVE_BATCH)}
+    serving = {}
+    for route, mega, b in (("large_b16", False, LARGE_SERVE_BATCH),
+                           ("large_mega_b1", True, 1)):
+        rxk, rxp = (receiver_for(p_l, torch.bfloat16, fused_full=mega,
+                                 kernels=k, device=dev)
+                    for k in (True, False))
+        reset()
+        out = rxk.serve(params_b, ys[b])
+        torch.cuda.synchronize()
+        launches[route] = counts()
+        reset()
+        ref = rxp.serve(params_b, ys[b])
+        torch.cuda.synchronize()
+        plain_counts = counts()
+        serving[route] = {
+            "batch": b, "plain_launches": plain_counts,
+            "equal_to_plain": all(torch.equal(x, y)
+                                  for x, y in zip(out, ref)),
+            "finite": all(bool(torch.isfinite(x).all()) for x in out),
+            "call_ms": cuda_ms(lambda: rxk.serve(params_b, ys[b]),
+                               10 if b == 1 else 3),
+            "plain_call_ms": cuda_ms(lambda: rxp.serve(params_b, ys[b]), 2,
+                                     warmup=1)}
+        serving[route]["slot_ms"] = serving[route]["call_ms"] / b
+        reset()
+        del rxk, rxp
+    del params_b, ys
+
+    # (c) the warm start from the committed weights, phase 1, multiloss
+    p_t = Parameters(LARGE_LABEL, training=True)
+    sched = p_t.training_schedule
+    warm_model = E2EModel(p_t, training=True, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(LARGE_SEED)
+    warm, copied, kept = training.merge_matching_leaves(
+        warm_model.init_params(gen), training.load_weights(
+            weights.committed_weights(LARGE_LABEL), dev))
+    warm = training.trainable(warm)
+    phase = 1
+    flags = {"double_readout": bool(sched["double_readout"][phase]),
+             "apply_multiloss": bool(sched["apply_multiloss"][phase]),
+             "weighting": float(sched["weighting_double_readout"][phase])}
+    wstep = training.make_step(
+        warm_model, p_t, training.make_adam(
+            warm, float(sched["learning_rate"][phase])), [0], TRAIN_BATCH,
+        flags["double_readout"], flags["weighting"],
+        flags["apply_multiloss"], False)
+    wstep.set_snr_range(sched["min_training_snr_db"][phase],
+                        sched["max_training_snr_db"][phase])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    hist, step_ms = [], []
+    t1 = time.perf_counter()
+    for _ in range(WARM_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        hist.append(wstep(warm, gen))
+        ev[1].record()
+        torch.cuda.synchronize()
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+    wall = time.perf_counter() - t1
+    launches["large_warm_b128"] = counts()
+    reset()
+    whist = training.loss_history(hist)
+    w_se = float(whist[:, 0].std(ddof=1) / np.sqrt(WARM_STEPS))
+    warm_rec = {"copied": copied, "kept": kept, "steps": WARM_STEPS,
+                "phase": phase, **flags, "batch": TRAIN_BATCH,
+                "iterations": len(warm["cgnn"]["iterations"]),
+                "losses": whist.tolist(),
+                "loss_data_mean": float(whist[:, 0].mean()),
+                "loss_data_se": w_se,
+                "jax_mean": JAX_LARGE_WARM_LOSS[0],
+                "jax_se": JAX_LARGE_WARM_LOSS[1],
+                "all_finite": bool(np.isfinite(whist).all()),
+                "step_event_ms_median": float(np.median(step_ms[2:])),
+                "steps_per_s_wall": WARM_STEPS / wall,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print("warm start nrx_large (multiloss): loss_data mean "
+          f"{warm_rec['loss_data_mean']:.4f} +- {w_se:.4f} (JAX, same "
+          f"weights and sampling: {JAX_LARGE_WARM_LOSS[0]:.4f} +- "
+          f"{JAX_LARGE_WARM_LOSS[1]:.4f})", flush=True)
+    del warm, wstep, warm_model
+
+    # (d) e2e_rt's Monte Carlo with its learned constellation
+    mc_e2e, model_e, params_e = monte_carlo(
+        "e2e_mc_b20", E2E_LABEL, E2E_EVAL_BATCH,
+        json_curve(E2E_CURVE, ("curve",)))
+    c = np.asarray(weights.load_tree(weights.committed_weights(E2E_LABEL),
+                                     device="cpu")["constellation"][0],
+                   np.float64)
+    c = c[0] + 1j * c[1]
+    c = c - c.mean()
+    c = c / np.sqrt((np.abs(c) ** 2).mean())
+    (pts,) = model_e.constellation_points(params_e, [0])
+    pts = pts.cpu().numpy()
+    mc_e2e["constellation"] = {
+        "points": len(pts), "max_abs_err": float(np.abs(pts - c).max()),
+        "mean_abs": float(abs(pts.mean())),
+        "energy": float((np.abs(pts) ** 2).mean())}
+    del model_e, params_e
+
+    emit({"phase": "large_path", "card": card, "nrx_large_mc": mc_large,
+          "serving": serving, "warm_start": warm_rec, "e2e_rt_mc": mc_e2e,
+          "launches": launches, "expected": expected,
+          "seconds": time.perf_counter() - t0})
+    for route, want in expected.items():
+        assert launches[route] == want, (route, launches[route])
+    for rec in (mc_large, mc_e2e):
+        assert rec["kernel_vs_plain"]["equals_plain_route"], rec
+        assert rec["kernel_vs_plain"]["crc_truthful"], rec
+        for pt in rec["sweep"]["points"]:
+            lo, hi = pt["band"]
+            assert lo <= pt["bler"] <= hi, (rec["config"], pt)
+    for route, rec in serving.items():
+        assert rec["equal_to_plain"] and rec["finite"], (route, rec)
+        assert rec["plain_launches"] == zero, (route, rec)
+    assert warm_rec["copied"] == 121 and warm_rec["kept"] == 0, warm_rec
+    assert warm_rec["all_finite"], warm_rec
+    assert abs(warm_rec["loss_data_mean"] - JAX_LARGE_WARM_LOSS[0]) < \
+        3 * np.hypot(w_se, JAX_LARGE_WARM_LOSS[1]), warm_rec
+    con = mc_e2e["constellation"]
+    assert con["points"] == 16 and con["max_abs_err"] < 1e-6, con
+    return launches, {"large_mc": mc_large["profile"],
+                      "e2e_mc": mc_e2e["profile"]}
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -3330,7 +3707,13 @@ def main() -> int:
                                                 reset, ptxas)
     launches.update(done_launches)
 
-    # 16. times (bf16, as served), at the shapes the main path gives each
+    # 16. nrx_large and e2e_rt with their committed weights: Monte Carlo,
+    # serving, the multiloss warm start
+    large_launches, large_profiles = large_path(dev, card, peaks, counts,
+                                                reset)
+    launches.update(large_launches)
+
+    # 17. times (bf16, as served), at the shapes the main path gives each
     # kernel: stacks at N = 2 (batch 1), the iteration at batch 16, the
     # whole CGNN at batch 1
     t0 = time.perf_counter()
@@ -3621,6 +4004,19 @@ def main() -> int:
                                     rec["pct_of_bound"]})
         return out
 
+    def large_keys(kernel):
+        """The large path's Monte-Carlo steps (float32, committed weights,
+        profiler): nrx_large at batch 30, e2e_rt at batch 20; the kernel's
+        ms and launches a step, and their bound."""
+        out = {}
+        for n, prof in large_profiles.items():
+            rec = prof["by_kernel"].get(kernel)
+            if rec is not None:
+                out.update({f"ms_step_{n}": rec["ms"],
+                            f"launches_step_{n}": rec["launches"],
+                            f"bound_ms_step_{n}": rec.get("bound_ms")})
+        return out
+
     st_bytes = sum(s["bytes_ms"] for s in per_stack)
     st_ops = sum(s["ops_ms"] for s in per_stack)
     by_path = {k: {r: launches[r][k] for r in launches} for k in
@@ -3643,7 +4039,7 @@ def main() -> int:
          "bound_ms_n32": stack_n32["bound_ms"],
          **mc_keys("sepconv_stack"), **width_keys("sepconv_stack"),
          **shard_keys("sepconv_stack"), **mode_keys("sepconv_stack"),
-         **e2e_keys("sepconv_stack"),
+         **e2e_keys("sepconv_stack"), **large_keys("sepconv_stack"),
          "note": "ms/plain_ms/bound_ms: sum over the 3 launches of one "
                  "batch-1 slot (init, update0, update1), bf16, N=2, "
                  "14x1584; *_n32: the batch-16 route's launch (init stack, "
@@ -3658,6 +4054,10 @@ def main() -> int:
                  "launches_by_mode from the modes path's routes; "
                  "*_k1_130_n2_*: e2e_rt's 130-channel update stack (N=2, "
                  "bf16 and float32; the wide instance in bf16); "
+                 "*_step_large_mc, *_step_e2e_mc: the kernel's ms and "
+                 "launches a Monte-Carlo step (profiler) of nrx_large "
+                 "(batch 30) and e2e_rt (batch 20) with their committed "
+                 "weights, float32, and their bound; "
                  "library: no PyTorch call computes a separable stack"},
         {"name": "cgnn_iter", "route": "cuda",
          "source": "neural_rx_tpu_torch/csrc/cgnn_iter.cu",
@@ -3671,7 +4071,7 @@ def main() -> int:
          "bound_by": iteration["bound_by"], "library_ms": None,
          **mc_keys("cgnn_iter"), **width_keys("cgnn_iter"),
          **shard_keys("cgnn_iter"), **mode_keys("cgnn_iter"),
-         **e2e_keys("cgnn_iter"),
+         **e2e_keys("cgnn_iter"), **large_keys("cgnn_iter"),
          "note": "one launch in state mode at batch 16 (b=16, T=2, "
                  "14x1584), bf16; *_mc: the mc path's launch (float32, "
                  "b=30); *_w48, *_w3276: the deploy engine's launch at the "
@@ -3682,6 +4082,10 @@ def main() -> int:
                  "at batch 16 beside the normal mode's time from the same "
                  "turns; *_k3_e2e_b16_*: e2e_rt's iteration (130-channel "
                  "update stack) at batch 16, state mode, bf16 and float32; "
+                 "*_step_large_mc, *_step_e2e_mc: the 8 (nrx_large, batch "
+                 "30) and 4 (e2e_rt, batch 20) launches of a Monte-Carlo "
+                 "step with the committed weights, float32, summed "
+                 "(profiler), and their bound; "
                  "library: no PyTorch call "
                  "computes the aggregation MLP, user sum and separable "
                  "stack"},
@@ -3723,7 +4127,7 @@ def main() -> int:
          "ms": ldpc_time["kernel_ms"], "plain_ms": ldpc_time["plain_ms"],
          "bound_ms": ldpc_time["bound_ms"],
          "bound_by": ldpc_time["bound_by"], "library_ms": None,
-         **mc_keys("ldpc_decode"),
+         **mc_keys("ldpc_decode"), **large_keys("ldpc_decode"),
          "ms_base_1ue": base_ldpc_1ue["kernel_ms"],
          "plain_ms_base_1ue": base_ldpc_1ue["plain_ms"],
          "bound_ms_base_1ue": base_ldpc_1ue["bound_ms"],
@@ -3742,7 +4146,11 @@ def main() -> int:
                  "*_dist_75: 75 codewords (a rank's launch on a data-2 "
                  "mesh, batch 15); "
                  "*_var_qpsk: one user's MCS-9 (QPSK) codewords of a "
-                 "batch-30 nrx_rt_var_mcs step; 20 iterations, float32; max_abs_err on hard bits "
+                 "batch-30 nrx_rt_var_mcs step; *_step_large_mc, "
+                 "*_step_e2e_mc: the launches of a Monte-Carlo step of "
+                 "nrx_large (2 x 150 codewords) and e2e_rt (1 user, batch "
+                 "20), summed (profiler); 20 iterations, float32; "
+                 "max_abs_err on hard bits "
                  "(0 or 1); bound: 10 f32 operations per edge, lane and "
                  "iteration at the card's f32 rate, LLRs read and bits "
                  "written once; library: no PyTorch call decodes LDPC"}]})

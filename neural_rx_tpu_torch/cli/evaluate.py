@@ -100,7 +100,7 @@ def main(argv=None):
         else:
             wpath = args.weights or weights.committed_weights(
                 p.label, args.weights_dir or weights.WEIGHTS_DIR)
-            if not os.path.exists(wpath):
+            if not weights.exists(wpath):
                 raise FileNotFoundError(
                     f"no weights at {wpath}: convert them with "
                     "scripts/torch_port_export_weights.py, or pass "

@@ -66,7 +66,7 @@ def main(argv=None):
     if args.warm_start is not None:
         path = args.warm_start or os.path.join(
             args.weights_dir, f"{p.label}_weights.npz")
-        if not args.warm_start and not os.path.exists(path):
+        if not args.warm_start and not weights.exists(path):
             path = weights.committed_weights(p.label)
         src = (load_checkpoint(path, device)[0] if path.endswith(".pt")
                else load_weights(path, device))

@@ -48,8 +48,6 @@ seed-made parameters.
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import torch
 
@@ -340,7 +338,7 @@ def deploy_entry(config: str = "nrx_rt", buckets=DEFAULT_PRB_BUCKETS,
         p = params_at(min(buckets))
         path = weights.committed_weights(p.label, weights_dir)
         params = weights.load_tree(path, device=device) \
-            if os.path.exists(path) else receiver_for(
+            if weights.exists(path) else receiver_for(
                 p, device=device).init_params(
                     torch.Generator(device=device).manual_seed(0))
     receiver = BucketedReceiver(make_engine, pack_params(params, dtype),

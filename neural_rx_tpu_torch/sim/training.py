@@ -229,9 +229,11 @@ def load_checkpoint(path: str, device="cpu"):
     return weights.unflatten(d["params"]), d["opt_state"], d["step"]
 
 
-def save_weights(path: str, params) -> None:
-    """Weights only, as `.npz` of named leaves (`weights.save`)."""
-    weights.save(path, params)
+def save_weights(path: str, params) -> list:
+    """Weights only, as `.npz` of named leaves (`weights.save`: in parts
+    where one file would reach `weights.PART_LIMIT`). Returns the paths
+    written."""
+    return weights.save(path, params)
 
 
 def load_weights(path: str, device="cpu") -> dict:

@@ -10,11 +10,26 @@ under those names and a trainable constellation's point arrays as
 "constellation.0", ... (one per MCS). `load_tree` also reads the
 reference's own weight files (`compat/reference_weights.py`), onto the
 structure of a template tree.
+
+No weight file is 1,000,000 B or more. A tree whose `.npz` would be that
+large is written as parts, `{stem}.part0.npz`, `{stem}.part1.npz`, ...:
+its leaves in sorted name order, each part as many as fit under the limit,
+each holding `PART_KEY` = [index, count]. `load_tree("{stem}.npz")` reads
+the parts where the single file is absent. nrx_large's committed weights
+are `nrx_large_weights.part*.npz`, from `nrx_large_weights.pkl`, the file
+the JAX package's evaluate CLI loads; its EMA copy is not converted, since
+`committed_weights` prefers an EMA file and the port would then evaluate
+other weights than that CLI. e2e_rt's are `e2e_rt_ema_weights.part*.npz`,
+from `e2e_rt_ema.pkl`, with the learned constellation (the JAX CLI finds no
+`e2e_rt_weights.pkl` and evaluates its random init instead).
 """
 
 from __future__ import annotations
 
+import glob
+import io
 import os
+import re
 
 import numpy as np
 import torch
@@ -34,12 +49,119 @@ def committed_weights(label: str, weights_dir: str = WEIGHTS_DIR) -> str:
     """Path of the committed weights of configuration `label` in
     weights_dir: its EMA weights, or {label}_weights.npz where only those
     are committed (nrx_rt_var_mcs: the EMA pickle of that configuration
-    reproduces no committed curve, ROADMAP.md C4; nrx_site_specific_100k).
-    Each `.npz` is named after the JAX pickle it was converted from."""
+    reproduces no committed curve, ROADMAP.md C4; nrx_site_specific_100k;
+    nrx_large). Each `.npz` is named after the JAX pickle it was converted
+    from; either may be stored as parts (`exists`)."""
     path = ema_weights(label, weights_dir)
     other = os.path.join(weights_dir, f"{label}_weights.npz")
-    return other if not os.path.exists(path) and os.path.exists(other) \
-        else path
+    return other if not exists(path) and exists(other) else path
+
+
+PART_LIMIT = 1_000_000  # bytes: every weight file stays under it
+PART_KEY = "__part__"  # [index, count] in each part
+
+
+def part_path(path: str, index: int) -> str:
+    """Path of part `index` of the `.npz` path: {stem}.part{index}.npz."""
+    return f"{path[:-len('.npz')]}.part{index}.npz"
+
+
+def _part_glob(path: str) -> list:
+    return glob.glob(glob.escape(path[:-len(".npz")]) + ".part*.npz")
+
+
+def exists(path: str) -> bool:
+    """Whether the `.npz` path is on disk, as one file or as parts."""
+    return os.path.exists(path) or os.path.exists(part_path(path, 0))
+
+
+def _part_files(path: str) -> list:
+    """The files of the parts of path, in order; raises where a part is
+    missing or the parts disagree on their count."""
+    stem = re.escape(os.path.basename(path[:-len(".npz")]))
+    found = {int(m.group(1)): f for f in _part_glob(path)
+             if (m := re.fullmatch(stem + r"\.part(\d+)\.npz",
+                                   os.path.basename(f)))}
+    if not found:
+        raise FileNotFoundError(f"no weights at {path} (nor its parts)")
+    with np.load(found[min(found)]) as f:
+        count = int(f[PART_KEY][1])
+    missing = sorted(set(range(count)) - set(found))
+    if missing or len(found) != count:
+        raise FileNotFoundError(f"{path}: {count} parts, found "
+                                f"{sorted(found)}, missing {missing}")
+    return [found[i] for i in range(count)]
+
+
+def _read_leaves(path: str) -> dict:
+    """{name: array} of the `.npz` path, or of its parts where the single
+    file is absent; raises where a leaf appears in two parts."""
+    if os.path.exists(path):
+        with np.load(path) as f:
+            return {k: f[k] for k in f.files}
+    files = _part_files(path)
+    leaves = {}
+    for i, name in enumerate(files):
+        with np.load(name) as f:
+            index, count = (int(v) for v in f[PART_KEY])
+            if (index, count) != (i, len(files)):
+                raise ValueError(f"{name} says part {index} of {count}")
+            for k in f.files:
+                if k == PART_KEY:
+                    continue
+                if k in leaves:
+                    raise ValueError(f"leaf {k} in two parts of {path}")
+                leaves[k] = f[k]
+    return leaves
+
+
+def _npz_bytes(arrays: dict) -> bytes:
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def _split_parts(arrays: dict) -> list:
+    """The contents of the files that hold `arrays` ({name: array}): one
+    `.npz` where it stays under PART_LIMIT bytes, else parts, the leaves in
+    sorted name order, each part as many as fit under it (with its
+    PART_KEY)."""
+    whole = _npz_bytes(arrays)
+    if len(whole) < PART_LIMIT:
+        return [whole]
+    mark = {PART_KEY: np.zeros(2, np.int64)}
+    groups = [{}]
+    for name in sorted(arrays):
+        trial = {**groups[-1], name: arrays[name]}
+        if groups[-1] and len(_npz_bytes({**trial, **mark})) >= PART_LIMIT:
+            groups.append({name: arrays[name]})
+        else:
+            groups[-1] = trial
+    parts = [_npz_bytes({**g, PART_KEY: np.array([i, len(groups)],
+                                                 np.int64)})
+             for i, g in enumerate(groups)]
+    too_big = [len(d) for d in parts if len(d) >= PART_LIMIT]
+    if too_big:
+        raise ValueError(f"a leaf alone takes {max(too_big)} B, over the "
+                         f"limit of {PART_LIMIT} B")
+    return parts
+
+
+def write_npz(path: str, arrays: dict) -> list:
+    """Write arrays ({name: array}) to the `.npz` path, as one file or as
+    parts (`_split_parts`), replacing the file and any parts of an earlier
+    write there. Returns the paths written."""
+    parts = _split_parts(arrays)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    for name in [path] + _part_glob(path):
+        if os.path.exists(name):
+            os.remove(name)
+    names = [path] if len(parts) == 1 else [
+        part_path(path, i) for i in range(len(parts))]
+    for name, data in zip(names, parts):
+        with open(name, "wb") as f:
+            f.write(data)
+    return names
 
 
 NRX_RT_EMA = ema_weights("nrx_rt")
@@ -111,8 +233,7 @@ def load_tree(path: str, device="cuda", template: dict | None = None
         from .compat.reference_weights import load_reference_weights
         return _to(load_reference_weights(path, template),
                    resolve_device(device))
-    with np.load(path) as f:
-        leaves = {k: f[k] for k in f.files}
+    leaves = _read_leaves(path)
     points = {k: v for k, v in leaves.items()
               if k.startswith("constellation.")}
     cgnn = {k: v for k, v in leaves.items() if k not in points}
@@ -128,13 +249,12 @@ def load(path: str = NRX_RT_EMA, device="cuda"):
     return load_tree(path, device)["cgnn"]
 
 
-def save(path: str, params: dict) -> None:
+def save(path: str, params: dict) -> list:
     """Write params ({"cgnn": tree} and an optional "constellation" list)
-    as an `.npz` of named float32 leaves that `load_tree` reads."""
+    as an `.npz` of named float32 leaves that `load_tree` reads, in parts
+    where one file would reach PART_LIMIT. Returns the paths written."""
     leaves = flatten(params["cgnn"])
     if "constellation" in params:
         leaves.update(flatten({"constellation": params["constellation"]}))
-    arrays = {k: v.detach().float().cpu().numpy() for k, v in leaves.items()}
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(path, "wb") as f:
-        np.savez(f, **arrays)
+    return write_npz(path, {k: v.detach().float().cpu().numpy()
+                            for k, v in leaves.items()})

@@ -45,7 +45,24 @@ ue0_16qam}.json`, with
 
 (150 blocks a point; user 0 on QPSK, user 1 on 16-QAM), --system lslin
 without --weights, and --mixed-order 1 0 --mixed-mask 0 1 1 0 --snr 1 2 3
-for user 0 on 16-QAM (`..._ue0_16qam.json`).
+for user 0 on 16-QAM (`..._ue0_16qam.json`). nrx_large's curve with the
+committed weights, `neural_rx_tpu_torch/curves/jax_nrx_large.json` (the
+committed curve under `results/` was made with other weights, ROADMAP.md
+R10), comes from three runs started together,
+
+    JAX_PLATFORMS=cpu python scripts/torch_port_jax_baseline_curve.py \
+        --config nrx_large --system nrx \
+        --weights weights/nrx_large_weights.pkl --snr 0 1 \
+        --batch-size 10 --max-iter 20 --target-block-errors 100000 \
+        --out /tmp/jax_nrx_large_0_1.json
+
+with --snr 2 3 and --snr 4 (400 blocks a point: 2 users), merged in Eb/N0
+order by
+
+    python scripts/torch_port_jax_baseline_curve.py --merge \
+        /tmp/jax_nrx_large_0_1.json /tmp/jax_nrx_large_2_3.json \
+        /tmp/jax_nrx_large_4.json \
+        --out neural_rx_tpu_torch/curves/jax_nrx_large.json
 """
 
 import argparse
@@ -57,7 +74,35 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def merge(paths, out) -> int:
+    """One record of the records in `paths` (runs of the same system and
+    settings at other Eb/N0s): their points in Eb/N0 order."""
+    recs = []
+    for path in paths:
+        with open(path) as f:
+            recs.append(json.load(f))
+    same = {k: v for k, v in recs[0].items() if k != "curve"}
+    for rec in recs[1:]:
+        other = {k: v for k, v in rec.items() if k != "curve"}
+        if other != same:
+            raise ValueError(f"runs differ: {same} vs {other}")
+    record = {**same, "curve": sorted(
+        (pt for rec in recs for pt in rec["curve"]),
+        key=lambda pt: pt["ebno_db"])}
+    print(json.dumps(record), flush=True)
+    with open(out, "w") as f:
+        json.dump(record, f, indent=1)
+        f.write("\n")
+    return 0
+
+
 def main() -> int:
+    if "--merge" in sys.argv:
+        ap = argparse.ArgumentParser()
+        ap.add_argument("--merge", nargs="+", required=True)
+        ap.add_argument("--out", required=True)
+        args = ap.parse_args()
+        return merge(args.merge, args.out)
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", required=True)
     ap.add_argument("--system", required=True)

@@ -7,10 +7,13 @@
 Draws `batches` training batches as `neural_rx_tpu/sim/training.py`'s step
 samples them (triangular user count, MCS, Eb/N0 in the phase's range of the
 user count, active ports) and prints one JSON line with the mean loss_data
-of the forward (no update) and its standard error, for the given weights
-(a JAX pickle) and for the JAX package's seed-made init (PRNGKey(seed)).
-`chip_smoke.py` holds the port's warm start on the card to the first
-(`JAX_WARM_LOSS`).
+of the forward (no update; with the phase's `apply_multiloss`, as the step
+computes it: the sum over every iteration's readout) and its standard
+error, for the given weights (a JAX pickle) and for the JAX package's
+seed-made init (PRNGKey(seed)). `chip_smoke.py` holds the port's warm
+starts on the card to the first (`JAX_WARM_LOSS`: nrx_rt; and
+`JAX_LARGE_WARM_LOSS`: `--config nrx_large --weights
+weights/nrx_large_weights.pkl`).
 """
 
 import argparse
@@ -46,6 +49,7 @@ def main():
     sched = p.training_schedule
     lo = jnp.asarray(sched["min_training_snr_db"][args.phase], jnp.float32)
     hi = jnp.asarray(sched["max_training_snr_db"][args.phase], jnp.float32)
+    multiloss = bool(sched["apply_multiloss"][args.phase])
     num_mcs = len(p.mcs_index)
     b = args.batch
 
@@ -62,9 +66,11 @@ def main():
                                  maxval=hi[num_tx - p.min_num_tx])
         act = sample_active_dmrs(keys[3], b, num_tx, p.max_num_tx)
         return model(params, keys[4], b, snr, num_tx=num_tx,
-                     active_dmrs=act, mcs_ue_mask=mm)[0]
+                     active_dmrs=act, mcs_ue_mask=mm,
+                     apply_multiloss=multiloss)[0]
 
     out = {"config": args.config, "phase": args.phase, "batch": b,
+           "apply_multiloss": multiloss,
            "batches": args.batches, "device": str(jax.devices()[0])}
     for name, params in (
             ("weights", load_weights(args.weights)),
